@@ -1,0 +1,94 @@
+"""Kernel registry: one declaration per TM primitive, two bodies.
+
+Port of ``repro.kernels.backend``. Every primitive is registered with
+
+  * a **plain** body — PyTorch tensor code, the semantics oracle, runnable
+    on any device;
+  * a **kernel** body — the hand-written CUDA kernel for Hopper.
+
+The device of the tensors chooses between them, and nothing else does: a
+CPU tensor takes the plain body; a CUDA tensor launches the kernel, which
+raises if it cannot build or launch. There is no environment override and no
+fallback from the kernel to the plain body. ``TMConfig.backend`` survives
+for config and checkpoint compatibility and takes only ``'auto'``.
+
+Registered in this slice: ``clause_votes`` and ``indexed_votes``.
+``clause_outputs``, ``ta_update`` and ``index_update`` (the learning round)
+come with training in the next slice; multi-device partitioning contracts
+come with multi-device topologies.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable
+
+import torch
+
+from repro_torch.kernels import clause_eval, indexed
+
+
+@dataclasses.dataclass(frozen=True)
+class Primitive:
+    """One TM primitive: a plain body and a CUDA kernel, routed by device."""
+
+    name: str
+    plain: Callable
+    kernel: Callable
+
+    def __call__(self, *args: torch.Tensor) -> torch.Tensor:
+        """Run the body the first operand's device calls for."""
+        kind = args[0].device.type
+        if kind == "cuda":
+            return self.kernel(*args)
+        if kind == "cpu":
+            return self.plain(*args)
+        raise ValueError(
+            f"{self.name}: no body for device {args[0].device}; "
+            "'cuda' launches the kernel, 'cpu' runs the plain version")
+
+
+_PRIMITIVES: dict[str, Primitive] = {}
+
+
+def register_primitive(prim: Primitive) -> Primitive:
+    """Add a primitive to the registry (idempotent per name)."""
+    if not prim.name:
+        raise ValueError("primitive must set a non-empty name")
+    _PRIMITIVES[prim.name] = prim
+    return prim
+
+
+def get_primitive(name: str) -> Primitive:
+    """Look up a registered primitive by name (KeyError lists what exists)."""
+    try:
+        return _PRIMITIVES[name]
+    except KeyError:
+        raise KeyError(
+            f"unknown TM primitive {name!r}; registered: "
+            f"{registered_primitives()}") from None
+
+
+def registered_primitives() -> tuple[str, ...]:
+    """Registered primitive names, registration order."""
+    return tuple(_PRIMITIVES)
+
+
+def resolve(name: str) -> Primitive:
+    """Primitive name → callable that routes each call by tensor device."""
+    return get_primitive(name)
+
+
+# Fused eval + vote over packed include words (the bitpack engine).
+register_primitive(Primitive(
+    name="clause_votes",
+    plain=clause_eval.clause_votes_ref,
+    kernel=clause_eval.clause_votes_packed,
+))
+
+# Matmul-form Eq. 4 over the falsification index's membership mask (the
+# indexed engine, the default serving engine).
+register_primitive(Primitive(
+    name="indexed_votes",
+    plain=indexed.indexed_votes_ref,
+    kernel=indexed.indexed_votes,
+))
