@@ -27,8 +27,30 @@ failure, and at once when no CUDA device is present):
    prepare anything new; and each engine's kernel must have launched at
    least once per served batch. Launch counts are set to 0 just before each
    serve and read just after.
-4. Print ``{"kernels": [...]}``, the card's name and power limit as
-   ``nvidia-smi`` reports them, and, last, the ``{"ok": true, ...}`` line.
+4. **Learning kernels vs plain**, on the card: ``clause_outputs_packed`` at
+   (B, m) = (1, 1), the training round's shape, and (32, 10); ``ta_update``
+   on one (2000, 1568) class row for a target and a negative round, with a
+   mix of update gates and a quarter of the uniforms exactly at a float32
+   threshold or one ulp from it. Each must equal its plain version bit for
+   bit, in place too. Device ms (CUDA-graph replay), plain ms, bound and
+   ``call_ms`` as in phase 2; no single PyTorch call computes either
+   function, so ``library_ms`` is null.
+5. **Train** at the ``tm_mnist`` width from a trained-like state: phase 2's
+   include pattern with include depths uniform on [N+1, 2N] and exclude
+   depths on [1, N], so only cells one step from the boundary can cross it.
+   A probe step counts the crossings and sizes ``max_events_per_batch``.
+   Launch counts are set to 0, then ``TsetlinMachine.partial_fit`` runs
+   ``SEQ_STEPS`` sequential steps of B=32 and one with ``parallel=True``,
+   and ``evaluate(..., engine="indexed")`` scores held-out rows; the counts
+   are read just after. Required: each learning kernel launched 2·B times
+   per step, ``event_overflow == 0``, ``validate`` true, the bitpack cache
+   equal to a fresh pack, and the indexed and bitpack scores equal to the
+   dense ones. Then samples/s and a step's split (feedback rounds, event
+   diff, cache sync) for both modes, and one B=4 step at full width on the
+   card and on the CPU with the same draws: states and caches must be equal.
+6. Print ``{"kernels": [...]}`` (all four kernels), the card's name and
+   power limit as ``nvidia-smi`` reports them, and, last, the
+   ``{"ok": true, ...}`` line.
 
 Imports nothing of JAX and nothing of the JAX package ``repro``.
 """
@@ -47,6 +69,9 @@ import torch
 SEED = 0
 BATCHES = (1, 32)
 N_REQUESTS = 1024
+TRAIN_BATCH = 32
+SEQ_STEPS = 4
+CARD_VS_CPU_BATCH = 4
 # Peak rates of one H100 SXM. Memory: 3.35 TB/s (NVIDIA data sheet). The
 # votes are 32-bit compare and logic instructions, not FLOPs: the CUDA C++
 # Programming Guide's arithmetic-throughput table gives compute capability
@@ -113,6 +138,27 @@ def device_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def cold_device_ms(fn, arg_sets, reps: int) -> float:
+    """Device time per call of ``fn(*args)`` cycling over ``arg_sets``: one
+    CUDA graph of ``reps`` calls, each on the set least recently touched.
+    With sets that together exceed the 50 MB L2, every call reads its
+    inputs from device memory, as a byte bound assumes."""
+    k = len(arg_sets)
+    return device_ms(_Cycle(fn, arg_sets), reps * k) if k else 0.0
+
+
+class _Cycle:
+    """Callable that calls ``fn`` on the next argument set each time."""
+
+    def __init__(self, fn, arg_sets):
+        self.fn, self.arg_sets, self.i = fn, arg_sets, 0
+
+    def __call__(self):
+        args = self.arg_sets[self.i % len(self.arg_sets)]
+        self.i += 1
+        return self.fn(*args)
+
+
 def _wall_ms(fn, sync: bool = False) -> float:
     """Host wall time of one call of ``fn`` (ms); ``sync`` waits for the
     device afterwards, outside the reading."""
@@ -156,6 +202,323 @@ def requests(inc, count: int, gen, dev) -> torch.Tensor:
     rows = inc[ci, cj]
     x = torch.where(rows[:, :o], 1, x)
     return torch.where(rows[:, o:], 0, x).to(torch.uint8)
+
+
+def trained_like_state(cfg, inc, gen, dev):
+    """TA states with ``inc``'s include pattern at trained depths: include
+    states uniform on [N+1, 2N], exclude states on [1, N]. Only the cells at
+    N or N+1 can cross the boundary in one step."""
+    n_states = cfg.n_states
+    deep = torch.randint(n_states + 1, 2 * n_states + 1, inc.shape,
+                         generator=gen, device=dev)
+    shallow = torch.randint(1, n_states + 1, inc.shape, generator=gen, device=dev)
+    return torch.where(inc, deep, shallow).to(cfg.state_dtype)
+
+
+def edge_uniforms(shape, thresholds, gen, dev):
+    """Uniforms with a quarter of the cells exactly at a float32 threshold
+    or one ulp either side of it."""
+    u = torch.rand(shape, generator=gen, device=dev)
+    edges = []
+    for thr in thresholds:
+        t = np.float32(thr)
+        edges += [t, np.nextafter(t, np.float32(0)), np.nextafter(t, np.float32(1))]
+    edges = torch.tensor([e for e in edges if e < 1], device=dev)
+    pick = torch.rand(shape, generator=gen, device=dev) < 0.25
+    which = torch.randint(0, len(edges), shape, generator=gen, device=dev)
+    return torch.where(pick, edges[which], u)
+
+
+def to_device(tree, dev):
+    """Tensors, NamedTuples of them, bundles and dicts, moved to ``dev``."""
+    from repro_torch.core.api import TMBundle
+    if isinstance(tree, torch.Tensor):
+        return tree.to(dev)
+    if isinstance(tree, TMBundle):
+        return TMBundle(cfg=tree.cfg, state=to_device(tree.state, dev),
+                        caches=to_device(tree.caches, dev),
+                        event_overflow=to_device(tree.event_overflow, dev))
+    if isinstance(tree, dict):
+        return {k: to_device(v, dev) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        return type(tree)(*(to_device(v, dev) for v in tree))
+    return tree
+
+
+def learning_kernels(cfg, ta, inc, gen, dev, card) -> dict:
+    """Phase 4: each learning kernel against its plain version, timed."""
+    from repro_torch.core.bitpack import pack_bits, packed_literals
+    from repro_torch.core.types import clause_polarity, literals_from_input
+    from repro_torch.kernels import clause_eval, ta_update
+
+    n, L = cfg.n_clauses, cfg.n_literals
+    words_all = pack_bits(ta > cfg.n_states)                  # (m, n, W)
+    w = words_all.shape[-1]
+    rows = {}
+    kernel, plain = clause_eval.clause_outputs_packed, clause_eval.clause_outputs_ref
+    for b, m in ((1, 1), (32, cfg.n_classes)):
+        words = words_all[:m].contiguous()
+        lw = packed_literals(requests(inc[:m], b, gen, dev))
+        got, want = kernel(words, lw), plain(words, lw)
+        torch.cuda.synchronize()
+        err = int((got.to(torch.int32) - want.to(torch.int32)).abs().max())
+        require(torch.equal(got, want),
+                f"clause_outputs_packed (B, m)=({b}, {m}): kernel != plain "
+                f"(max |diff| {err})")
+        require(0 < int(got.sum()) < got.numel(),
+                f"clause_outputs_packed (B, m)=({b}, {m}): outputs all equal")
+        reps = 200 if b == 1 else 50
+        ms = device_ms(lambda: kernel(words, lw), reps)
+        plain_ms = device_ms(lambda: plain(words, lw), 10)
+        wrapper_ms = call_ms(lambda: kernel(words, lw), reps)
+        nbytes = words.numel() * 4 + lw.numel() * 4 + b * m * n
+        ops = m * n * w * b               # one LOP3 per include word per sample
+        bound_ms, bound_by = bound(nbytes, ops)
+        rows[("clause_outputs_packed", b)] = dict(
+            max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+            bound_by=bound_by, call_ms=wrapper_ms)
+        print(f"clause_outputs_packed (B, m, n, W)=({b}, {m}, {n}, {w}): equal "
+              f"to plain; device ms: kernel {ms:.4f}, plain {plain_ms:.4f}, "
+              f"bound {bound_ms:.5f} ({bound_by}); per call from Python "
+              f"{wrapper_ms:.4f} ms [{card}]")
+
+    row = ta[0]
+    x = requests(inc[:1], 1, gen, dev)
+    lit = literals_from_input(x)[0]
+    cout = kernel(words_all[:1], packed_literals(x))[0, 0]
+    pol = clause_polarity(cfg, dev)
+    active = torch.rand(n, generator=gen, device=dev) < 0.5
+    kw = dict(n_states=cfg.n_states, s=cfg.s,
+              boost_true_positive=cfg.boost_true_positive)
+    u = edge_uniforms((n, L), ta_update.thresholds(cfg.s, cfg.boost_true_positive),
+                      gen, dev)
+    kernel, plain = ta_update.ta_update, ta_update.ta_update_ref
+    for positive in (True, False):
+        t1 = (pol > 0) if positive else (pol <= 0)
+        args = (row, lit, cout, t1, active, u)
+        got, want = kernel(*args, **kw), plain(*args, **kw)
+        in_place = row.clone()
+        kernel(in_place, *args[1:], **kw, out=in_place)
+        torch.cuda.synchronize()
+        err = int((got.to(torch.int32) - want.to(torch.int32)).abs().max())
+        name = "target" if positive else "negative"
+        require(torch.equal(got, want) and torch.equal(in_place, want),
+                f"ta_update {name} round: kernel != plain (max |diff| {err})")
+        require(not torch.equal(got, row), f"ta_update {name} round: no change")
+        # eight copies of the row and its uniforms (~19 MB a set) outrun the
+        # L2, so each timed call reads them from device memory
+        sets = [(row.clone(), lit, cout, t1, active, u.clone())
+                for _ in range(8)]
+        ms = cold_device_ms(lambda *a: kernel(*a, **kw), sets, 8)
+        hot_ms = device_ms(lambda: kernel(*args, **kw), 50)
+        plain_ms = cold_device_ms(lambda *a: plain(*a, **kw), sets, 2)
+        wrapper_ms = call_ms(lambda: kernel(*args, **kw), 50)
+        del sets
+        # states read and written, the literals and gates, and the uniforms
+        # of the rows that take Type I feedback: no other row needs its own
+        type_i_rows = int((active & t1).sum())
+        nbytes = 2 * n * L * 2 + type_i_rows * L * 4 + L + 3 * n
+        dense_bytes = 2 * n * L * 2 + n * L * 4 + L + 3 * n
+        ops = 4 * n * L      # two threshold compares, an add and a clamp per cell
+        bound_ms, bound_by = bound(nbytes, ops)
+        rows[("ta_update", positive)] = dict(
+            max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+            bound_by=bound_by, call_ms=wrapper_ms)
+        print(f"ta_update {name} round ({n}, {L}), {type_i_rows} Type I rows "
+              f"active: equal to plain, in place too; device ms (inputs cold "
+              f"in L2): kernel {ms:.4f}, plain {plain_ms:.4f}; kernel with "
+              f"inputs hot in L2 {hot_ms:.4f}; bound {bound_ms:.5f} "
+              f"({bound_by}; {nbytes / 1e6:.2f} MB; all uniforms read: "
+              f"{dense_bytes / 1e6:.2f} MB, {dense_bytes / PEAK_BYTES_PER_S * 1e3:.5f} "
+              f"ms); per call from Python {wrapper_ms:.4f} ms [{card}]")
+    return rows
+
+
+def profile_step(session, bundle, xb, yb, dev, card) -> None:
+    """Trace one sequential train step with ``torch.profiler``: the device's
+    busy share of the step (kernel-level events only), device time by
+    PyTorch op, and the port's own kernels, which no op launches."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core import api
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 5)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        api.train_step(bundle, xb, yb, g, max_events=session.max_events)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+
+    def dev_ms(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0)) / 1e3
+
+    events = prof.key_averages()
+    on_device = [e for e in events
+                 if str(getattr(e, "device_type", "")).endswith("CUDA")]
+    busy = sum(dev_ms(e) for e in on_device)
+    if busy == 0:
+        print("profile: the profiler recorded no device time (not measured)")
+        return
+    ops = sorted((e for e in events if e.key.startswith("aten::")),
+                 key=dev_ms, reverse=True)[:6]
+    ours = {k: sum(dev_ms(e) for e in on_device if k in e.key)
+            for k in ("clause_outputs_kernel", "ta_update_kernel")}
+    print(f"profile [sequential, B={len(yb)}]: step wall {wall_ms:.3f} ms "
+          f"under the profiler, device busy {busy:.3f} ms "
+          f"({100 * busy / wall_ms:.1f}%) in "
+          f"{sum(e.count for e in on_device)} device events; device ms by op: "
+          + ", ".join(f"{e.key} {dev_ms(e):.3f}/{e.count} calls" for e in ops)
+          + "; the port's kernels: "
+          + ", ".join(f"{k} {v:.3f}" for k, v in ours.items()) + f" [{card}]")
+
+
+def train(cfg, inc, gen, dev, card) -> dict:
+    """Phase 5: train at the tm_mnist width through the estimator."""
+    from repro_torch.core import api, indexing, tm
+    from repro_torch.core.bitpack import pack_bits
+    from repro_torch.core.session import TsetlinMachine
+    from repro_torch.core.types import TMState, include_mask
+    from repro_torch.data.synthetic import templated_images
+    from repro_torch.kernels import clause_eval, indexed, ta_update
+
+    b_size, engines = TRAIN_BATCH, ("indexed", "bitpack", "dense")
+    ta0 = trained_like_state(cfg, inc, gen, dev)
+    rng = np.random.default_rng(SEED)
+    templates = rng.uniform(size=(cfg.n_classes, cfg.n_features)) < 0.3
+    xs, ys = templated_images(templates, b_size * (SEQ_STEPS + 3), rng=rng)
+    batches = [(xs[i:i + b_size], ys[i:i + b_size])
+               for i in range(0, len(xs), b_size)]
+    x_test, y_test = templated_images(templates, 256, rng=rng)
+
+    # size the event buffer from a probe step's boundary crossings
+    probe = tm.update_batch_sequential(
+        cfg, TMState(ta0), *batches[0],
+        torch.Generator(device=dev).manual_seed(SEED + 1))
+    crossings = int((include_mask(cfg, probe) != (ta0 > cfg.n_states)).sum())
+    max_events = max(1024, 1 << (4 * crossings - 1).bit_length())
+    print(f"train: probe step of B={b_size} crossed the boundary in "
+          f"{crossings} cells; max_events_per_batch={max_events}")
+
+    machine = TsetlinMachine(cfg, engines=engines, device=dev, seed=SEED,
+                             max_events_per_batch=max_events)
+    machine.bundle = machine.session.prepare(TMState(ta_state=ta0))
+    batch_parallel = TsetlinMachine(cfg, engines=engines, device=dev,
+                                    seed=SEED + 2, parallel=True,
+                                    max_events_per_batch=max_events)
+    counters = (clause_eval.clause_outputs_packed, ta_update.ta_update,
+                indexed.indexed_votes, clause_eval.clause_votes_packed)
+    for c in counters:
+        c.launches = 0
+    seq_s, events = [], []
+    for xb, yb in batches[1:1 + SEQ_STEPS]:
+        before = include_mask(cfg, machine.state)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        machine.partial_fit(xb, yb)
+        torch.cuda.synchronize()
+        seq_s.append(time.perf_counter() - t0)
+        events.append(int((include_mask(cfg, machine.state) != before).sum()))
+    require(clause_eval.clause_outputs_packed.launches
+            == ta_update.ta_update.launches == 2 * b_size * SEQ_STEPS,
+            f"sequential steps: {clause_eval.clause_outputs_packed.launches} "
+            f"clause_outputs and {ta_update.ta_update.launches} ta_update "
+            f"launches, want {2 * b_size * SEQ_STEPS} each")
+    batch_parallel.bundle = machine.bundle
+    before = include_mask(cfg, machine.state)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    batch_parallel.partial_fit(*batches[1 + SEQ_STEPS])
+    torch.cuda.synchronize()
+    par_s = time.perf_counter() - t0
+    events.append(int((include_mask(cfg, batch_parallel.state) != before).sum()))
+    accuracy = batch_parallel.evaluate(x_test, y_test, engine="indexed")
+    launches = {c.__name__: c.launches for c in counters}
+    require(launches["clause_outputs_packed"] == launches["ta_update"]
+            == 2 * b_size * (SEQ_STEPS + 1),
+            f"training launches {launches}: want 2·B per step")
+    require(launches["indexed_votes"] >= 1,
+            f"evaluate(engine='indexed') launched no indexed_votes: {launches}")
+
+    bundle = batch_parallel.bundle
+    require(batch_parallel.event_overflow == 0,
+            f"event_overflow {batch_parallel.event_overflow} after training")
+    checks = indexing.validate(cfg, bundle.state, bundle.index)
+    require(all(bool(v) for v in checks.values()), f"validate: {checks}")
+    require(torch.equal(bundle.caches["bitpack"],
+                        pack_bits(include_mask(cfg, bundle.state))),
+            "bitpack cache != a fresh pack of the trained state")
+    dense = batch_parallel.scores(x_test, engine="dense")
+    for engine in ("indexed", "bitpack"):
+        require(torch.equal(batch_parallel.scores(x_test, engine=engine), dense),
+                f"{engine} scores != dense scores after training")
+    # the first step pays the caches' first event sync (allocator growth)
+    seq_rate = b_size * (SEQ_STEPS - 1) / sum(seq_s[1:])
+    print(f"train: {SEQ_STEPS} sequential steps of B={b_size} in "
+          f"{[round(t * 1e3, 3) for t in seq_s]} ms ({seq_rate:.1f} samples/s "
+          f"after the first), "
+          f"one parallel step in {par_s * 1e3:.3f} ms ({b_size / par_s:.1f} "
+          f"samples/s); boundary crossings per step {events}; launches "
+          f"{launches}; overflow 0, validate clean, caches equal a rebuild, "
+          f"indexed and bitpack scores equal dense; held-out accuracy "
+          f"{accuracy:.4f} [{card}]")
+
+    # where a step's time goes: the three stages of api.train_step, timed apart
+    split = {}
+    xb, yb = batches[-1]
+    for mode, update in (("sequential", tm.update_batch_sequential),
+                         ("parallel", tm.update_batch_parallel)):
+        g = torch.Generator(device=dev).manual_seed(SEED + 3)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        new_state = update(cfg, bundle.state, xb, yb, g)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        buf = indexing.events_from_transition(
+            include_mask(cfg, bundle.state), include_mask(cfg, new_state),
+            max_events)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        api.sync_caches(bundle, new_state, buf)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        split[mode] = dict(feedback_ms=(t1 - t0) * 1e3, diff_ms=(t2 - t1) * 1e3,
+                           sync_ms=(t3 - t2) * 1e3,
+                           events=int(buf.events.valid.sum()))
+        print(f"step split [{mode}, B={b_size}]: feedback rounds "
+              f"{split[mode]['feedback_ms']:.3f} ms, event diff "
+              f"{split[mode]['diff_ms']:.3f} ms, cache sync "
+              f"{split[mode]['sync_ms']:.3f} ms, {split[mode]['events']} events "
+              f"[{card}]")
+
+    # the device's share of a sequential step, by op, from the profiler
+    profile_step(batch_parallel.session, bundle, xb, yb, dev, card)
+
+    # one step at full width on the card and on the CPU, same draws
+    b4 = CARD_VS_CPU_BATCH
+    draws = tm.draw_sample_draws(
+        cfg, torch.Generator(device=dev).manual_seed(SEED + 4), b4)
+    xb, yb = batches[0][0][:b4], batches[0][1][:b4]
+    on_card = api.train_step(bundle, xb, yb, draws, max_events=max_events)
+    t0 = time.perf_counter()
+    on_cpu = api.train_step(to_device(bundle, "cpu"), xb, yb,
+                            to_device(draws, "cpu"), max_events=max_events)
+    cpu_s = time.perf_counter() - t0
+    require(torch.equal(on_card.state.ta_state.cpu(), on_cpu.state.ta_state),
+            "card step != CPU step: TA states differ")
+    require(not torch.equal(on_cpu.state.ta_state, bundle.state.ta_state.cpu()),
+            "card-vs-CPU step changed nothing")
+    require(torch.equal(on_card.caches["bitpack"].cpu(), on_cpu.caches["bitpack"]),
+            "card step != CPU step: bitpack caches differ")
+    for name, a, c in zip(("lists", "counts", "pos"), on_card.index, on_cpu.index):
+        require(torch.equal(a.cpu(), c), f"card step != CPU step: index {name}")
+    require(int(on_card.event_overflow) == int(on_cpu.event_overflow),
+            "card step != CPU step: event_overflow")
+    print(f"card vs CPU: one B={b4} sequential step at full width gives equal "
+          f"states and caches on both (CPU step {cpu_s:.2f} s)")
+    return dict(launches=launches, seq_rate=seq_rate, par_rate=b_size / par_s,
+                split=split)
 
 
 def main() -> int:
@@ -311,7 +674,13 @@ def main() -> int:
               f"device busy {100 * busy_ms / trip_ms:.1f}% of the round trip "
               f"[{card}]")
 
-    # -- 4. report ----------------------------------------------------------
+    # -- 4. learning kernels vs plain ------------------------------------------
+    rows.update(learning_kernels(cfg, ta, inc, gen, dev, card))
+
+    # -- 5. train through the entry points --------------------------------------
+    trained = train(cfg, inc, gen, dev, card)
+
+    # -- 6. report ----------------------------------------------------------
     top = BATCHES[-1]
     kernels = []
     for kname, engine, src, replaces in (
@@ -329,6 +698,22 @@ def main() -> int:
                         # float32 matmul they are built on is the yardstick
                         "library_ms": None, "yardstick_ms": r["yardstick_ms"],
                         "call_ms": r["call_ms"]})
+    # the learning kernels at the training round's shapes
+    for kname, key, src, replaces in (
+            ("clause_outputs_packed", ("clause_outputs_packed", 1),
+             "src/repro_torch/csrc/clause_outputs.cu",
+             "src/repro/kernels/clause_eval.py:121"),
+            ("ta_update", ("ta_update", True), "src/repro_torch/csrc/ta_update.cu",
+             "src/repro/kernels/ta_update.py:35")):
+        r = rows[key]
+        kernels.append({"name": kname, "route": "cuda", "source": src,
+                        "replaces": replaces,
+                        "launches": trained["launches"][kname],
+                        "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+                        "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                        "bound_by": r["bound_by"],
+                        # no single PyTorch call computes either function
+                        "library_ms": None, "call_ms": r["call_ms"]})
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -7,7 +7,10 @@ Both functions take plain Python and numpy values, so a caller holding a
     state = state_from_reference(cfg, np.asarray(jax_state.ta_state), "cuda")
 
 Checkpoints are the other way across: ``TsetlinMachine.load`` reads a
-schema-v1 checkpoint written by either package.
+schema-v1 checkpoint written by either package. Randomness crosses through
+:func:`draws_from_reference`: the reference's draws for a batch, as numpy
+arrays, become the port's ``SampleDraws``, so both packages can train on
+identical uniforms.
 """
 from __future__ import annotations
 
@@ -16,6 +19,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from repro_torch.core.tm import FeedbackRands, SampleDraws
 from repro_torch.core.types import TMConfig, TMState, resolve_device
 
 
@@ -47,3 +51,27 @@ def state_from_reference(cfg: TMConfig, ta_state: np.ndarray,
         raise ValueError(f"ta_state shape {ta.shape} != config's {want}")
     return TMState(ta_state=torch.from_numpy(np.ascontiguousarray(ta)).to(
         device=resolve_device(device), dtype=cfg.state_dtype))
+
+
+def draws_from_reference(neg_raw, target_gate, target_type_i, other_gate,
+                         other_type_i, device) -> SampleDraws:
+    """``SampleDraws`` on ``device`` from a batch of the reference's draws.
+
+    ``neg_raw`` (B,) is the reference's raw negative-class draw
+    (``randint(k_neg, (), 0, m-1)`` before its shift past the label); the
+    ``*_gate`` (B, n) and ``*_type_i`` (B, n, 2o) arrays are its
+    ``draw_feedback_rands`` for the target round (``k_a``) and the negative
+    round (``k_b``).
+    """
+    dev = resolve_device(device)
+
+    def t(a, dtype):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device=dev,
+                                                            dtype=dtype)
+
+    return SampleDraws(
+        neg_raw=t(neg_raw, torch.int64),
+        target=FeedbackRands(t(target_gate, torch.float32),
+                             t(target_type_i, torch.float32)),
+        other=FeedbackRands(t(other_gate, torch.float32),
+                            t(other_type_i, torch.float32)))

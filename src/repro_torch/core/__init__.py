@@ -1,5 +1,6 @@
-"""Paper core (PyTorch port): TM forward pass, clause index construction,
-evaluation engines, bundle API, session and estimator."""
+"""Paper core (PyTorch port): TM forward pass and learning, the clause
+index and its maintenance, evaluation engines, bundle API, session and
+estimator."""
 from repro_torch.core.types import (
     TMConfig,
     TMState,
@@ -9,16 +10,31 @@ from repro_torch.core.types import (
     literals_from_input,
 )
 from repro_torch.core.tm import (
+    FeedbackRands,
+    SampleDraws,
     accuracy,
     clause_votes,
     dense_clause_outputs,
+    draw_feedback_rands,
+    draw_negatives,
+    draw_sample_draws,
     predict,
     scores,
+    update_batch_parallel,
+    update_batch_sequential,
+    update_sample,
 )
 from repro_torch.core.indexing import (
     ClauseIndex,
+    Event,
+    EventBuffer,
+    apply_events,
     build_index,
+    delete,
     empty_index,
+    events_from_transition,
+    index_update,
+    insert,
     validate,
 )
 from repro_torch.core.engines import (
@@ -35,6 +51,8 @@ from repro_torch.core.api import (
     bundle_scores,
     cache_keys_for,
     init_bundle,
+    sync_caches,
+    train_step,
 )
 from repro_torch.core.session import (
     TMSession,
@@ -44,10 +62,14 @@ from repro_torch.core.session import (
 
 __all__ = [
     "TMConfig", "TMState", "clause_polarity", "include_mask", "init_tm",
-    "literals_from_input", "accuracy", "clause_votes", "dense_clause_outputs",
-    "predict", "scores", "ClauseIndex", "build_index", "empty_index",
-    "validate", "EvalEngine", "cache_provider", "get_engine",
+    "literals_from_input", "FeedbackRands", "SampleDraws", "accuracy",
+    "clause_votes", "dense_clause_outputs", "draw_feedback_rands",
+    "draw_negatives", "draw_sample_draws", "predict", "scores",
+    "update_batch_parallel", "update_batch_sequential", "update_sample",
+    "ClauseIndex", "Event", "EventBuffer", "apply_events", "build_index",
+    "delete", "empty_index", "events_from_transition", "index_update",
+    "insert", "validate", "EvalEngine", "cache_provider", "get_engine",
     "register_engine", "registered_engines", "DEFAULT_ENGINE", "TMBundle",
     "bundle_predict", "bundle_scores", "cache_keys_for", "init_bundle",
-    "TMSession", "Topology", "TsetlinMachine",
+    "sync_caches", "train_step", "TMSession", "Topology", "TsetlinMachine",
 ]

@@ -1,9 +1,10 @@
-"""TM bundle API — port of ``repro.core.api`` (serving half).
+"""TM bundle API — port of ``repro.core.api``.
 
 ``TMBundle`` bundles the ``TMConfig`` with the TA state and the
 per-``cache_key`` engine caches: one value carries everything needed to
-serve through any registered engine. ``train_step`` and ``sync_caches``
-come with training in the next slice.
+train and to serve through any registered engine. ``train_step`` runs the
+dense Type I/II feedback over a batch, diffs the include masks into an
+event buffer, and lets every cache absorb the events (``sync_caches``).
 """
 from __future__ import annotations
 
@@ -13,9 +14,10 @@ from typing import Any, Iterable
 
 import torch
 
-from repro_torch.core import indexing
+from repro_torch.core import indexing, tm
 from repro_torch.core.engines import cache_provider, get_engine, registered_engines
-from repro_torch.core.types import TMConfig, TMState, init_tm, resolve_device
+from repro_torch.core.types import (
+    TMConfig, TMState, include_mask, init_tm, resolve_device)
 
 DEFAULT_ENGINE = "indexed"
 
@@ -24,8 +26,10 @@ DEFAULT_ENGINE = "indexed"
 class TMBundle:
     """Config + TA state + engine caches.
 
-    ``event_overflow`` counts cache-sync events dropped during training
-    (a 0-d int32 tensor; always 0 until training is ported).
+    ``event_overflow`` counts the cache-sync events dropped by the
+    fixed-size buffer since the bundle was prepared (a 0-d int32 tensor on
+    the bundle's device): non-zero means the caches are stale, and
+    ``max_events`` was too small for some step.
     """
 
     cfg: TMConfig
@@ -108,3 +112,44 @@ def bundle_predict(bundle: TMBundle, x: torch.Tensor, *,
                    engine: str = DEFAULT_ENGINE) -> torch.Tensor:
     """(B, o) → (B,) argmax class via a registered engine."""
     return torch.argmax(bundle_scores(bundle, x, engine=engine), dim=-1)
+
+
+def sync_caches(bundle: TMBundle, new_state: TMState,
+                buf: indexing.EventBuffer) -> TMBundle:
+    """New bundle whose caches absorbed the buffer's events through their
+    providers; the overflow counter accumulates the buffer's."""
+    caches = {key: cache_provider(key).update_cache(
+                  bundle.cfg, cache, new_state, buf.events)
+              for key, cache in bundle.caches.items()}
+    overflow = buf.overflow
+    if bundle.event_overflow is not None:
+        overflow = overflow + bundle.event_overflow
+    return TMBundle(cfg=bundle.cfg, state=new_state, caches=caches,
+                    event_overflow=overflow)
+
+
+def train_step(bundle: TMBundle, xs, ys, draws, mask=None, *,
+               parallel: bool = False, max_events: int = 4096) -> TMBundle:
+    """One learning step over a batch; every engine cache stays in sync.
+
+    Dense Type I/II feedback (sequential, or the batch-parallel
+    approximation when ``parallel``), then the include-mask diff as a
+    buffer of at most ``max_events`` boundary crossings, replayed into each
+    cache. Crossings past the buffer are dropped and counted into the
+    returned bundle's ``event_overflow``: size ``max_events`` to the load
+    and check that the counter stays 0.
+
+    ``xs`` (B, o) {0,1} and ``ys`` (B,) labels (arrays or tensors);
+    ``draws`` the batch's ``tm.SampleDraws`` or a ``torch.Generator`` to
+    draw them from (``tm.draw_sample_draws`` gives the order); ``mask``
+    (B,) bool marks valid rows — padded rows consume their draws and apply
+    no update. Returns a new bundle; the input bundle is not modified.
+    """
+    cfg = bundle.cfg
+    old_inc = include_mask(cfg, bundle.state)
+    update = (tm.update_batch_parallel if parallel
+              else tm.update_batch_sequential)
+    new_state = update(cfg, bundle.state, xs, ys, draws, mask=mask)
+    buf = indexing.events_from_transition(
+        old_inc, include_mask(cfg, new_state), max_events)
+    return sync_caches(bundle, new_state, buf)

@@ -5,15 +5,16 @@ very different work profiles (exhaustive vs the falsification index).
 
   * ``EvalEngine`` — ``prepare(cfg, state) -> cache`` builds the engine's
     cache (packed include words, ``ClauseIndex``); ``scores(cfg, cache, x)``
-    evaluates from the cache alone.
+    evaluates from the cache alone; ``update_cache`` absorbs the include /
+    exclude events of a training step.
   * ``register_engine`` / ``get_engine`` / ``registered_engines`` /
     ``cache_provider`` — the registry. ``dense``, ``bitpack`` and
     ``indexed`` register at import.
 
 The packed and indexed engines score through the kernel registry
 (``kernels/backend.py``), where the tensors' device picks the CUDA kernel
-or the plain body. Incremental ``update_cache`` (training), the ``compact``
-engine and the ``bitpack_xla`` alias come in later slices.
+or the plain body. The ``compact`` engine and the ``bitpack_xla`` alias
+come in later slices.
 
 All engines implement the paper's Eq. 4 convention (empty clauses count as
 true); with ``cfg.empty_clause_output == 0`` only ``dense`` follows the
@@ -24,7 +25,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core import indexing, tm
-from repro_torch.core.bitpack import pack_bits, packed_literals
+from repro_torch.core.bitpack import WORD, pack_bits, packed_literals
 from repro_torch.core.types import (
     TMConfig, TMState, clause_polarity, include_mask, literals_from_input)
 from repro_torch.kernels import backend as kbackend
@@ -52,11 +53,16 @@ class EvalEngine:
         """(B, o) inputs → (B, m) int32 class scores from the cache alone."""
         raise NotImplementedError
 
-    def update_cache(self, cfg: TMConfig, cache, state: TMState, events):
-        """Absorb TA boundary crossings (training)."""
-        raise NotImplementedError(
-            "incremental cache maintenance comes with training, in slice 2 "
-            "of the PyTorch port")
+    def update_cache(self, cfg: TMConfig, cache, state: TMState,
+                     events: indexing.Event):
+        """Absorb TA boundary crossings; the default rebuilds.
+
+        ``state`` is the post-update TA state and ``events`` the include-mask
+        diff that produced it (``indexing.events_from_transition``); the
+        cache must have been in sync with the pre-update state.
+        """
+        del events
+        return self.prepare(cfg, state)
 
 
 _REGISTRY: dict[str, EvalEngine] = {}
@@ -108,6 +114,33 @@ class DenseEngine(EvalEngine):
     def scores(self, cfg: TMConfig, cache: TMState, x: torch.Tensor) -> torch.Tensor:
         return tm.scores(cfg, cache, x)
 
+    def update_cache(self, cfg, cache, state, events):
+        del events
+        return state  # the new state is the new cache
+
+
+def packed_include_apply_events(words: torch.Tensor,
+                                events: indexing.Event) -> torch.Tensor:
+    """Flip the include bits a masked event buffer names; returns new words.
+
+    Events from ``events_from_transition`` touch distinct (i, j, k) cells
+    and always cross the boundary in their stated direction, so each one
+    flips its bit: XOR. The reference adds ``0xFFFFFFFF·mask`` in uint32
+    instead, which int32 words cannot do exactly at bit 31. The flips of
+    one word are distinct powers of two, so they gather into one int64 mask
+    per word by an exact sum (in any order), wrapped to the int32 word.
+    """
+    m, n, w = words.shape
+    v = events.valid.to(torch.bool)
+    lit = events.literal.long()
+    word = ((events.cls.long() * n + events.clause.long()) * w
+            + torch.div(lit, WORD, rounding_mode="floor"))
+    bit = torch.where(v, torch.ones_like(lit) << (lit % WORD), 0)
+    flips = torch.zeros(words.numel(), dtype=torch.int64, device=words.device)
+    flips.index_put_((torch.where(v, word, 0),), bit, accumulate=True)
+    flips = torch.where(flips >= 2**31, flips - 2**32, flips).to(torch.int32)
+    return words ^ flips.reshape(words.shape)
+
 
 class BitpackEngine(EvalEngine):
     """32×-packed include words scored by the ``clause_votes`` primitive
@@ -118,6 +151,10 @@ class BitpackEngine(EvalEngine):
 
     def prepare(self, cfg: TMConfig, state: TMState) -> torch.Tensor:
         return pack_bits(include_mask(cfg, state))
+
+    def update_cache(self, cfg, cache, state, events):
+        del state
+        return packed_include_apply_events(cache, events)
 
     def scores(self, cfg, cache, x):
         return kbackend.resolve("clause_votes")(
@@ -133,6 +170,10 @@ class IndexedEngine(EvalEngine):
 
     def prepare(self, cfg: TMConfig, state: TMState) -> indexing.ClauseIndex:
         return indexing.build_index(cfg, state, cfg.resolved_index_capacity)
+
+    def update_cache(self, cfg, cache, state, events):
+        del state
+        return indexing.index_update(cache, events)
 
     def scores(self, cfg, cache, x):
         return kbackend.resolve("indexed_votes")(

@@ -1,17 +1,18 @@
 """TM execution on one device: ``Topology``, ``TMSession``, ``TsetlinMachine``
-— port of ``repro.core.session`` (serving half).
+— port of ``repro.core.session``.
 
-  * ``Topology`` — the placement spec. This slice runs on one device; a
+  * ``Topology`` — the placement spec. The port runs on one device; a
     topology over more devices raises ``NotImplementedError``.
   * ``TMSession`` — one (config × device): ``prepare`` / ``init_bundle`` /
-    ``scores`` / ``predict``, ``fingerprint`` (the serving cache key),
-    ``save`` / ``restore`` (schema-v1 checkpoints, readable by the reference
-    package), and ``lower_scores``, the counterpart of the reference's AOT
-    hook: PyTorch runs eagerly, so it returns a bound per-bucket callable
-    with the engine's cache resolved once, up front.
-  * ``TsetlinMachine`` — the estimator facade: ``init`` / ``load`` /
-    ``scores`` / ``predict`` / ``evaluate`` / ``save``. ``fit`` and
-    ``partial_fit`` come with training in the next slice.
+    ``train_step`` / ``scores`` / ``predict``, ``fingerprint`` (the serving
+    cache key), ``save`` / ``restore`` (schema-v1 checkpoints, readable by
+    the reference package), and ``lower_scores``, the counterpart of the
+    reference's AOT hook: PyTorch runs eagerly, so it returns a bound
+    per-bucket callable with the engine's cache resolved once, up front.
+  * ``TsetlinMachine`` — the estimator facade: ``init`` / ``fit`` /
+    ``partial_fit`` / ``load`` / ``scores`` / ``predict`` / ``evaluate`` /
+    ``save``. Its randomness comes from one ``torch.Generator`` on the
+    session's device, seeded by ``seed``.
 
 Every entry point takes ``device=`` (default ``"cuda"``) and raises when
 CUDA is missing, unless the caller asked for ``device="cpu"``.
@@ -30,16 +31,13 @@ from repro_torch.core.api import DEFAULT_ENGINE, TMBundle, init_bundle
 from repro_torch.core.engines import get_engine, registered_engines
 from repro_torch.core.types import TMConfig, TMState, init_tm, resolve_device
 
-_TRAINING = ("training (fit / partial_fit / train_step) comes in slice 2 of "
-             "the PyTorch port; this slice serves")
-
 
 @dataclasses.dataclass(frozen=True)
 class Topology:
     """Declarative placement for a TM.
 
     ``clause_shards`` / ``data_shards`` — kept from the reference; only 1
-    (one device) is supported in this slice. ``engines`` — engine names
+    (one device) is supported so far. ``engines`` — engine names
     whose caches the bundle maintains (None → every registered engine).
     The reference's ``backend`` override is not kept: the device of the
     tensors picks the kernel.
@@ -85,10 +83,16 @@ def _as_input(x, n_features: int, device: torch.device) -> torch.Tensor:
 
 
 class TMSession:
-    """One resolved (config × topology × device)."""
+    """One resolved (config × topology × device).
+
+    ``parallel`` picks the batch-parallel learning mode for ``train_step``
+    (default: sequential, the paper's); ``max_events`` sizes its event
+    buffer.
+    """
 
     def __init__(self, cfg: TMConfig, topology: Topology | None = None, *,
-                 engines: Iterable[str] | None = None, device="cuda"):
+                 engines: Iterable[str] | None = None, device="cuda",
+                 parallel: bool = False, max_events: int = 4096):
         if topology is None:
             topology = Topology(
                 engines=tuple(engines) if engines is not None else None)
@@ -102,6 +106,8 @@ class TMSession:
         self.device = resolve_device(device)
         self.cfg = cfg
         self.topology = topology
+        self.parallel = parallel
+        self.max_events = max_events
         self.engines = (topology.engines if topology.engines is not None
                         else registered_engines())
         for name in self.engines:
@@ -125,9 +131,15 @@ class TMSession:
         """Freshly initialised bundle (all TAs exclude)."""
         return self.prepare(init_tm(self.cfg, self.device))
 
-    def train_step(self, *args, **kwargs):
-        """Not in this slice."""
-        raise NotImplementedError(_TRAINING)
+    def train_step(self, bundle: TMBundle, xs, ys, draws,
+                   mask=None) -> TMBundle:
+        """One learning step (every maintained cache stays in sync) in this
+        session's learning mode; see ``api.train_step``. ``draws`` is the
+        batch's ``SampleDraws`` or a ``torch.Generator`` on this session's
+        device. Returns a new bundle; the input bundle is not modified."""
+        return api.train_step(
+            bundle, _as_input(xs, self.cfg.n_features, self.device), ys,
+            draws, mask, parallel=self.parallel, max_events=self.max_events)
 
     # -- execution ----------------------------------------------------------
 
@@ -198,16 +210,27 @@ class TMSession:
 class TsetlinMachine:
     """Estimator facade over a ``TMSession``.
 
-    >>> machine = TsetlinMachine.load(directory, cfg)   # device="cuda"
+    >>> machine = TsetlinMachine(cfg, seed=0)            # device="cuda"
+    >>> machine.init().fit(xs, ys, epochs=3, batch_size=128)
     >>> machine.predict(x_test, engine="indexed")
+
+    ``seed`` seeds the ``torch.Generator`` (on the session's device) that
+    every training step draws from, unless a step is handed its draws.
     """
 
     def __init__(self, cfg: TMConfig, *, topology: Topology | None = None,
-                 engines: Iterable[str] | None = None, device="cuda"):
-        self.session = TMSession(cfg, topology, engines=engines, device=device)
+                 engines: Iterable[str] | None = None, device="cuda",
+                 parallel: bool = False, max_events_per_batch: int = 4096,
+                 seed: int = 0):
+        self.session = TMSession(cfg, topology, engines=engines, device=device,
+                                 parallel=parallel,
+                                 max_events=max_events_per_batch)
         self.cfg = self.session.cfg
         self.engines = self.session.engines
         self.device = self.session.device
+        self.parallel = parallel
+        self.max_events_per_batch = max_events_per_batch
+        self.generator = torch.Generator(device=self.device).manual_seed(seed)
         self.bundle: TMBundle | None = None
 
     @property
@@ -229,13 +252,45 @@ class TsetlinMachine:
 
     # -- learning -----------------------------------------------------------
 
-    def partial_fit(self, *args, **kwargs):
-        """Not in this slice."""
-        raise NotImplementedError(_TRAINING)
+    def partial_fit(self, xs, ys, draws=None, mask=None) -> "TsetlinMachine":
+        """One train step over a batch (every maintained cache kept in
+        sync). ``draws`` (the batch's ``SampleDraws``) defaults to the
+        machine's generator; ``mask`` (B,) bool marks valid rows — padded
+        rows apply no update."""
+        bundle = self._ensure_bundle()
+        self.bundle = self.session.train_step(
+            bundle, xs, ys, self.generator if draws is None else draws, mask)
+        return self
 
-    def fit(self, *args, **kwargs):
-        """Not in this slice."""
-        raise NotImplementedError(_TRAINING)
+    def fit(self, xs, ys, *, epochs: int = 1,
+            batch_size: int | None = None) -> "TsetlinMachine":
+        """Epoch loop of ``partial_fit``, in fixed-size minibatches when
+        ``batch_size`` is set. A trailing partial batch is padded to
+        ``batch_size`` with zero rows and masked, so every sample trains once
+        per epoch and every step has one shape."""
+        n = int(xs.shape[0])
+        if batch_size is not None and n < batch_size:
+            raise ValueError(
+                f"batch_size={batch_size} exceeds dataset size "
+                f"{n}: fit would perform zero steps")
+        xs = np.asarray(xs.cpu() if isinstance(xs, torch.Tensor) else xs)
+        ys = np.asarray(ys.cpu() if isinstance(ys, torch.Tensor) else ys)
+        for _ in range(epochs):
+            if batch_size is None:
+                self.partial_fit(xs, ys)
+                continue
+            for start in range(0, n, batch_size):
+                xb, yb = xs[start:start + batch_size], ys[start:start + batch_size]
+                k = xb.shape[0]
+                mask = None  # full batches skip the masking work
+                if k < batch_size:
+                    pad = batch_size - k
+                    xb = np.concatenate([xb, np.zeros((pad,) + xb.shape[1:],
+                                                      xb.dtype)])
+                    yb = np.concatenate([yb, np.zeros((pad,), yb.dtype)])
+                    mask = np.arange(batch_size) < k
+                self.partial_fit(xb, yb, mask=mask)
+        return self
 
     # -- inference ----------------------------------------------------------
 
@@ -257,7 +312,10 @@ class TsetlinMachine:
 
     @property
     def event_overflow(self) -> int:
-        """Cache-sync events dropped in training (0: nothing trains yet)."""
+        """Cache-sync events dropped since the bundle was prepared. Non-zero
+        means ``max_events_per_batch`` was too small for some step and the
+        engine caches are stale: a config error. Reading it costs one scalar
+        transfer from the device."""
         bundle = self.bundle
         if bundle is None or bundle.event_overflow is None:
             return 0

@@ -12,10 +12,13 @@ raises if it cannot build or launch. There is no environment override and no
 fallback from the kernel to the plain body. ``TMConfig.backend`` survives
 for config and checkpoint compatibility and takes only ``'auto'``.
 
-Registered in this slice: ``clause_votes`` and ``indexed_votes``.
-``clause_outputs``, ``ta_update`` and ``index_update`` (the learning round)
-come with training in the next slice; multi-device partitioning contracts
-come with multi-device topologies.
+Registered: ``clause_votes`` and ``indexed_votes`` (serving),
+``clause_outputs`` and ``ta_update`` (the learning round), and
+``index_update`` (the index's event replay), whose one PyTorch body serves
+both devices: the reference registers one XLA body on both of its routes
+too, because the replay is scatter-bound, and no kernel exists for it, so
+the CUDA route is that body by design and not a fallback. Multi-device
+partitioning contracts come with multi-device topologies.
 """
 from __future__ import annotations
 
@@ -24,7 +27,7 @@ from typing import Callable
 
 import torch
 
-from repro_torch.kernels import clause_eval, indexed
+from repro_torch.kernels import clause_eval, indexed, ta_update
 
 
 @dataclasses.dataclass(frozen=True)
@@ -35,13 +38,13 @@ class Primitive:
     plain: Callable
     kernel: Callable
 
-    def __call__(self, *args: torch.Tensor) -> torch.Tensor:
+    def __call__(self, *args: torch.Tensor, **kwargs):
         """Run the body the first operand's device calls for."""
         kind = args[0].device.type
         if kind == "cuda":
-            return self.kernel(*args)
+            return self.kernel(*args, **kwargs)
         if kind == "cpu":
-            return self.plain(*args)
+            return self.plain(*args, **kwargs)
         raise ValueError(
             f"{self.name}: no body for device {args[0].device}; "
             "'cuda' launches the kernel, 'cpu' runs the plain version")
@@ -91,4 +94,26 @@ register_primitive(Primitive(
     name="indexed_votes",
     plain=indexed.indexed_votes_ref,
     kernel=indexed.indexed_votes,
+))
+
+# Per-clause outputs of one class row (the learning round's first half).
+register_primitive(Primitive(
+    name="clause_outputs",
+    plain=clause_eval.clause_outputs_ref,
+    kernel=clause_eval.clause_outputs_packed,
+))
+
+# Type I / Type II feedback of one class round (its second half).
+register_primitive(Primitive(
+    name="ta_update",
+    plain=ta_update.ta_update_ref,
+    kernel=ta_update.ta_update,
+))
+
+# Batched event replay into the falsification index: the same PyTorch body
+# on both devices (module docstring).
+register_primitive(Primitive(
+    name="index_update",
+    plain=indexed.index_update_batched,
+    kernel=indexed.index_update_batched,
 ))

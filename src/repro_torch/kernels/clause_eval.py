@@ -1,21 +1,23 @@
-"""Bit-packed clause evaluation fused with the vote (port of
-``repro.kernels.clause_eval``).
+"""Bit-packed clause evaluation (port of ``repro.kernels.clause_eval``).
 
     falsified(b, i, j)  ⇔  any_w( inc[i, j, w] & ~lit[b, w] ) != 0
-    votes(b, i)         =  Σ_j [not falsified] · pol(j)      (empty clause true)
+    outputs(b, i, j)    =  [not falsified]                    (empty clause true)
+    votes(b, i)         =  Σ_j outputs(b, i, j) · pol(j)
 
 Words are ``torch.int32`` carrying the reference's ``uint32`` bits
-(``core/bitpack.py``). Two bodies:
+(``core/bitpack.py``). Two primitives, each with two bodies:
 
-  * :func:`clause_votes_ref` — plain PyTorch, the counterpart of the
-    reference's ``_clause_votes_xla`` (``src/repro/kernels/backend.py:186``).
-    CPU tensors take it.
-  * :func:`clause_votes_packed` — the hand-written CUDA kernel
-    (``csrc/clause_votes.cu``) that replaces the TPU kernel ``_votes_kernel``
-    (``src/repro/kernels/clause_eval.py:45``); see the source for the design.
+  * votes (the bitpack engine): :func:`clause_votes_ref`, plain PyTorch, the
+    counterpart of the reference's ``_clause_votes_xla``
+    (``src/repro/kernels/backend.py:186``); :func:`clause_votes_packed`, the
+    hand-written CUDA kernel (``csrc/clause_votes.cu``) that replaces the TPU
+    kernel ``_votes_kernel`` (``src/repro/kernels/clause_eval.py:45``).
+  * per-clause outputs (the learning round): :func:`clause_outputs_ref`,
+    the counterpart of ``_clause_outputs_xla`` (``backend.py:197``);
+    :func:`clause_outputs_packed`, the CUDA kernel (``csrc/clause_outputs.cu``)
+    that replaces ``_outputs_kernel`` (``clause_eval.py:121``).
 
-``clause_outputs_packed`` (per-clause outputs for the learning round) comes
-with training, in the next slice of the port.
+CPU tensors take the plain bodies; see each source for the kernel's design.
 """
 from __future__ import annotations
 
@@ -44,9 +46,9 @@ def _launcher():
                         [p, p, p, p, i, i, i, i, p])
 
 
-def _require(cond: bool, msg: str) -> None:
+def _require(cond: bool, msg: str, name: str = "clause_votes_packed") -> None:
     if not cond:
-        raise ValueError(f"clause_votes_packed: {msg}")
+        raise ValueError(f"{name}: {msg}")
 
 
 def clause_votes_packed(include_packed: torch.Tensor, lit_packed: torch.Tensor,
@@ -89,3 +91,62 @@ def clause_votes_packed(include_packed: torch.Tensor, lit_packed: torch.Tensor,
 
 
 clause_votes_packed.launches = 0
+
+
+def clause_outputs_ref(include_packed: torch.Tensor,
+                       lit_packed: torch.Tensor) -> torch.Tensor:
+    """(m, n, W) include words + (B, W) literal words → (B, m, n) int8
+    clause outputs, 1 where no included literal is false (an empty clause
+    gives 1; plain PyTorch)."""
+    viol = include_packed[None] & ~lit_packed[:, None, None]   # (B, m, n, W)
+    return (~(viol != 0).any(dim=-1)).to(torch.int8)
+
+
+@functools.cache
+def _outputs_launcher():
+    p, i = ctypes.c_void_p, ctypes.c_int
+    return _build.entry("clause_outputs", "clause_outputs_launch",
+                        [p, p, p, ctypes.c_longlong, i, i, p])
+
+
+def clause_outputs_packed(include_packed: torch.Tensor,
+                          lit_packed: torch.Tensor) -> torch.Tensor:
+    """CUDA kernel: (B, m, n) int8 clause outputs, same contract as
+    :func:`clause_outputs_ref`.
+
+    Takes ``include_packed`` (m, n, W) int32 and ``lit_packed`` (B, W) int32,
+    both contiguous on one CUDA device, and raises on anything else.
+    Launches on the current stream without synchronising.
+    """
+    inc, lit = include_packed, lit_packed
+    need = functools.partial(_require, name="clause_outputs_packed")
+    need(inc.is_cuda, f"include words must be a CUDA tensor, got {inc.device}")
+    need(lit.device == inc.device,
+         f"operands on different devices: include {inc.device}, "
+         f"literals {lit.device}")
+    need(inc.dtype == torch.int32 and inc.dim() == 3,
+         f"include words must be (m, n, W) int32, got "
+         f"{tuple(inc.shape)} {inc.dtype}")
+    m, n, w = inc.shape
+    need(lit.dtype == torch.int32 and lit.dim() == 2 and lit.shape[1] == w,
+         f"literal words must be (B, {w}) int32, got "
+         f"{tuple(lit.shape)} {lit.dtype}")
+    need(inc.is_contiguous() and lit.is_contiguous(),
+         "operands must be contiguous")
+    b = lit.shape[0]
+    if w == 0:   # no literals: every clause is empty, hence true
+        return torch.ones((b, m, n), dtype=torch.int8, device=inc.device)
+    out = torch.empty((b, m, n), dtype=torch.int8, device=inc.device)
+    if out.numel() == 0:
+        return out
+    launch = _outputs_launcher()
+    with torch.cuda.device(inc.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        code = launch(inc.data_ptr(), lit.data_ptr(), out.data_ptr(),
+                      out.numel(), m * n, w, stream)
+    _build.check(code, "clause_outputs")
+    clause_outputs_packed.launches += 1
+    return out
+
+
+clause_outputs_packed.launches = 0

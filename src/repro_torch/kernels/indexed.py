@@ -18,8 +18,9 @@ Two bodies:
     bounded by reading ``pos`` and reads it once per 32 samples; see the
     source for the design.
 
-``index_update`` (batched event replay) comes with training, in the next
-slice of the port.
+Index maintenance, :func:`index_update_batched`, is PyTorch tensor code on
+both devices: the reference has no Pallas body for it either (its registry
+routes both backends to one XLA body), and the port has no kernel for it.
 """
 from __future__ import annotations
 
@@ -99,3 +100,138 @@ def indexed_votes(pos: torch.Tensor, lit: torch.Tensor,
 
 
 indexed_votes.launches = 0
+
+
+def _segment_layout(keys: torch.Tensor):
+    """Stable-sort layout of a key vector.
+
+    Returns ``(order, start, last, first_idx)``: ``order`` is the stable
+    sort permutation (equal keys keep buffer order), ``start`` / ``last``
+    flag segment boundaries in sorted order, and ``first_idx[e]`` is the
+    sorted position of e's segment head (a running maximum over the heads,
+    the reference's ``associative_scan(maximum)``).
+    """
+    order = torch.argsort(keys, stable=True)
+    sk = keys[order]
+    one = torch.ones(1, dtype=torch.bool, device=keys.device)
+    start = torch.cat([one, sk[1:] != sk[:-1]])
+    last = torch.cat([sk[:-1] != sk[1:], one])
+    idx = torch.arange(keys.shape[0], dtype=torch.int64, device=keys.device)
+    first_idx = torch.cummax(torch.where(start, idx, 0), dim=0).values
+    return order, start, last, first_idx
+
+
+def _unsort(order: torch.Tensor, sorted_values: torch.Tensor) -> torch.Tensor:
+    """Values in buffer order from values in ``order``'s sorted order (a
+    permutation scatter: every cell written once)."""
+    out = torch.empty_like(sorted_values)
+    out[order] = sorted_values
+    return out
+
+
+def index_update_batched(lists: torch.Tensor, counts: torch.Tensor,
+                         pos: torch.Tensor, cls: torch.Tensor,
+                         clause: torch.Tensor, literal: torch.Tensor,
+                         is_insert: torch.Tensor, valid: torch.Tensor):
+    """Replay a masked event buffer into ``(lists, counts, pos)`` at once
+    (port of the reference's ``index_update_batched``,
+    ``src/repro/kernels/indexed.py:197``). Returns new tensors; the inputs
+    are not modified.
+
+    Precondition (the sequential ``apply_events`` contract): valid events
+    are genuine include-boundary crossings in buffer order, so repeated
+    events on one cell alternate. Then the result matches sequential replay
+    in ``counts`` (exactly, overflow included), membership (``pos != NA``)
+    and list contents as sets, with a consistent lists↔pos bijection; only
+    the slot order inside a list may differ. It is the reference's algorithm
+    step for step, so it equals the reference's output array for array:
+
+      * net events per TA cell (an even run of alternating events cancels;
+        an odd run's last event carries it), by a stable sort on the cell;
+      * per-list delete and insert counts;
+      * survivors of each touched list compacted in order, one
+        representative event per list rewriting the row;
+      * net inserts appended after the survivors in buffer order.
+
+    The reference's ``mode="drop"`` scatters are explicit masks here, and
+    every scatter writes each cell at most once (duplicate indices in a CUDA
+    ``index_put_`` land in no fixed order): list rows once per
+    representative, positions once per surviving or inserted clause.
+    Capacity overflow drops the ids past ``capacity`` while ``counts`` keep
+    the exact value, as in the reference.
+    """
+    m, L, cap = lists.shape
+    n = pos.shape[1]
+    E = cls.shape[0]
+    if E == 0:
+        return lists.clone(), counts.clone(), pos.clone()
+    dev = lists.device
+    idx = torch.arange(E, dtype=torch.int64, device=dev)
+    v = valid.to(torch.bool)
+    ins = is_insert.to(torch.bool)
+    # invalid slots may hold any coordinates: read them at cell 0 (the
+    # reference's gathers clamp), they are never written back
+    c, j, k = (torch.where(v, t, 0).long() for t in (cls, clause, literal))
+
+    # -- net events per TA cell: a run of alternating events on one cell is a
+    # no-op when even; an odd run's last event carries its whole effect
+    cell = torch.where(v, (c * n + j) * L + k, m * n * L)   # invalid → own tail
+    order, _, last, first_idx = _segment_layout(cell)
+    occ = idx - first_idx                                    # rank within run
+    effective = _unsort(order, v[order] & last & (occ % 2 == 0))
+    eff_ins = effective & ins
+    eff_del = effective & ~ins
+
+    # -- per-list aggregates (dense (m, 2o), exact integer sums)
+    def per_list(mask):
+        out = torch.zeros((m, L), dtype=torch.int32, device=dev)
+        out.index_put_((c[mask], k[mask]),
+                       torch.ones_like(c[mask], dtype=torch.int32),
+                       accumulate=True)
+        return out
+
+    n_del, n_ins = per_list(eff_del), per_list(eff_ins)
+    new_counts = counts + n_ins - n_del
+
+    # -- membership: net deletes leave the index now; inserts land once
+    # their append slots are known (one write per cell: net events are
+    # unique per cell)
+    pos2 = pos.clone()
+    pos2[c[eff_del], j[eff_del], k[eff_del]] = NA
+
+    # -- group effective events per inclusion list: the segment head is the
+    # list's representative, and each net insert's rank among its list's
+    # inserts fixes its append slot
+    glist = torch.where(effective, c * L + k, m * L)
+    order2, start2, _, first_idx2 = _segment_layout(glist)
+    rep = _unsort(order2, start2 & effective[order2])
+    ins_ind = eff_ins[order2].to(torch.int32)
+    pre = torch.cumsum(ins_ind, dim=0, dtype=torch.int32) - ins_ind
+    ins_rank = _unsort(order2, pre - pre[first_idx2])
+
+    # -- compact the survivors of every touched list (a row per event; only
+    # the representatives' rows are written back)
+    rows = lists[c, k]                                       # (E, cap)
+    old_cnt = counts[c, k]                                   # (E,)
+    slot = torch.arange(cap, dtype=torch.int32, device=dev)[None, :]
+    safe_ids = torch.where(rows >= 0, rows, 0).long()
+    still = pos2[c[:, None], safe_ids, k[:, None]] != NA
+    surv = (slot < old_cnt[:, None]) & (rows >= 0) & still   # (E, cap)
+    new_slot = torch.cumsum(surv, dim=1, dtype=torch.int32) - 1
+    new_rows = torch.full((E, cap), NA, dtype=torch.int32, device=dev)
+    se, sc = torch.nonzero(surv, as_tuple=True)
+    new_rows[se, new_slot[se, sc].long()] = rows[se, sc]
+
+    # -- write back: representative rows, survivor positions, then the net
+    # inserts' appends (past the capacity they are dropped from the lists,
+    # never from pos)
+    new_lists = lists.clone()
+    new_lists[c[rep], k[rep]] = new_rows[rep]
+    re, rc = torch.nonzero(surv & rep[:, None], as_tuple=True)
+    pos2[c[re], safe_ids[re, rc], k[re]] = new_slot[re, rc]
+    app_slot = old_cnt - n_del[c, k] + ins_rank              # survivors + rank
+    fits = eff_ins & (app_slot < cap)
+    new_lists[c[fits], k[fits], app_slot[fits].long()] = clause[fits].to(
+        torch.int32)
+    pos2[c[eff_ins], j[eff_ins], k[eff_ins]] = app_slot[eff_ins]
+    return new_lists, new_counts, pos2

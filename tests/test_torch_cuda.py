@@ -6,18 +6,19 @@ Run on a machine with an NVIDIA GPU:
 
 Each kernel is held against its plain PyTorch version on the same CUDA
 tensors, bit for bit (integer results, tolerance 0), over unaligned shapes,
-batches past one 32-sample word and the MNIST width; and the session's
-scores on the card equal the same session's on the CPU. Imports no JAX, so
-it runs where JAX is not installed.
+batches past one 32-sample word and the MNIST width; the session's scores
+on the card equal the same session's on the CPU; and one training step on
+the card equals the same step on the CPU under the same draws, state and
+caches alike. Imports no JAX, so it runs where JAX is not installed.
 """
 import numpy as np
 import pytest
 import torch
 
-from repro_torch.core import bitpack
+from repro_torch.core import bitpack, tm
 from repro_torch.core.session import TMSession
 from repro_torch.core.types import TMConfig, TMState
-from repro_torch.kernels import clause_eval, indexed
+from repro_torch.kernels import clause_eval, indexed, ta_update
 
 # (m, n, o, b): the unaligned sweep of tests/test_kernels.py, a batch past
 # one 32-sample word, and the tm_mnist width at the top serving bucket
@@ -87,3 +88,130 @@ def test_session_scores_on_card_equal_cpu(cuda_device, engine):
         bundle = session.prepare(TMState(ta_state=ta))
         scores.append(session.scores(bundle, xs, engine=engine).cpu())
     torch.testing.assert_close(scores[0], scores[1], rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", SHAPES + [(1, 2000, 784, 1)])
+def test_clause_outputs_kernel_equals_plain_version(cuda_device, shape):
+    include, x, _, _ = make_case(*shape, seed=sum(shape) + 2, dev=cuda_device)
+    include[:, :1] = False                                # an empty clause
+    words = bitpack.pack_bits(include)
+    lw = bitpack.packed_literals(x)
+    before = clause_eval.clause_outputs_packed.launches
+    got = clause_eval.clause_outputs_packed(words, lw)
+    assert clause_eval.clause_outputs_packed.launches == before + 1
+    torch.testing.assert_close(got, clause_eval.clause_outputs_ref(words, lw),
+                               rtol=0, atol=0)
+    assert bool((got[:, :, 0] == 1).all())
+
+
+def edge_uniforms(n, L, s, boost, gen, dev):
+    """Uniforms with a quarter of the cells exactly at a float32 threshold
+    or one ulp either side of it."""
+    u = torch.rand((n, L), generator=gen, device=dev)
+    edges = []
+    for thr in ta_update.thresholds(s, boost):
+        t = np.float32(thr)
+        edges += [t, np.nextafter(t, np.float32(0)), np.nextafter(t, np.float32(1))]
+    edges = torch.tensor([e for e in edges if e < 1], device=dev)
+    pick = torch.rand((n, L), generator=gen, device=dev) < 0.25
+    which = torch.randint(0, len(edges), (n, L), generator=gen, device=dev)
+    return torch.where(pick, edges[which], u)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("boost", [False, True])
+@pytest.mark.parametrize("n,o,s", [(3, 5, 3.0), (8, 17, 3.9), (130, 50, 3.9),
+                                   (66, 40, 3.0), (2000, 784, 3.9),
+                                   (2000, 784, 10.0)])
+def test_ta_update_kernel_equals_plain_version(cuda_device, n, o, s, boost):
+    dev, L, n_states = cuda_device, 2 * o, 127
+    gen = torch.Generator(device=dev).manual_seed(n + o)
+    ta = torch.randint(1, 2 * n_states + 1, (n, L), generator=gen, device=dev,
+                       dtype=torch.int16)
+    lit = torch.randint(0, 2, (L,), generator=gen, device=dev, dtype=torch.uint8)
+    cout = torch.randint(0, 2, (n,), generator=gen, device=dev, dtype=torch.int8)
+    t1 = torch.rand(n, generator=gen, device=dev) < 0.5
+    act = torch.rand(n, generator=gen, device=dev) < 0.7
+    u = edge_uniforms(n, L, s, boost, gen, dev)
+    kw = dict(n_states=n_states, s=s, boost_true_positive=boost)
+    want = ta_update.ta_update_ref(ta, lit, cout, t1, act, u, **kw)
+    before = ta_update.ta_update.launches
+    got = ta_update.ta_update(ta, lit, cout, t1, act, u, **kw)
+    assert ta_update.ta_update.launches == before + 1
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    # in place, and through the scalar path (a buffer off 16-byte alignment)
+    row = ta.clone()
+    assert ta_update.ta_update(row, lit, cout, t1, act, u, **kw, out=row) is row
+    torch.testing.assert_close(row, want, rtol=0, atol=0)
+    flat = torch.empty(n * L + 1, dtype=torch.int16, device=dev)
+    odd = flat[1:].view(n, L)
+    odd.copy_(ta)
+    ta_update.ta_update(odd, lit, cout, t1, act, u, **kw, out=odd)
+    torch.testing.assert_close(odd, want, rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+def test_learning_kernels_refuse_what_they_do_not_take(cuda_device):
+    dev, n, L = cuda_device, 8, 10
+    words = torch.zeros((1, n, 1), dtype=torch.int32, device=dev)
+    lw = torch.zeros((1, 1), dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="int32"):
+        clause_eval.clause_outputs_packed(words.to(torch.int64), lw)
+    with pytest.raises(ValueError, match="devices"):
+        clause_eval.clause_outputs_packed(words, lw.cpu())
+    with pytest.raises(ValueError, match="contiguous"):
+        clause_eval.clause_outputs_packed(
+            torch.zeros((1, 2, n), dtype=torch.int32, device=dev).transpose(1, 2),
+            torch.zeros((1, 2), dtype=torch.int32, device=dev))
+    args = [torch.ones((n, L), dtype=torch.int16, device=dev),
+            torch.zeros(L, dtype=torch.uint8, device=dev),
+            torch.zeros(n, dtype=torch.int8, device=dev),
+            torch.zeros(n, dtype=torch.bool, device=dev),
+            torch.zeros(n, dtype=torch.bool, device=dev),
+            torch.zeros((n, L), device=dev)]
+    kw = dict(n_states=3, s=3.9)
+    for i, bad in ((0, args[0].to(torch.int32)), (3, args[3].to(torch.int8)),
+                   (5, args[5].to(torch.float64))):
+        wrong = list(args)
+        wrong[i] = bad
+        with pytest.raises(ValueError, match="must be"):
+            ta_update.ta_update(*wrong, **kw)
+    with pytest.raises(ValueError, match="devices"):
+        ta_update.ta_update(*args[:5], args[5].cpu(), **kw)
+    with pytest.raises(ValueError, match="contiguous"):
+        ta_update.ta_update(*args[:5], torch.zeros((L, n), device=dev).T, **kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("parallel", [False, True], ids=["sequential", "parallel"])
+def test_train_step_on_card_equals_cpu(cuda_device, parallel):
+    cfg = TMConfig(n_classes=4, n_clauses=66, n_features=100, n_states=20,
+                   s=3.9, threshold=8)
+    rng = np.random.default_rng(3)
+    ta = torch.from_numpy(rng.integers(1, 2 * cfg.n_states + 1,
+                                       (4, 66, 200)).astype(np.int16))
+    xs = rng.integers(0, 2, (5, 100)).astype(np.uint8)
+    ys = rng.integers(0, 4, 5)
+    mask = np.array([1, 1, 0, 1, 1], bool)
+    draws = tm.draw_sample_draws(
+        cfg, torch.Generator(device=cuda_device).manual_seed(4), 5)
+    bundles = []
+    for dev in (cuda_device, "cpu"):
+        session = TMSession(cfg, engines=("indexed", "bitpack", "dense"),
+                            device=dev, parallel=parallel, max_events=8192)
+        bundle = session.prepare(TMState(ta_state=ta))
+        on_dev = tm.SampleDraws(*(
+            t.to(dev) if isinstance(t, torch.Tensor) else
+            tm.FeedbackRands(*(f.to(dev) for f in t)) for t in draws))
+        before = ta_update.ta_update.launches
+        bundles.append(session.train_step(bundle, xs, ys, on_dev, mask))
+        if dev != "cpu":
+            assert ta_update.ta_update.launches == before + 2 * 4
+    card, cpu = bundles
+    assert torch.equal(card.state.ta_state.cpu(), cpu.state.ta_state)
+    assert not torch.equal(cpu.state.ta_state, ta)
+    assert torch.equal(card.caches["bitpack"].cpu(), cpu.caches["bitpack"])
+    for a, b in zip(card.index, cpu.index):
+        assert torch.equal(a.cpu(), b)
+    assert int(card.event_overflow) == int(cpu.event_overflow) == 0

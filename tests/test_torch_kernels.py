@@ -23,7 +23,7 @@ from repro.kernels.backend import _clause_votes_xla  # noqa: E402
 from repro_torch.core import bitpack  # noqa: E402
 from repro_torch.core.types import TMConfig  # noqa: E402
 from repro_torch.kernels import _build, backend  # noqa: E402
-from repro_torch.kernels import clause_eval, indexed  # noqa: E402
+from repro_torch.kernels import clause_eval, indexed, ta_update  # noqa: E402
 
 # (m, n, o, b) — the deliberately unaligned sweep of tests/test_kernels.py
 SHAPES = [
@@ -135,7 +135,9 @@ def test_empty_clauses_vote_as_true_in_both_forms():
 
 
 def test_registry_routes_cpu_tensors_to_plain_body():
-    assert backend.registered_primitives() == ("clause_votes", "indexed_votes")
+    assert backend.registered_primitives() == (
+        "clause_votes", "indexed_votes", "clause_outputs", "ta_update",
+        "index_update")
     include, x, pos, pol = make_case(3, 8, 17, 9, seed=5)
     before = (indexed.indexed_votes.launches,
               clause_eval.clause_votes_packed.launches)
@@ -168,7 +170,7 @@ def test_only_the_auto_backend_exists():
         TMConfig(n_classes=2, n_clauses=4, n_features=3, backend="pallas")
     assert TMConfig(n_classes=2, n_clauses=4, n_features=3).backend == "auto"
     with pytest.raises(KeyError, match="registered"):
-        backend.resolve("ta_update")
+        backend.resolve("compact_votes")
 
 
 def test_build_raises_without_nvcc(monkeypatch, tmp_path):
@@ -179,4 +181,23 @@ def test_build_raises_without_nvcc(monkeypatch, tmp_path):
 
 
 def test_every_kernel_source_is_a_registered_primitive_body():
-    assert _build.sources() == ["clause_votes", "indexed_votes"]
+    assert _build.sources() == ["clause_outputs", "clause_votes",
+                                "indexed_votes", "ta_update"]
+    kernels = {backend.get_primitive(name).kernel.__module__.rsplit(".")[-1]
+               + "." + backend.get_primitive(name).kernel.__name__
+               for name in backend.registered_primitives()}
+    assert {"clause_eval.clause_outputs_packed", "clause_eval.clause_votes_packed",
+            "indexed.indexed_votes", "ta_update.ta_update"} <= kernels
+
+
+def test_learning_kernel_wrappers_refuse_cpu_tensors():
+    n, L = 4, 6
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        clause_eval.clause_outputs_packed(torch.zeros((1, n, 1), dtype=torch.int32),
+                                          torch.zeros((1, 1), dtype=torch.int32))
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        ta_update.ta_update(
+            torch.ones((n, L), dtype=torch.int16), torch.zeros(L, dtype=torch.uint8),
+            torch.zeros(n, dtype=torch.int8), torch.zeros(n, dtype=torch.bool),
+            torch.zeros(n, dtype=torch.bool), torch.zeros((n, L)),
+            n_states=3, s=3.9)

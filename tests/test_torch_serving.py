@@ -318,10 +318,17 @@ def test_entry_points_need_cuda_unless_told_cpu(monkeypatch):
 
 
 def test_training_and_multi_device_wait_for_later_slices():
+    # training is ported: a fit on the CPU trains and the served caches follow
     cfg = TMConfig(n_classes=2, n_clauses=4, n_features=3)
-    machine = TsetlinMachine(cfg, device="cpu").init()
-    with pytest.raises(NotImplementedError, match="slice 2"):
-        machine.fit(np.zeros((2, 3), np.uint8), np.zeros(2))
+    machine = TsetlinMachine(cfg, device="cpu", seed=1).init()
+    xs = np.array([[1, 0, 1], [0, 1, 0]] * 4, np.uint8)
+    machine.fit(xs, np.array([0, 1] * 4), epochs=3, batch_size=4)
+    assert machine.event_overflow == 0
+    assert not torch.equal(machine.state.ta_state,
+                           torch.full_like(machine.state.ta_state, cfg.n_states))
+    assert torch.equal(machine.scores(xs, engine="indexed"),
+                       machine.scores(xs, engine="dense"))
+    # multi-device topologies still wait for a later slice
     with pytest.raises(NotImplementedError, match="later slice"):
         Topology(clause_shards=2)
 
