@@ -7,7 +7,9 @@ Phases, each of which must pass (the script exits non-zero at the first
 failure, and at once when no CUDA device is present):
 
 1. **Build** every CUDA kernel under ``src/repro_torch/csrc`` with ``nvcc``
-   for ``sm_90a`` (one process per source, in parallel) into ``build/``.
+   for ``sm_90a`` (one process per source, in parallel) into ``build/``,
+   and print each kernel's registers, shared memory and spills as
+   ``ptxas -v`` reported them.
 2. **Kernels vs plain**, on the card, at the width of the paper's MNIST
    configuration (``tm_mnist``: m=10 classes, n=2000 clauses, o=784
    features). The served state has about 58 literals per clause (the
@@ -19,7 +21,9 @@ failure, and at once when no CUDA device is present):
    between CUDA events (no host launch work in them): kernel, plain version,
    and one PyTorch call as yardstick (the float32 ``torch.matmul`` that the
    dense / XLA form of the same votes is built on). ``call_ms`` is the
-   kernel's time per call from Python, wrapper included.
+   kernel's time per call from Python, wrapper included. The launch plan of
+   ``clause_votes_packed`` (thread tile, block, grid and its waves on the
+   card's SMs) is printed beside its times.
 3. **Serve** the same state through ``TMSession`` + ``AsyncTMServer``
    (``max_batch=32``, 2 tenants), first with ``engine="indexed"``, then
    ``engine="bitpack"``. Every result must be a ``ScoreResult`` equal to the
@@ -58,6 +62,8 @@ from __future__ import annotations
 
 import json
 import math
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -170,6 +176,46 @@ def _wall_ms(fn, sync: bool = False) -> float:
     return ms
 
 
+def ptxas_lines(report: str) -> list[str]:
+    """One line per kernel of a ``ptxas -v`` report: registers, shared
+    memory, spills (names demangled where ``c++filt`` exists)."""
+    out, name, spills = [], None, ""
+    for line in report.splitlines():
+        if m := re.search(r"Function properties for (\S+)", line):
+            name = m.group(1)
+        elif m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                            line):
+            spills = f"spill stores {m.group(1)} B, loads {m.group(2)} B"
+        elif (m := re.search(r"Used (\d+) registers", line)) and name:
+            smem = re.search(r"(\d+) bytes smem", line)
+            out.append([name, f"{m.group(1)} registers, "
+                        f"{smem.group(1) if smem else 0} B static smem, {spills}"])
+            name, spills = None, ""
+    if out and shutil.which("c++filt"):
+        names = subprocess.run(["c++filt"], input="\n".join(n for n, _ in out),
+                               capture_output=True, text=True).stdout.splitlines()
+        if len(names) == len(out):
+            for row, full in zip(out, names):
+                row[0] = full
+    return [f"{n}: {info}" for n, info in out]
+
+
+def plan_line(plan, sms: int) -> str:
+    """A clause_eval launch plan in a few words."""
+    blocks = plan.grid[0] * plan.grid[1]
+    if plan.route == "direct":
+        shape = (f"direct route, {plan.ks} lanes per clause row, "
+                 f"{plan.threads} threads, {plan.ct} clauses x {plan.bt} "
+                 f"sample(s) per block")
+    else:
+        shape = (f"tiled route, thread tile 1x{plan.sb} (clauses x "
+                 f"samples), {plan.threads} threads, tile {plan.ct}x{plan.bt}, "
+                 f"{plan.n_chunks} chunk(s) of {plan.wc} words")
+    return (f"plan: {shape}, grid {plan.grid[0]}x{plan.grid[1]} = {blocks} "
+            f"blocks ({blocks / sms:.2f} per SM), {plan.smem_bytes} B "
+            f"dynamic shared")
+
+
 def bound(nbytes: int, ops: int) -> tuple[float, str]:
     """Least time (ms) for the work and what sets it."""
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
@@ -245,7 +291,7 @@ def to_device(tree, dev):
     return tree
 
 
-def learning_kernels(cfg, ta, inc, gen, dev, card) -> dict:
+def learning_kernels(cfg, ta, inc, gen, dev, card, sms) -> dict:
     """Phase 4: each learning kernel against its plain version, timed."""
     from repro_torch.core.bitpack import pack_bits, packed_literals
     from repro_torch.core.types import clause_polarity, literals_from_input
@@ -280,7 +326,8 @@ def learning_kernels(cfg, ta, inc, gen, dev, card) -> dict:
         print(f"clause_outputs_packed (B, m, n, W)=({b}, {m}, {n}, {w}): equal "
               f"to plain; device ms: kernel {ms:.4f}, plain {plain_ms:.4f}, "
               f"bound {bound_ms:.5f} ({bound_by}); per call from Python "
-              f"{wrapper_ms:.4f} ms [{card}]")
+              f"{wrapper_ms:.4f} ms; " + plan_line(clause_eval.launch_plan(
+                  b, m, n, w), sms) + f" [{card}]")
 
     row = ta[0]
     x = requests(inc[:1], 1, gen, dev)
@@ -364,7 +411,7 @@ def profile_step(session, bundle, xb, yb, dev, card) -> None:
     ops = sorted((e for e in events if e.key.startswith("aten::")),
                  key=dev_ms, reverse=True)[:6]
     ours = {k: sum(dev_ms(e) for e in on_device if k in e.key)
-            for k in ("clause_outputs_kernel", "ta_update_kernel")}
+            for k in ("clause_eval", "ta_update_kernel")}
     print(f"profile [sequential, B={len(yb)}]: step wall {wall_ms:.3f} ms "
           f"under the profiler, device busy {busy:.3f} ms "
           f"({100 * busy / wall_ms:.1f}%) in "
@@ -540,6 +587,7 @@ def main() -> int:
     dev = torch.device("cuda")
     card = card_line()
     name = torch.cuda.get_device_name(0)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
 
     # -- 1. build -----------------------------------------------------------
     t0 = time.perf_counter()
@@ -547,6 +595,9 @@ def main() -> int:
     build_s = time.perf_counter() - t0
     print(f"build: {sorted(libs)} with nvcc (one process per source, in "
           f"parallel) in {build_s:.2f} s")
+    for src in sorted(libs):
+        for line in ptxas_lines(_build.ptxas_report(src)):
+            print(f"ptxas [{src}.cu] {line}")
     print(f"card: {card}")
 
     # -- 2. kernels vs plain at the tm_mnist width ----------------------------
@@ -594,6 +645,9 @@ def main() -> int:
             plain_ms = device_ms(lambda: plain(*args), 10)
             yard_ms = device_ms(lambda: torch.matmul(false_f32, mask_f32.T), 20)
             wrapper_ms = call_ms(lambda: kernel(*args), 50)
+            if kname == "clause_votes_packed":
+                print(f"{kname} B={b} " + plan_line(clause_eval.launch_plan(
+                    b, m, n, words.shape[-1]), sms))
             nbytes = sum(a.numel() * a.element_size() for a in args) + b * m * 4
             # The function's own work, not this kernel's (its shuffles are
             # one way of sharing a word among lanes, and not the work):
@@ -675,7 +729,7 @@ def main() -> int:
               f"[{card}]")
 
     # -- 4. learning kernels vs plain ------------------------------------------
-    rows.update(learning_kernels(cfg, ta, inc, gen, dev, card))
+    rows.update(learning_kernels(cfg, ta, inc, gen, dev, card, sms))
 
     # -- 5. train through the entry points --------------------------------------
     trained = train(cfg, inc, gen, dev, card)
@@ -686,7 +740,7 @@ def main() -> int:
     for kname, engine, src, replaces in (
             ("indexed_votes", "indexed", "src/repro_torch/csrc/indexed_votes.cu",
              "src/repro/kernels/indexed.py:103"),
-            ("clause_votes_packed", "bitpack", "src/repro_torch/csrc/clause_votes.cu",
+            ("clause_votes_packed", "bitpack", "src/repro_torch/csrc/clause_eval.cu",
              "src/repro/kernels/clause_eval.py:45")):
         r = rows[(kname, top)]
         kernels.append({"name": kname, "route": "cuda", "source": src,
@@ -701,7 +755,7 @@ def main() -> int:
     # the learning kernels at the training round's shapes
     for kname, key, src, replaces in (
             ("clause_outputs_packed", ("clause_outputs_packed", 1),
-             "src/repro_torch/csrc/clause_outputs.cu",
+             "src/repro_torch/csrc/clause_eval.cu",
              "src/repro/kernels/clause_eval.py:121"),
             ("ta_update", ("ta_update", True), "src/repro_torch/csrc/ta_update.cu",
              "src/repro/kernels/ta_update.py:35")):

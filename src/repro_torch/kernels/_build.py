@@ -4,10 +4,14 @@ Each ``csrc/<name>.cu`` exposes a plain C interface and compiles, on its
 own, into ``build/<name>-<hash>.so`` at the repository root:
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
-         -Xcompiler -fPIC -o build/<name>-<hash>.so src/repro_torch/csrc/<name>.cu
+         -Xcompiler -fPIC -lineinfo -Xptxas -v \
+         -o build/<name>-<hash>.so src/repro_torch/csrc/<name>.cu
 
 ``<hash>`` covers the source text and the flags, so an edited source
-rebuilds and an unchanged one loads the library already built. Building
+rebuilds and an unchanged one loads the library already built. Each source
+stands alone (there are no shared headers to hash). What ``ptxas`` reports
+for each kernel (registers, shared memory, spills) is kept beside the
+library and read back by :func:`ptxas_report`. Building
 happens at first use (never at import), one ``nvcc`` process per source,
 all started together by :func:`build_all`. A missing ``nvcc`` or a failed
 compile raises with the compiler's stderr; nothing falls back.
@@ -30,7 +34,7 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD = Path(__file__).resolve().parents[3] / "build"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-shared", "-Xcompiler",
-                           "-fPIC", "-lineinfo")
+                           "-fPIC", "-lineinfo", "-Xptxas", "-v")
 # where the CUDA toolkit installs nvcc when it is not on PATH
 _DEFAULT_NVCC = Path("/usr/local/cuda/bin/nvcc")
 
@@ -96,12 +100,19 @@ def build_all(names: list[str] | None = None) -> dict[str, ctypes.CDLL]:
                                   f"(exit {proc.returncode}):\n{err}")
                     tmp.unlink(missing_ok=True)
                 else:
+                    out.with_suffix(".ptxas.txt").write_text(err)
                     os.replace(tmp, out)
             if errors:
                 raise RuntimeError("\n".join(errors))
             for n, (out, _, _) in started.items():
                 _LIBS[n] = ctypes.CDLL(str(out))
         return {n: _LIBS[n] for n in names}
+
+
+def ptxas_report(name: str) -> str:
+    """What ``ptxas -v`` printed when ``csrc/<name>.cu`` was built."""
+    report = _target(name).with_suffix(".ptxas.txt")
+    return report.read_text() if report.exists() else ""
 
 
 def library(name: str) -> ctypes.CDLL:

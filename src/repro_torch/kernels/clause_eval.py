@@ -10,23 +10,179 @@ Words are ``torch.int32`` carrying the reference's ``uint32`` bits
   * votes (the bitpack engine): :func:`clause_votes_ref`, plain PyTorch, the
     counterpart of the reference's ``_clause_votes_xla``
     (``src/repro/kernels/backend.py:186``); :func:`clause_votes_packed`, the
-    hand-written CUDA kernel (``csrc/clause_votes.cu``) that replaces the TPU
-    kernel ``_votes_kernel`` (``src/repro/kernels/clause_eval.py:45``).
+    hand-written CUDA kernel that replaces the TPU kernel ``_votes_kernel``
+    (``src/repro/kernels/clause_eval.py:45``).
   * per-clause outputs (the learning round): :func:`clause_outputs_ref`,
     the counterpart of ``_clause_outputs_xla`` (``backend.py:197``);
-    :func:`clause_outputs_packed`, the CUDA kernel (``csrc/clause_outputs.cu``)
-    that replaces ``_outputs_kernel`` (``clause_eval.py:121``).
+    :func:`clause_outputs_packed`, the CUDA kernel that replaces
+    ``_outputs_kernel`` (``clause_eval.py:121``).
 
-CPU tensors take the plain bodies; see each source for the kernel's design.
+Both kernels live in ``csrc/clause_eval.cu``: one core (``v |= inc & ~lit``
+over a row's words, the violation words in registers) on two routes, tiled
+for B ≥ 3 and direct for B ≤ 2, with two epilogues (see the source for
+the design). The launch geometry is chosen here, by the pure function
+:func:`launch_plan`, so that the CPU tests can check it. CPU tensors take
+the plain bodies.
 """
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 
 import torch
 
 from repro_torch.kernels import _build
+
+SMS = 132                     # streaming multiprocessors of an H100 SXM
+SMEM_LIMIT = 232_448          # shared bytes one block may use (227 KB)
+_SMEM_PER_SM = 233_472        # shared bytes of one SM, 1 KB reserved per block
+_STAGE_BUDGET = 96 * 1024     # shared bytes for a block's staged words
+_MAX_THREADS = 256
+_SAMPLES_PER_THREAD = 8       # tiled route
+
+
+@dataclasses.dataclass(frozen=True)
+class LaunchPlan:
+    """Geometry of one ``csrc/clause_eval.cu`` launch.
+
+    ``route="tiled"``: a block takes clause tiles of ``ct`` rows of one
+    class and a sample tile of ``bt`` samples (``blockIdx.y``). Thread ``t``
+    (warp ``t // 32``, lane ``t % 32``) holds the ``1 × sb`` cells of clause
+    ``j0 + (warp // sg) · 32 + lane`` and samples
+    ``b0 + (warp % sg) · sb + s``. Blocks are persistent over the
+    ``m · n_ctiles`` clause tiles (block ``x`` takes tiles ``x, x + gx, …``),
+    and each tile is staged ``wc`` words of a row at a time, ``stride``
+    shared words per row.
+
+    ``route="direct"`` (B ≤ 2): block ``(x, i)`` takes clauses
+    ``x · ct + t // ks`` of class ``i``, ``ks`` lanes to a clause, and all
+    ``bt = B`` samples; nothing is staged in shared memory.
+    """
+
+    route: str               # "tiled" or "direct"
+    ks: int                  # direct: lanes per clause row (1 when tiled)
+    sb: int                  # samples per thread (tiled: 8; direct: B)
+    sg: int                  # sample groups (warps of distinct samples) per block
+    threads: int             # threads per block
+    ct: int                  # clause rows per tile
+    bt: int                  # samples per tile
+    wc: int                  # words of a row per staged chunk
+    stride: int              # shared words per staged row
+    n_ctiles: int            # clause tiles per class
+    n_btiles: int            # sample tiles
+    n_chunks: int            # chunks per row
+    grid: tuple[int, int]    # (persistent blocks over clause tiles, n_btiles)
+    smem_bytes: int          # dynamic shared memory per block
+
+
+def _round4(x: int) -> int:
+    return (x + 3) & ~3
+
+
+def row_stride(wc: int, w: int) -> int:
+    """Shared words per staged row: at least ``wc``, equal to ``w`` mod 4
+    (so a row's 16-byte copies stay aligned in shared memory wherever its
+    source starts) and not a multiple of 8 (so the 32 rows a warp reads at
+    one word fall in at least 8 banks: in 32 when the stride is odd)."""
+    s = wc + (w - wc) % 4
+    return s + 4 if s % 8 == 0 else s
+
+
+def smem_bytes(ct: int, bt: int, wc: int, stride: int, n_chunks: int) -> int:
+    """Dynamic shared bytes: two include buffers, the literal words (one
+    buffer when a row is one chunk, else two; ``bt + 4`` words per literal
+    word) and ``bt`` vote slots."""
+    inc_words = _round4(ct * stride + 3)
+    lit_words = _round4(wc * (bt + 4))
+    return 4 * (2 * inc_words + (1 if n_chunks == 1 else 2) * lit_words + bt)
+
+
+def launch_plan(b: int, m: int, n: int, w: int, *, route: str | None = None,
+                ks: int | None = None, threads: int | None = None,
+                wc: int | None = None, blocks: int | None = None) -> LaunchPlan:
+    """The launch geometry for ``b`` samples against ``(m, n, w)`` include
+    words (pure; the keyword arguments override the defaults).
+
+    Defaults: the direct route for ``b <= 2`` (an include word serves at
+    most two samples, so staging it buys no reuse), 256 threads, ``ks`` the
+    power of two nearest above ``w / 4`` (at most 32; 16 at the MNIST
+    width), so each lane loads about four words. The tiled route otherwise:
+    eight samples per thread, up to four sample groups (32 samples) per
+    block, two warps (64 clause rows) per sample group, the longest chunk
+    that keeps a block's staged words within 96 KB, and one wave of resident
+    blocks, persistent over the clause tiles.
+    """
+    if b < 1 or m < 1 or n < 1 or w < 0:
+        raise ValueError(f"launch_plan: no work for (B, m, n, W)={(b, m, n, w)}")
+    route = route or ("direct" if b <= 2 else "tiled")
+    if route == "direct":
+        return _direct_plan(b, m, n, w, ks, threads)
+    if route != "tiled":
+        raise ValueError(f"launch_plan: route must be 'tiled' or 'direct', "
+                         f"got {route!r}")
+    sb = _SAMPLES_PER_THREAD
+    groups = -(-b // sb)
+    sg = 1 if groups <= 1 else 2 if groups <= 2 else 4
+    threads = threads if threads is not None else 64 * sg
+    if threads % 32 or not 32 <= threads <= _MAX_THREADS or threads // 32 % sg:
+        raise ValueError(f"launch_plan: {threads} threads for {sg} sample "
+                         f"groups (one warp or more each)")
+    ct, bt = threads // sg, sb * sg
+    if wc is None:   # 2·ct·(wc + 7) + 2·(bt + 4)·wc + bt words at most
+        wc_max = max(1, (_STAGE_BUDGET // 4 - 14 * ct - bt)
+                     // (2 * ct + 2 * (bt + 4)))
+        n_chunks = max(1, -(-w // wc_max))
+        wc = max(1, -(-w // n_chunks))
+    n_chunks = max(1, -(-w // wc))
+    stride = row_stride(wc, w)
+    smem = smem_bytes(ct, bt, wc, stride, n_chunks)
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"launch_plan: {smem} shared bytes exceed {SMEM_LIMIT}")
+    n_ctiles, n_btiles = -(-n // ct), -(-b // bt)
+    if blocks is None:
+        per_sm = min(32, 2048 // threads, _SMEM_PER_SM // (smem + 1024))
+        blocks = max(1, SMS * per_sm // n_btiles)
+    grid = (min(m * n_ctiles, blocks), n_btiles)
+    return LaunchPlan(route="tiled", ks=1, sb=sb, sg=sg,
+                      threads=threads, ct=ct, bt=bt, wc=wc, stride=stride,
+                      n_ctiles=n_ctiles, n_btiles=n_btiles, n_chunks=n_chunks,
+                      grid=grid, smem_bytes=smem)
+
+
+def _direct_plan(b: int, m: int, n: int, w: int, ks: int | None,
+                 threads: int | None) -> LaunchPlan:
+    if b > 2:
+        raise ValueError(f"launch_plan: the direct route takes B <= 2, got {b}")
+    if ks is None:
+        ks = 1
+        while ks < 32 and 4 * ks < w:
+            ks *= 2
+    threads = threads if threads is not None else _MAX_THREADS
+    if ks not in (1, 2, 4, 8, 16, 32) or threads % 32 or not (
+            32 <= threads <= _MAX_THREADS):
+        raise ValueError(f"launch_plan: direct route with ks={ks}, "
+                         f"{threads} threads")
+    ct = threads // ks
+    wc = max(1, w)
+    n_ctiles = -(-n // ct)
+    return LaunchPlan(route="direct", ks=ks, sb=b, sg=1, threads=threads,
+                      ct=ct, bt=b, wc=wc, stride=wc, n_ctiles=n_ctiles,
+                      n_btiles=1, n_chunks=1, grid=(n_ctiles, m), smem_bytes=0)
+
+
+_default_plan = functools.lru_cache(maxsize=256)(launch_plan)
+
+
+def _plan_args(plan: LaunchPlan, m: int, n: int, w: int, b: int) -> list[int]:
+    direct = plan.route == "direct"
+    groups = plan.ks if direct else plan.sg
+    return [m, n, w, b, int(direct), groups.bit_length() - 1, plan.threads,
+            plan.wc, plan.stride, plan.n_ctiles, plan.n_chunks, plan.grid[0],
+            plan.grid[1], plan.smem_bytes]
+
+
+_PLAN_TYPES = [ctypes.c_int] * 14
 
 
 def clause_votes_ref(include_packed: torch.Tensor, lit_packed: torch.Tensor,
@@ -41,9 +197,9 @@ def clause_votes_ref(include_packed: torch.Tensor, lit_packed: torch.Tensor,
 
 @functools.cache
 def _launcher():
-    p, i = ctypes.c_void_p, ctypes.c_int
-    return _build.entry("clause_votes", "clause_votes_launch",
-                        [p, p, p, p, i, i, i, i, p])
+    p = ctypes.c_void_p
+    return _build.entry("clause_eval", "clause_votes_launch",
+                        [p, p, p, p, *_PLAN_TYPES, p])
 
 
 def _require(cond: bool, msg: str, name: str = "clause_votes_packed") -> None:
@@ -52,13 +208,15 @@ def _require(cond: bool, msg: str, name: str = "clause_votes_packed") -> None:
 
 
 def clause_votes_packed(include_packed: torch.Tensor, lit_packed: torch.Tensor,
-                        pol: torch.Tensor) -> torch.Tensor:
+                        pol: torch.Tensor, *,
+                        plan: LaunchPlan | None = None) -> torch.Tensor:
     """CUDA kernel: (B, m) int32 votes, same contract as
     :func:`clause_votes_ref`.
 
     Takes ``include_packed`` (m, n, W) int32, ``lit_packed`` (B, W) int32 and
     ``pol`` (n,) int32, all contiguous on one CUDA device, and raises on
     anything else. Launches on the current stream without synchronising.
+    ``plan`` overrides :func:`launch_plan`'s default geometry.
     """
     inc, lit = include_packed, lit_packed
     _require(inc.is_cuda, f"include words must be a CUDA tensor, got {inc.device}")
@@ -80,12 +238,13 @@ def clause_votes_packed(include_packed: torch.Tensor, lit_packed: torch.Tensor,
     out = torch.zeros((b, m), dtype=torch.int32, device=inc.device)
     if b == 0 or m == 0 or n == 0:
         return out
+    plan = plan or _default_plan(b, m, n, w)
     launch = _launcher()
     with torch.cuda.device(inc.device):
         stream = torch.cuda.current_stream().cuda_stream
         code = launch(inc.data_ptr(), lit.data_ptr(), pol.data_ptr(),
-                      out.data_ptr(), m, n, w, b, stream)
-    _build.check(code, "clause_votes")
+                      out.data_ptr(), *_plan_args(plan, m, n, w, b), stream)
+    _build.check(code, "clause_eval")
     clause_votes_packed.launches += 1
     return out
 
@@ -104,19 +263,21 @@ def clause_outputs_ref(include_packed: torch.Tensor,
 
 @functools.cache
 def _outputs_launcher():
-    p, i = ctypes.c_void_p, ctypes.c_int
-    return _build.entry("clause_outputs", "clause_outputs_launch",
-                        [p, p, p, ctypes.c_longlong, i, i, p])
+    p = ctypes.c_void_p
+    return _build.entry("clause_eval", "clause_outputs_launch",
+                        [p, p, p, *_PLAN_TYPES, p])
 
 
 def clause_outputs_packed(include_packed: torch.Tensor,
-                          lit_packed: torch.Tensor) -> torch.Tensor:
+                          lit_packed: torch.Tensor, *,
+                          plan: LaunchPlan | None = None) -> torch.Tensor:
     """CUDA kernel: (B, m, n) int8 clause outputs, same contract as
     :func:`clause_outputs_ref`.
 
     Takes ``include_packed`` (m, n, W) int32 and ``lit_packed`` (B, W) int32,
     both contiguous on one CUDA device, and raises on anything else.
-    Launches on the current stream without synchronising.
+    Launches on the current stream without synchronising. ``plan``
+    overrides :func:`launch_plan`'s default geometry.
     """
     inc, lit = include_packed, lit_packed
     need = functools.partial(_require, name="clause_outputs_packed")
@@ -139,12 +300,13 @@ def clause_outputs_packed(include_packed: torch.Tensor,
     out = torch.empty((b, m, n), dtype=torch.int8, device=inc.device)
     if out.numel() == 0:
         return out
+    plan = plan or _default_plan(b, m, n, w)
     launch = _outputs_launcher()
     with torch.cuda.device(inc.device):
         stream = torch.cuda.current_stream().cuda_stream
         code = launch(inc.data_ptr(), lit.data_ptr(), out.data_ptr(),
-                      out.numel(), m * n, w, stream)
-    _build.check(code, "clause_outputs")
+                      *_plan_args(plan, m, n, w, b), stream)
+    _build.check(code, "clause_eval")
     clause_outputs_packed.launches += 1
     return out
 

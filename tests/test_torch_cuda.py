@@ -105,6 +105,97 @@ def test_clause_outputs_kernel_equals_plain_version(cuda_device, shape):
     assert bool((got[:, :, 0] == 1).all())
 
 
+# (B, m, n, o) for the clause_eval tiling: B off a multiple of the 8 samples
+# a thread holds (9, 33, 70) and past one 32-sample tile; n off a multiple of
+# the 64-row clause tile (130, 2001); rows of 1, 49 and 65 words (4·W bytes
+# off a 16-byte line for W = 49, 65); m·n under one tile; the MNIST bucket
+TILING = [(9, 2, 130, 784), (33, 3, 2001, 16), (70, 2, 130, 1040),
+          (1, 1, 5, 784), (2, 3, 2001, 1040), (1, 1, 2000, 784),
+          (32, 10, 2000, 784)]
+# launch plans besides the default: the tiled route at B <= 2 too (where
+# the default is the direct route) and with one warp per sample group, rows
+# staged in several chunks, a few blocks each walking many tiles, and the
+# direct route's narrowest and widest lane groups
+PLANS = {"default": {}, "tiled": dict(route="tiled"),
+         "tiled_threads128": dict(route="tiled", threads=128),
+         "chunks": dict(route="tiled", wc=8),
+         "persistent": dict(route="tiled", blocks=3),
+         "direct_ks1": dict(route="direct", ks=1),
+         "direct_ks32": dict(route="direct", ks=32, threads=64)}
+TILING_PLANS = [(shape, plan) for shape in TILING for plan in PLANS
+                if shape[0] <= 2 or not plan.startswith("direct")]
+
+
+def tiling_case(b, m, n, o, seed, dev):
+    """Packed include words with mostly short clauses (so outputs vary),
+    clause 0 empty, clause 1 every include bit set, clause 2 the literal at
+    bit 31 of word 0 alone (true for about half the samples); packed
+    literals; pol in {-1, 0, +1} (0 marks padding rows)."""
+    rng = np.random.default_rng(seed)
+    L = 2 * o
+    lengths = rng.integers(1, 4, (m, n))
+    include = np.zeros((m, n, L), bool)
+    for k in range(3):
+        cell = rng.integers(0, L, (m, n))
+        np.put_along_axis(include, cell[..., None], (lengths > k)[..., None], -1)
+    include[:, 0] = False
+    if n > 1:
+        include[:, 1] = True
+    if n > 2:
+        include[:, 2] = False
+        include[:, 2, 31] = True
+    x = rng.integers(0, 2, (b, o)).astype(np.uint8)
+    x[:, 31 if o > 31 else 31 - o] = np.arange(b) % 2    # literal 31 alternates
+    pol = rng.integers(-1, 2, n).astype(np.int32)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    return (bitpack.pack_bits(t(include)), bitpack.packed_literals(t(x)),
+            t(pol))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,plan", TILING_PLANS)
+def test_clause_kernels_across_the_tiling(cuda_device, shape, plan):
+    b, m, n, o = shape
+    words, lw, pol = tiling_case(b, m, n, o, seed=sum(shape), dev=cuda_device)
+    p = clause_eval.launch_plan(b, m, n, words.shape[-1], **PLANS[plan])
+    got = clause_eval.clause_outputs_packed(words, lw, plan=p)
+    want = clause_eval.clause_outputs_ref(words, lw)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    assert bool((got[:, :, 0] == 1).all())
+    if n > 1:
+        assert not bool(got[:, :, 1].any())
+    if n > 2 and b > 1:                       # decided by bit 31 alone
+        assert 0 < int(got[:, :, 2].sum()) < b * m
+    torch.testing.assert_close(
+        clause_eval.clause_votes_packed(words, lw, pol, plan=p),
+        clause_eval.clause_votes_ref(words, lw, pol), rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+def test_clause_votes_padding_rows_vote_nothing(cuda_device):
+    words, lw, pol = tiling_case(32, 10, 2000, 784, seed=7, dev=cuda_device)
+    padded = torch.where(torch.arange(2000, device=cuda_device) >= 1500, 0, pol)
+    got = clause_eval.clause_votes_packed(words, lw, padded)
+    torch.testing.assert_close(got, clause_eval.clause_votes_packed(
+        words[:, :1500].contiguous(), lw, pol[:1500].contiguous()), rtol=0, atol=0)
+    torch.testing.assert_close(got, clause_eval.clause_votes_ref(words, lw, padded),
+                               rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+def test_clause_kernels_take_a_view_off_a_16_byte_line(cuda_device):
+    words, lw, pol = tiling_case(9, 2, 130, 784, seed=8, dev=cuda_device)
+    flat = torch.empty(words.numel() + 1, dtype=torch.int32, device=cuda_device)
+    odd = flat[1:].view(words.shape)
+    odd.copy_(words)
+    torch.testing.assert_close(clause_eval.clause_outputs_packed(odd, lw),
+                               clause_eval.clause_outputs_ref(words, lw),
+                               rtol=0, atol=0)
+    torch.testing.assert_close(clause_eval.clause_votes_packed(odd, lw, pol),
+                               clause_eval.clause_votes_ref(words, lw, pol),
+                               rtol=0, atol=0)
+
+
 def edge_uniforms(n, L, s, boost, gen, dev):
     """Uniforms with a quarter of the cells exactly at a float32 threshold
     or one ulp either side of it."""

@@ -181,8 +181,7 @@ def test_build_raises_without_nvcc(monkeypatch, tmp_path):
 
 
 def test_every_kernel_source_is_a_registered_primitive_body():
-    assert _build.sources() == ["clause_outputs", "clause_votes",
-                                "indexed_votes", "ta_update"]
+    assert _build.sources() == ["clause_eval", "indexed_votes", "ta_update"]
     kernels = {backend.get_primitive(name).kernel.__module__.rsplit(".")[-1]
                + "." + backend.get_primitive(name).kernel.__name__
                for name in backend.registered_primitives()}
@@ -201,3 +200,144 @@ def test_learning_kernel_wrappers_refuse_cpu_tensors():
             torch.zeros(n, dtype=torch.int8), torch.zeros(n, dtype=torch.bool),
             torch.zeros(n, dtype=torch.bool), torch.zeros((n, L)),
             n_states=3, s=3.9)
+
+
+# ---------------------------------------------------------------------------
+# launch geometry of csrc/clause_eval.cu: clause_eval.launch_plan is pure, so
+# its tiling is checked here; the helpers below mirror the kernel's index math
+# ---------------------------------------------------------------------------
+
+# (B, m, n, W): the card tests' SHAPES, the training round and the top
+# serving bucket at the MNIST width, and row widths from one word to
+# IMDb-scale rows that need several chunks
+PLAN_SHAPES = sorted({
+    (3, 2, 4, 1), (9, 3, 8, 2), (8, 10, 130, 4), (4, 2, 256, 13),
+    (2, 1, 2, 129), (70, 2, 64, 3), (32, 10, 2000, 49), (1, 10, 2000, 49),
+    (1, 1, 2000, 49), (33, 2, 130, 65), (9, 1, 2001, 49),
+    *((b, m, n, w) for w in (1, 2, 49, 129, 2500)
+      for b, m, n in ((1, 1, 2000), (32, 10, 2000), (70, 3, 130))),
+})
+
+
+def block_tiles(plan, m, x, y):
+    """(class, first clause) of each tile block (x, y) takes. Tiled: tiles
+    x, x + gx, … below m · n_ctiles; direct: clause tile x of class y."""
+    if plan.route == "direct":
+        return [(y, x)]
+    return [divmod(t, plan.n_ctiles) for t in
+            range(x, m * plan.n_ctiles, plan.grid[0])]
+
+
+def tile_cells(plan, b, m, n, i, jt, y):
+    """(sample, class, clause) of every cell that the block's threads store
+    for the tile (i, jt) of sample tile y (j < n, sample < B)."""
+    t = np.arange(plan.threads)
+    if plan.route == "direct":          # lane 0 of each ks-lane group
+        j, bb = np.broadcast_arrays((jt * plan.ct + t // plan.ks)[:, None],
+                                    np.arange(b)[None, :])
+        keep = (t % plan.ks == 0)[:, None] & (j < n)
+    else:
+        warp, lane = t // 32, t % 32
+        j, bb = np.broadcast_arrays(              # (threads, sb)
+            (jt * plan.ct + warp // plan.sg * 32 + lane)[:, None],
+            y * plan.bt + (warp % plan.sg * plan.sb)[:, None]
+            + np.arange(plan.sb)[None, :])
+        keep = (j < n) & (bb < b)
+    return bb[keep], np.full(int(keep.sum()), i), j[keep]
+
+
+def copy_runs(src, dst, wn):
+    """Runs of words as the kernel copies them (arrays of source and shared
+    word offsets, one per run): 4-byte head words up to the source's next
+    16-byte line, then 16-byte quads, then 4-byte tail words. Returns
+    (head, quads, tail) word counts per run."""
+    head = np.minimum((4 - src % 4) % 4, wn)
+    quads = (wn - head) // 4
+    return head, quads, wn - head - 4 * quads
+
+
+@pytest.mark.parametrize("shape", PLAN_SHAPES)
+def test_launch_plan_tiles_cover_every_cell_once(shape):
+    b, m, n, w = shape
+    plan = clause_eval.launch_plan(b, m, n, w)
+    assert plan.route == ("direct" if b <= 2 else "tiled")
+    assert plan.bt == plan.sb * plan.sg and plan.bt <= 32
+    if plan.route == "direct":         # B = 1 and 2 idle no lane
+        assert plan.bt == b and plan.ct * plan.ks == plan.threads
+        assert plan.ks == 1 or 4 * plan.ks // 2 < w
+    else:
+        assert plan.ct == plan.threads // plan.sg and plan.sb == 8
+        assert plan.threads // 32 % plan.sg == 0
+    count = np.zeros((b, m, n), np.int64)
+    for y in range(plan.grid[1]):
+        for x in range(plan.grid[0]):
+            for i, jt in block_tiles(plan, m, x, y):
+                np.add.at(count, tile_cells(plan, b, m, n, i, jt, y), 1)
+    assert (count == 1).all()
+    assert plan.n_btiles * plan.bt >= b and plan.n_ctiles * plan.ct >= n
+
+
+@pytest.mark.parametrize("shape", PLAN_SHAPES)
+def test_launch_plan_fits_shared_memory(shape):
+    b, m, n, w = shape
+    for route in ("tiled", "direct") if b <= 2 else ("tiled",):
+        plan = clause_eval.launch_plan(b, m, n, w, route=route)
+        assert plan.smem_bytes <= 232_448
+        assert plan.n_chunks == max(1, -(-w // plan.wc)) and plan.wc >= 1
+        if route == "direct":
+            assert plan.smem_bytes == 0 and plan.n_chunks == 1
+            continue
+        assert plan.smem_bytes == clause_eval.smem_bytes(
+            plan.ct, plan.bt, plan.wc, plan.stride, plan.n_chunks)
+        if w <= 49:                 # a row of the MNIST width is one chunk
+            assert plan.n_chunks == 1
+        assert w <= plan.wc * plan.n_chunks < w + plan.n_chunks
+
+
+@pytest.mark.parametrize("base", [0, 1, 2, 3])
+@pytest.mark.parametrize("shape", PLAN_SHAPES)
+def test_launch_plan_copies_are_aligned_or_scalar(shape, base):
+    """Every 16-byte cp.async of every stage of the tiled route has a
+    16-byte-aligned source and destination, the 4-byte ones take the rest,
+    and each row's words land in their own slot of the include buffer.
+    ``base`` is the include tensor's word offset in its 16-byte line (a
+    view). The direct route issues no copies."""
+    b, m, n, w = shape
+    plan = clause_eval.launch_plan(b, m, n, w, route="tiled")
+    buf_words = (plan.ct * plan.stride + 3 + 3) & ~3
+    assert plan.stride >= plan.wc and (plan.stride - w) % 4 == 0
+    g = np.arange(m * n)                          # every clause row, flat
+    r = g % n % plan.ct                           # its row within its tile
+    flat = plan.n_chunks == 1 and plan.stride == w
+    for c in range(plan.n_chunks):
+        w0 = c * plan.wc
+        wn = min(plan.wc, w - w0)
+        src = base + g * w + w0                   # the row's chunk
+        shift = (src - r * w) % 4                 # the tile's first row's
+        dst = shift + r * plan.stride
+        if flat:                                  # one run per tile
+            first = r == 0
+            rows = np.minimum(plan.ct, n - g % n)[first]
+            src, dst, wn = src[first], dst[first], rows * w
+        head, quads, tail = copy_runs(src, dst, wn)
+        assert (head + 4 * quads + tail == wn).all()
+        assert (head <= 3).all() and (tail < 4).all()
+        body = quads > 0
+        assert ((src + head)[body] % 4 == 0).all()
+        assert ((dst + head)[body] % 4 == 0).all()
+        # each row's slot [dst, dst + wn) lies in the buffer, apart from
+        # its neighbours' (rows are stride >= wn words apart)
+        assert (dst + wn <= buf_words).all() and plan.stride >= min(plan.wc, w)
+
+
+def test_launch_plan_rejects_what_the_kernel_does_not_take():
+    with pytest.raises(ValueError, match="threads"):
+        clause_eval.launch_plan(32, 10, 2000, 49, threads=48)
+    with pytest.raises(ValueError, match="one warp or more"):
+        clause_eval.launch_plan(32, 10, 2000, 49, threads=64)
+    with pytest.raises(ValueError, match="B <= 2"):
+        clause_eval.launch_plan(3, 10, 2000, 49, route="direct")
+    with pytest.raises(ValueError, match="shared bytes"):
+        clause_eval.launch_plan(32, 10, 2000, 2500, wc=2500)
+    with pytest.raises(ValueError, match="no work"):
+        clause_eval.launch_plan(0, 10, 2000, 49)
