@@ -52,7 +52,30 @@ failure, and at once when no CUDA device is present):
    dense ones. Then samples/s and a step's split (feedback rounds, event
    diff, cache sync) for both modes, and one B=4 step at full width on the
    card and on the CPU with the same draws: states and caches must be equal.
-6. Print ``{"kernels": [...]}`` (all four kernels), the card's name and
+7. **Sharded** (runs before phase 6's report), at the ``tm_mnist`` width
+   with every shard placed on ``cuda:0`` by an explicit device list (k
+   shards share one card; its times are never a multi-card figure).
+   First each kernel against its plain version at the shard widths n = 334,
+   500 and 667 with the trailing rows padding (polarity 0, inactive), bit
+   for bit.
+   Scores of 1020 rows (a multiple of every data-shard count) through the
+   indexed and bitpack engines at (clause, data) shards (4, 1), (3, 1)
+   and (2, 3) (even, ragged with one padding row, ``composed_ragged`` with
+   334-row sub-slices) must equal phase 2's dense scores, with each
+   engine's kernel launched on every rank and one reduction per call.
+   Two ``partial_fit`` steps of B=32 from phase 5's state under injected
+   draws at (4, 1), (3, 1), (2, 3) and (2, 2) batch-parallel must equal the
+   same steps at ``Topology(1)``: state, every rank's caches against the
+   global ones, ``event_overflow == 0``, ``validate``; each learning kernel
+   launches 2·B times per step on every rank that holds clause rows.
+   ``Topology(clause_shards=4, async_votes=4)`` takes 8 steps with no
+   reduction inside them and 2 refreshes, and ``async_votes=0`` equals
+   synchronous learning. ``AsyncTMServer`` over (2, 2) serves 256
+   requests equal to the dense scores. Launch counts are set to 0 before
+   each part and read after it; sharded ms are printed beside
+   ``Topology(1)``'s.
+6. Print ``{"kernels": [...]}`` (all four kernels; ``launches`` from
+   phases 3 and 5, ``sharded_launches`` from phase 7), the card's name and
    power limit as ``nvidia-smi`` reports them, and, last, the
    ``{"ok": true, ...}`` line.
 
@@ -78,6 +101,16 @@ N_REQUESTS = 1024
 TRAIN_BATCH = 32
 SEQ_STEPS = 4
 CARD_VS_CPU_BATCH = 4
+# phase 7: (clause_shards, data_shards) of the sharded runs, all on cuda:0
+SHARD_ROWS = 1020            # scored rows: a multiple of every data-shard count
+SHARD_SCORES = ((4, 1), (3, 1), (2, 3))
+SHARD_TRAIN = ((4, 1, False), (3, 1, False), (2, 3, False), (2, 2, True))
+SHARD_STEPS = 2
+ASYNC_K, ASYNC_STEPS = 4, 8
+SHARD_SERVE, SHARD_REQUESTS = (2, 2), 256
+# clause rows of the kernels' direct checks at shard widths: n_sub of (2, 3),
+# n_local of (4, 1) and of (3, 1); the last rows of each are padding
+SHARD_WIDTHS, SHARD_PAD_ROWS = (334, 500, 667), 3
 # Peak rates of one H100 SXM. Memory: 3.35 TB/s (NVIDIA data sheet). The
 # votes are 32-bit compare and logic instructions, not FLOPs: the CUDA C++
 # Programming Guide's arithmetic-throughput table gives compute capability
@@ -565,7 +598,310 @@ def train(cfg, inc, gen, dev, card) -> dict:
     print(f"card vs CPU: one B={b4} sequential step at full width gives equal "
           f"states and caches on both (CPU step {cpu_s:.2f} s)")
     return dict(launches=launches, seq_rate=seq_rate, par_rate=b_size / par_s,
-                split=split)
+                split=split, ta0=ta0, batches=batches, max_events=max_events,
+                test=(x_test, y_test))
+
+
+def _shard_caches_match(cfg, sharded, one, where: str) -> None:
+    """Every rank's caches against ``Topology(1)``'s: the bitpack rows equal
+    the rank's rows of the global words (padding rows empty); the index
+    passes ``validate`` and its membership equals the global one's rows."""
+    from repro_torch.core import indexing
+
+    g = sharded.geometry
+    words1, member1 = one.caches["bitpack"], one.index.pos != -1
+    for d, row in enumerate(sharded.ranks):
+        for c, rank in enumerate(row):
+            lo = c * g.n_local
+            real = min(g.n_local, cfg.n_clauses - lo)
+            words = rank.caches["bitpack"]
+            require(torch.equal(words[:, :real], words1[:, lo:lo + real])
+                    and not words[:, real:].any(),
+                    f"{where}: rank ({d}, {c}) bitpack cache != Topology(1)'s")
+            checks = indexing.validate(cfg, rank.state, rank.index)
+            require(all(bool(v) for v in checks.values()),
+                    f"{where}: rank ({d}, {c}) validate: {checks}")
+            require(torch.equal(rank.index.pos[:, :real] != -1,
+                                member1[:, lo:lo + real]),
+                    f"{where}: rank ({d}, {c}) index membership != Topology(1)'s")
+
+
+def shard_kernels(cfg, bundle1, ta0, x, gen, dev, card) -> None:
+    """Phase 7's first part: each of the four kernels against its plain
+    version at the shard widths, on the trailing clause rows of phase 2's
+    caches and phase 5's state whose last ``SHARD_PAD_ROWS`` rows are
+    padding as a ragged shard's are (excluded everywhere, polarity 0,
+    inactive in ``ta_update``). The vote kernels see a data rank's rows of
+    ``x`` for D = 3 and D = 1. Tolerance 0. These launches are made before
+    any launch count is read, and no count includes them."""
+    from repro_torch.core.bitpack import pack_bits, packed_literals
+    from repro_torch.core.types import clause_polarity, literals_from_input
+    from repro_torch.kernels import clause_eval, indexed, ta_update
+
+    n_all, L = cfg.n_clauses, cfg.n_literals
+    lit, lw = literals_from_input(x), packed_literals(x)
+    kw = dict(n_states=cfg.n_states, s=cfg.s,
+              boost_true_positive=cfg.boost_true_positive)
+    thresholds = ta_update.thresholds(cfg.s, cfg.boost_true_positive)
+    for n in SHARD_WIDTHS:
+        rows = slice(n_all - n, n_all)
+        pad = torch.arange(n, device=dev) >= n - SHARD_PAD_ROWS
+        cells = pad[None, :, None]
+        pos = torch.where(cells, -1, bundle1.index.pos[:, rows]).contiguous()
+        words = torch.where(cells, 0, bundle1.caches["bitpack"][:, rows]).contiguous()
+        pol = torch.where(pad, 0, clause_polarity(cfg, dev)[rows]).contiguous()
+        ta = torch.where(cells, cfg.n_states, ta0[:, rows]).to(torch.int16)
+        errs = {}
+
+        def check(name, got, want, what):
+            err = int((got.to(torch.int32) - want.to(torch.int32)).abs().max())
+            errs[name] = max(errs.get(name, 0), err)
+            require(torch.equal(got, want), f"{name} at n={n} {what}: kernel "
+                    f"!= plain (max |diff| {err})")
+
+        for b in (1, SHARD_ROWS // 3, SHARD_ROWS):
+            lb, wb = lit[:b].contiguous(), lw[:b].contiguous()
+            check("indexed_votes", indexed.indexed_votes(pos, lb, pol),
+                  indexed.indexed_votes_ref(pos, lb, pol), f"B={b}")
+            votes = clause_eval.clause_votes_ref(words, wb, pol)
+            check("clause_votes_packed",
+                  clause_eval.clause_votes_packed(words, wb, pol), votes, f"B={b}")
+        require(votes.unique().numel() > 1, f"votes at n={n} all equal")
+        learn_words = pack_bits(ta > cfg.n_states)             # (m, n, W)
+        for b, mm in ((1, 1), (32, cfg.n_classes)):
+            w = learn_words[:mm].contiguous()
+            check("clause_outputs_packed",
+                  clause_eval.clause_outputs_packed(w, lw[:b].contiguous()),
+                  clause_eval.clause_outputs_ref(w, lw[:b]), f"(B, m)=({b}, {mm})")
+        row = ta[0].contiguous()
+        cout = clause_eval.clause_outputs_packed(learn_words[:1], lw[:1])[0, 0]
+        active = (torch.rand(n, generator=gen, device=dev) < 0.5) & ~pad
+        u = edge_uniforms((n, L), thresholds, gen, dev)
+        changed = 0
+        for positive in (True, False):
+            t1 = (pol > 0) if positive else (pol <= 0)
+            got = ta_update.ta_update(row, lit[0], cout, t1, active, u, **kw)
+            check("ta_update", got,
+                  ta_update.ta_update_ref(row, lit[0], cout, t1, active, u, **kw),
+                  "target round" if positive else "negative round")
+            require(torch.equal(got[pad], row[pad]),
+                    f"ta_update at n={n}: a padding row changed")
+            changed += int((got != row).sum())
+        require(changed > 0, f"ta_update at n={n}: neither round changed a cell")
+        print(f"shard kernels n={n} ({SHARD_PAD_ROWS} padding rows: polarity "
+              f"0, inactive): all four equal to plain, max |diff| {errs}; "
+              f"votes at B=1, {SHARD_ROWS // 3}, {SHARD_ROWS}; clause outputs "
+              f"at (B, m)=(1, 1), (32, {cfg.n_classes}); ta_update on "
+              f"({n}, {L}), padding rows unchanged [{card}]")
+
+
+def sharded(cfg, state, inc, trained, gen, dev, card) -> dict:
+    """Phase 7: clause- and data-sharded topologies, k shards on one card."""
+    from repro_torch.core import tm
+    from repro_torch.core.session import TMSession, Topology, TsetlinMachine
+    from repro_torch.core.types import TMState
+    from repro_torch.kernels import clause_eval, indexed, ta_update
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.serving import AsyncTMServer, ScoreResult
+
+    counters = (indexed.indexed_votes, clause_eval.clause_votes_packed,
+                clause_eval.clause_outputs_packed, ta_update.ta_update)
+    launched = {c.__name__: 0 for c in counters}
+
+    def reset():
+        for c in counters:
+            c.launches = 0
+
+    def read() -> dict:
+        got = {c.__name__: c.launches for c in counters}
+        for k, v in got.items():
+            launched[k] += v
+        return got
+
+    def mesh(c, d):
+        return make_mesh(d, c, devices=["cuda:0"] * (c * d))
+
+    print(f"sharded: torch.cuda.device_count() = {torch.cuda.device_count()}; "
+          f"every shard below is placed on cuda:0 by an explicit device list, "
+          f"so k shards share one card (times are k shards on one card, not "
+          f"a multi-card scaling figure) [{card}]")
+    engines = ("indexed", "bitpack", "dense")
+    one = TMSession(cfg, engines=engines, device=dev)
+    bundle1 = one.prepare(state)
+    x = requests(inc, SHARD_ROWS, gen, dev)
+    dense = one.scores(bundle1, x, engine="dense")
+    shard_kernels(cfg, bundle1, trained["ta0"], x, gen, dev, card)
+    kernel_of = {"indexed": indexed.indexed_votes,
+                 "bitpack": clause_eval.clause_votes_packed}
+
+    # -- scores ---------------------------------------------------------------
+    for c, d in SHARD_SCORES:
+        s = TMSession(cfg, Topology(clause_shards=c, data_shards=d),
+                      mesh=mesh(c, d), engines=("indexed", "bitpack"))
+        b = s.prepare(state)
+        g = s.geometry
+        for engine, kernel in kernel_of.items():
+            fn = s._sharded_scores_fn(engine)
+            before = fn.reductions
+            reset()
+            got = s.scores(b, x, engine=engine)
+            torch.cuda.synchronize()
+            n_launch = read()[kernel.__name__]
+            require(torch.equal(got, dense),
+                    f"scores ({c}, {d}) {engine}: sharded != Topology(1) dense")
+            require(n_launch >= c * d, f"scores ({c}, {d}) {engine}: "
+                    f"{n_launch} launches for {c * d} ranks")
+            require(fn.reductions == before + 1,
+                    f"scores ({c}, {d}) {engine}: {fn.reductions - before} "
+                    "reductions in one call, want 1")
+            ms = call_ms(lambda: s.scores(b, x, engine=engine), 10)
+            ms1 = call_ms(lambda: one.scores(bundle1, x, engine=engine), 10)
+            dev_ms = device_ms(lambda: s.scores(b, x, engine=engine), 5)
+            dev_ms1 = device_ms(lambda: one.scores(bundle1, x, engine=engine), 5)
+            print(f"sharded scores ({c} clause x {d} data shards, "
+                  f"{g.composition}, n_local={g.n_local}, pad rows "
+                  f"{g.n_padded - g.n_clauses}) {engine} B={SHARD_ROWS}: equal "
+                  f"to Topology(1) dense, {n_launch} kernel launches, 1 "
+                  f"reduction; {ms:.4f} ms per call vs Topology(1) {ms1:.4f} "
+                  f"ms; device ms (CUDA-graph replay) {dev_ms:.4f} vs "
+                  f"Topology(1) {dev_ms1:.4f} ({c * d} shards on one card) "
+                  f"[{card}]")
+
+    # -- training ----------------------------------------------------------------
+    ta0, batches, max_events = (trained["ta0"], trained["batches"],
+                                trained["max_events"])
+    b_size = TRAIN_BATCH
+    draws = [tm.draw_sample_draws(cfg, torch.Generator(device=dev)
+                                  .manual_seed(SEED + 10 + i), b_size)
+             for i in range(SHARD_STEPS)]
+
+    def fit(machine):
+        machine.bundle = machine.session.prepare(TMState(ta_state=ta0))
+        times = []
+        for (xb, yb), dr in zip(batches[1:1 + SHARD_STEPS], draws):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            machine.partial_fit(xb, yb, dr)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return times
+
+    reference = {}
+    for parallel in (False, True):
+        m1 = TsetlinMachine(cfg, engines=engines, device=dev, parallel=parallel,
+                            max_events_per_batch=max_events)
+        reference[parallel] = (m1, fit(m1))
+    for c, d, parallel in SHARD_TRAIN:
+        machine = TsetlinMachine(
+            cfg, topology=Topology(clause_shards=c, data_shards=d),
+            mesh=mesh(c, d), engines=engines, parallel=parallel,
+            max_events_per_batch=max_events)
+        s = machine.session
+        reset()
+        times = fit(machine)
+        got = read()
+        m1, times1 = reference[parallel]
+        where = f"train ({c}, {d}{', parallel' if parallel else ''})"
+        require(torch.equal(machine.state.ta_state, m1.state.ta_state),
+                f"{where}: state != Topology(1)'s after {SHARD_STEPS} steps")
+        require(machine.event_overflow == 0 == m1.event_overflow,
+                f"{where}: event_overflow {machine.event_overflow}")
+        _shard_caches_match(cfg, machine.bundle, m1.bundle, where)
+        ranks = c if parallel or not s.geometry.composes else c * d
+        want = 2 * b_size * ranks * SHARD_STEPS
+        require(got["clause_outputs_packed"] == got["ta_update"] == want,
+                f"{where}: launches {got}, want {want} of each learning kernel "
+                f"(2·B per step on each of {ranks} ranks)")
+        comp = "batch_parallel" if parallel else s.geometry.composition
+        print(f"sharded train ({c} clause x {d} data shards, {comp}): "
+              f"{SHARD_STEPS} steps of B={b_size} equal Topology(1) (state, "
+              f"every cache, overflow 0, validate clean); learning kernels "
+              f"{want} launches each (2·B per step on {ranks} ranks); "
+              f"{s._step.reductions} reductions; step ms "
+              f"{[round(t, 3) for t in times]} vs Topology(1) "
+              f"{[round(t, 3) for t in times1]} ({c * d} shards on one card) "
+              f"[{card}]")
+
+    # -- asynchronous votes --------------------------------------------------------
+    sync_machine = reference[False][0]
+    zero = TsetlinMachine(cfg, topology=Topology(clause_shards=4,
+                                                 async_votes=0),
+                          mesh=mesh(4, 1), engines=engines,
+                          max_events_per_batch=max_events)
+    fit(zero)
+    require(torch.equal(zero.state.ta_state, sync_machine.state.ta_state),
+            "async_votes=0 != synchronous Topology(1)")
+    k = ASYNC_K
+    machine = TsetlinMachine(cfg, topology=Topology(clause_shards=4,
+                                                    async_votes=k),
+                             mesh=mesh(4, 1), engines=engines, seed=SEED,
+                             max_events_per_batch=max_events)
+    machine.bundle = machine.session.prepare(TMState(ta_state=ta0))
+    s = machine.session
+    reset()
+    times = []
+    for i in range(ASYNC_STEPS):
+        xb, yb = batches[i % len(batches)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        machine.partial_fit(xb, yb)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    got = read()
+    require(s._step.reductions == 0,
+            f"async: {s._step.reductions} reductions inside the steps, want 0")
+    require(s._refresh.reductions == ASYNC_STEPS // k,
+            f"async: {s._refresh.reductions} refreshes in {ASYNC_STEPS} "
+            f"steps, want {ASYNC_STEPS // k}")
+    require(got["ta_update"] == 2 * b_size * 4 * ASYNC_STEPS,
+            f"async: launches {got}")
+    require(machine.event_overflow == 0, "async: event_overflow")
+    accuracy = machine.evaluate(*trained["test"], engine="indexed")
+    print(f"async votes (4 clause shards, K={k}): {ASYNC_STEPS} steps with 0 "
+          f"reductions inside them and {s._refresh.reductions} refreshes; "
+          f"async_votes=0 equals synchronous Topology(1); step ms "
+          f"{[round(t, 3) for t in times]}; held-out accuracy {accuracy:.4f} "
+          f"(4 shards on one card) [{card}]")
+
+    # -- serving -------------------------------------------------------------------
+    c, d = SHARD_SERVE
+    s = TMSession(cfg, Topology(clause_shards=c, data_shards=d),
+                  mesh=mesh(c, d), engines=("indexed", "bitpack"))
+    b = s.prepare(state)
+    xs = requests(inc, SHARD_REQUESTS, gen, dev)
+    want_rows = one.scores(bundle1, xs, engine="dense").cpu().numpy()
+    xs_host = xs.cpu().numpy()
+    for engine, kernel in kernel_of.items():
+        server = AsyncTMServer(s, b, engine=engine, max_batch=32)
+        reset()
+        server.start()
+        try:
+            results = [p.wait(120) for p in [server.submit(row, tenant=f"t{i % 2}")
+                                             for i, row in enumerate(xs_host)]]
+        finally:
+            server.stop()
+        n_launch = read()[kernel.__name__]
+        stats = server.stats()
+        require(all(isinstance(r, ScoreResult) for r in results),
+                f"sharded serve {engine}: a request was not served")
+        require(np.array_equal(np.stack([r.scores for r in results]), want_rows),
+                f"sharded serve {engine}: scores != Topology(1) dense")
+        require(n_launch >= c * d * stats["batches"],
+                f"sharded serve {engine}: {n_launch} launches for "
+                f"{stats['batches']} batches on {c * d} ranks")
+        top = server.sizes[-1]
+        fn = s.lower_scores(b, top, engine=engine)
+        fn1 = one.lower_scores(bundle1, top, engine=engine)
+        xb = xs[:top].contiguous()
+        ms, ms1 = call_ms(lambda: fn(xb), 20), call_ms(lambda: fn1(xb), 20)
+        print(f"sharded serve ({c} clause x {d} data shards) {engine}: "
+              f"{len(results)} requests in {stats['batches']} batches, all "
+              f"equal to Topology(1) dense, {n_launch} kernel launches; bucket "
+              f"B={top} {ms:.4f} ms per call vs Topology(1) {ms1:.4f} ms "
+              f"({c * d} shards on one card) [{card}]")
+    for name, n in launched.items():
+        require(n > 0, f"phase 7 never launched {name}")
+    return launched
 
 
 def main() -> int:
@@ -734,6 +1070,9 @@ def main() -> int:
     # -- 5. train through the entry points --------------------------------------
     trained = train(cfg, inc, gen, dev, card)
 
+    # -- 7. sharded topologies, k shards on one card -------------------------
+    shard_launches = sharded(cfg, state, inc, trained, gen, dev, card)
+
     # -- 6. report ----------------------------------------------------------
     top = BATCHES[-1]
     kernels = []
@@ -751,7 +1090,8 @@ def main() -> int:
                         # no single PyTorch call computes these votes; the
                         # float32 matmul they are built on is the yardstick
                         "library_ms": None, "yardstick_ms": r["yardstick_ms"],
-                        "call_ms": r["call_ms"]})
+                        "call_ms": r["call_ms"],
+                        "sharded_launches": shard_launches[kname]})
     # the learning kernels at the training round's shapes
     for kname, key, src, replaces in (
             ("clause_outputs_packed", ("clause_outputs_packed", 1),
@@ -767,7 +1107,8 @@ def main() -> int:
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"],
                         # no single PyTorch call computes either function
-                        "library_ms": None, "call_ms": r["call_ms"]})
+                        "library_ms": None, "call_ms": r["call_ms"],
+                        "sharded_launches": shard_launches[kname]})
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

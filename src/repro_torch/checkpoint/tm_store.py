@@ -3,7 +3,11 @@
 
 A schema-v1 step holds four arrays: ``schema_version``, ``fingerprint``,
 ``step`` and ``ta_state``. Engine caches are derived data and never persist;
-restoring rebuilds them. The fingerprint (sha256 over the ``repr`` of every
+restoring rebuilds them. A checkpoint is topology-free: ``ta_state`` is
+always the unpadded global ``(m, n_clauses, 2o)`` state, whatever topology
+wrote it, and ``TMSession.restore`` lands it on the restoring session's
+placement (reshard-on-restore), caches rebuilt there and any stale-vote
+accumulator at zero. The fingerprint (sha256 over the ``repr`` of every
 model field of ``TMConfig``) catches a restore into a machine whose
 semantics differ even where every shape matches (a changed ``s``).
 

@@ -4,6 +4,7 @@ estimator."""
 from repro_torch.core.types import (
     TMConfig,
     TMState,
+    VoteAccumulator,
     clause_polarity,
     include_mask,
     init_tm,
@@ -54,6 +55,11 @@ from repro_torch.core.api import (
     sync_caches,
     train_step,
 )
+from repro_torch.core.distributed import (
+    ClauseGeometry,
+    ShardedBundle,
+    clause_geometry,
+)
 from repro_torch.core.session import (
     TMSession,
     Topology,
@@ -61,7 +67,7 @@ from repro_torch.core.session import (
 )
 
 __all__ = [
-    "TMConfig", "TMState", "clause_polarity", "include_mask", "init_tm",
+    "TMConfig", "TMState", "VoteAccumulator", "clause_polarity", "include_mask", "init_tm",
     "literals_from_input", "FeedbackRands", "SampleDraws", "accuracy",
     "clause_votes", "dense_clause_outputs", "draw_feedback_rands",
     "draw_negatives", "draw_sample_draws", "predict", "scores",
@@ -71,5 +77,6 @@ __all__ = [
     "insert", "validate", "EvalEngine", "cache_provider", "get_engine",
     "register_engine", "registered_engines", "DEFAULT_ENGINE", "TMBundle",
     "bundle_predict", "bundle_scores", "cache_keys_for", "init_bundle",
-    "sync_caches", "train_step", "TMSession", "Topology", "TsetlinMachine",
+    "sync_caches", "train_step", "ClauseGeometry", "ShardedBundle",
+    "clause_geometry", "TMSession", "Topology", "TsetlinMachine",
 ]

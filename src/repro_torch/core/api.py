@@ -17,7 +17,7 @@ import torch
 from repro_torch.core import indexing, tm
 from repro_torch.core.engines import cache_provider, get_engine, registered_engines
 from repro_torch.core.types import (
-    TMConfig, TMState, include_mask, init_tm, resolve_device)
+    TMConfig, TMState, VoteAccumulator, include_mask, init_tm, resolve_device)
 
 DEFAULT_ENGINE = "indexed"
 
@@ -29,13 +29,17 @@ class TMBundle:
     ``event_overflow`` counts the cache-sync events dropped by the
     fixed-size buffer since the bundle was prepared (a 0-d int32 tensor on
     the bundle's device): non-zero means the caches are stale, and
-    ``max_events`` was too small for some step.
+    ``max_events`` was too small for some step. ``vote_acc`` is the
+    stale-vote accumulator of asynchronous sharded training (one rank's row
+    in a sharded bundle, ``core/distributed.py``); None otherwise. It is
+    carried through ``sync_caches`` / ``train_step`` and never checkpointed.
     """
 
     cfg: TMConfig
     state: TMState
     caches: dict[str, Any]
     event_overflow: torch.Tensor | None = None
+    vote_acc: VoteAccumulator | None = None
 
     @property
     def index(self) -> indexing.ClauseIndex:
@@ -125,7 +129,7 @@ def sync_caches(bundle: TMBundle, new_state: TMState,
     if bundle.event_overflow is not None:
         overflow = overflow + bundle.event_overflow
     return TMBundle(cfg=bundle.cfg, state=new_state, caches=caches,
-                    event_overflow=overflow)
+                    event_overflow=overflow, vote_acc=bundle.vote_acc)
 
 
 def train_step(bundle: TMBundle, xs, ys, draws, mask=None, *,

@@ -16,6 +16,14 @@ The packed and indexed engines score through the kernel registry
 or the plain body. The ``compact`` engine and the ``bitpack_xla`` alias
 come in later slices.
 
+Shard contract (``core/distributed.py``): ``shard_prepare`` builds a clause
+shard's cache from the shard's state slice, and ``partial_scores`` gives the
+shard's partial votes through the same primitives with the shard's
+polarity slice (sign 0 on padding rows); the partials of all clause shards
+add up to the scores. The reference's ``cache_pspec`` (how a cache's arrays
+lay out over the mesh) has no PyTorch counterpart: a sharded bundle keeps
+one whole cache per rank, on the rank's device (``distributed.py``).
+
 All engines implement the paper's Eq. 4 convention (empty clauses count as
 true); with ``cfg.empty_clause_output == 0`` only ``dense`` follows the
 classic convention.
@@ -63,6 +71,27 @@ class EvalEngine:
         """
         del events
         return self.prepare(cfg, state)
+
+    def shard_prepare(self, cfg: TMConfig, state: TMState, n_shards: int):
+        """Cache of one clause shard from its state slice. Default:
+        ``prepare``, right wherever a cache's arrays carry the clause axis
+        (the indexed engine splits its list capacity instead)."""
+        del n_shards
+        return self.prepare(cfg, state)
+
+    def partial_scores(self, cfg: TMConfig, cache, x: torch.Tensor,
+                       pol: torch.Tensor) -> torch.Tensor:
+        """(B, m) int32 partial votes over one shard's clauses; ``pol`` is
+        the shard's (n_local,) polarity slice, 0 on padding rows. The
+        partials of all clause shards add up to ``scores``."""
+        raise NotImplementedError(
+            f"engine {self.name!r} does not implement partial_scores")
+
+
+def _partial_votes(clause_out: torch.Tensor, pol: torch.Tensor) -> torch.Tensor:
+    """(B, m, n_local) clause outputs × (n_local,) polarity → (B, m) int32."""
+    return (clause_out.to(torch.int32) * pol.to(torch.int32)).sum(
+        -1, dtype=torch.int32)
 
 
 _REGISTRY: dict[str, EvalEngine] = {}
@@ -118,6 +147,9 @@ class DenseEngine(EvalEngine):
         del events
         return state  # the new state is the new cache
 
+    def partial_scores(self, cfg, cache, x, pol):
+        return _partial_votes(tm.dense_clause_outputs(cfg, cache, x), pol)
+
 
 def packed_include_apply_events(words: torch.Tensor,
                                 events: indexing.Event) -> torch.Tensor:
@@ -157,8 +189,11 @@ class BitpackEngine(EvalEngine):
         return packed_include_apply_events(cache, events)
 
     def scores(self, cfg, cache, x):
-        return kbackend.resolve("clause_votes")(
-            cache, packed_literals(x), clause_polarity(cfg, cache.device))
+        return self.partial_scores(cfg, cache, x,
+                                   clause_polarity(cfg, cache.device))
+
+    def partial_scores(self, cfg, cache, x, pol):
+        return kbackend.resolve("clause_votes")(cache, packed_literals(x), pol)
 
 
 class IndexedEngine(EvalEngine):
@@ -176,9 +211,19 @@ class IndexedEngine(EvalEngine):
         return indexing.index_update(cache, events)
 
     def scores(self, cfg, cache, x):
+        return self.partial_scores(cfg, cache, x,
+                                   clause_polarity(cfg, cache.pos.device))
+
+    def shard_prepare(self, cfg, state, n_shards):
+        cap = indexing.shard_capacity(cfg.resolved_index_capacity, n_shards)
+        return indexing.build_index(cfg, state, cap)
+
+    def partial_scores(self, cfg, cache, x, pol):
+        # -Σ_{falsified} pol: a shard's partial is not its own vote sum
+        # (that would add Σ pol_local), but the partials of all shards add
+        # up to the scores because the full polarity sums to 0
         return kbackend.resolve("indexed_votes")(
-            cache.pos, literals_from_input(x),
-            clause_polarity(cfg, cache.pos.device))
+            cache.pos, literals_from_input(x), pol)
 
 
 register_engine(DenseEngine())

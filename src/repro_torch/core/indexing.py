@@ -42,6 +42,18 @@ class ClauseIndex(NamedTuple):
         return self.lists.shape[-1]
 
 
+def shard_capacity(capacity: int, n_shards: int) -> int:
+    """Per-shard list capacity of a clause-sharded index: ⌈capacity/S⌉.
+
+    A shard's worst case is its clause count, ⌈n_clauses/S⌉ under the ragged
+    clause geometry, and the default capacity is ``n_clauses``, so the
+    ceiling covers every shard for any shard count. A shard's lists hold
+    its own local clause ids, which stay dense under clause-axis padding:
+    a padding row includes no literal and never enters a list.
+    """
+    return -(-capacity // n_shards)
+
+
 def empty_index(cfg: TMConfig, capacity: int, device) -> ClauseIndex:
     """All TAs exclude ⇒ all lists empty."""
     m, n, L = cfg.n_classes, cfg.n_clauses, cfg.n_literals

@@ -126,6 +126,31 @@ class TMState(NamedTuple):
         return self.ta_state.shape[2]
 
 
+class VoteAccumulator(NamedTuple):
+    """Double-buffered per-class vote sums of asynchronous sharded training
+    (``Topology(async_votes=K)``; reference ``repro.core.types``).
+
+      * ``local``    — (R, m) int32: each vote rank's latest local partial
+                       vote per class (the batch mean of the rounds it ran;
+                       a class untouched in a step keeps its value).
+      * ``stale``    — (R, m) int32: the read buffer, each rank's estimate
+                       of the other ranks' votes (the last refresh's total
+                       minus its own ``local``). A round reads
+                       ``live local vote + stale`` and reduces nothing.
+      * ``overflow`` — (R,) int32: cache-sync events dropped on the rank
+                       since the last refresh, drained by the refresh.
+
+    R counts the vote ranks. A sharded bundle keeps one ``R = 1`` row per
+    (data, clause) rank on the rank's device; its ``vote_acc`` view stacks
+    them data-major, clause-minor. Rebuildable state: checkpoints never
+    hold it, and a restore starts from zeros.
+    """
+
+    local: torch.Tensor
+    stale: torch.Tensor
+    overflow: torch.Tensor
+
+
 def init_tm(cfg: TMConfig, device) -> TMState:
     """All TAs start just on the *exclude* side of the boundary (state N),
     so every inclusion list starts empty."""

@@ -17,8 +17,13 @@ Registered: ``clause_votes`` and ``indexed_votes`` (serving),
 ``index_update`` (the index's event replay), whose one PyTorch body serves
 both devices: the reference registers one XLA body on both of its routes
 too, because the replay is scatter-bound, and no kernel exists for it, so
-the CUDA route is that body by design and not a fallback. Multi-device
-partitioning contracts come with multi-device topologies.
+the CUDA route is that body by design and not a fallback.
+
+Sharded topologies (``core/distributed.py``) call the same primitives on
+each rank's clause rows. Padding rows need no kernel change: the two vote
+primitives take polarity 0 for them, ``ta_update`` takes them with
+``active`` False (the clause mask), and ``clause_outputs`` is handed the
+rank's rows by its caller.
 """
 from __future__ import annotations
 

@@ -4,6 +4,8 @@ and the ``--smoke`` entry).
     PYTHONPATH=src python -m repro_torch.launch.tm_serve --smoke
     PYTHONPATH=src python -m repro_torch.launch.tm_serve --engine indexed,bitpack
     PYTHONPATH=src python -m repro_torch.launch.tm_serve --smoke --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.tm_serve --smoke \
+        --clause-shards 2 --data-shards 2 --devices cuda:0,cuda:0,cuda:0,cuda:0
 
 Each engine serves a synthetic closed-loop load: a simulated arrival clock
 advanced by *measured* batch times (deterministic per seed, no sleeps). Its
@@ -12,6 +14,13 @@ splices compute windows end to end and is not a wall-clock rate. The record
 is written to ``BENCH_tm_serve_torch.json`` (git-ignored). The open-loop
 ``sustained_load`` comparison and ``serving/loadgen.py`` come in a later
 slice. Runs on the card unless ``--device cpu`` is given.
+
+``--clause-shards`` / ``--data-shards`` serve through a sharded session
+(``core/distributed.py``); the ranks take ``cuda:0 … cuda:k-1`` (or
+``--device cpu``), or the explicit ``--devices`` list, which may repeat a
+device. Unlike the reference, ``--data-shards`` defaults to 1 rather than
+to every spare device: the placement is always the one asked for. The
+record's ``topology`` is ``session.describe()``.
 """
 from __future__ import annotations
 
@@ -27,6 +36,7 @@ from repro_torch.core.engines import registered_engines
 from repro_torch.core.session import TMSession, Topology
 from repro_torch.core.types import TMConfig, TMState, resolve_device
 from repro_torch.data.synthetic import binarized_images
+from repro_torch.launch.mesh import DeviceMesh, make_mesh
 from repro_torch.serving.aot import bucket_for, buckets
 
 
@@ -124,12 +134,14 @@ def device_record(device: torch.device) -> dict:
 
 
 def run(cfg: TMConfig, *, engines=("indexed",), topology: Topology | None = None,
-        n_requests: int = 512, rps: float = 2000.0,
-        policy: ServePolicy = ServePolicy(), seed: int = 0,
-        include_density: float = 0.08, device="cuda") -> dict:
-    """Serve a synthetic load through each engine on one session."""
+        mesh: DeviceMesh | None = None, n_requests: int = 512,
+        rps: float = 2000.0, policy: ServePolicy = ServePolicy(),
+        seed: int = 0, include_density: float = 0.08, device="cuda") -> dict:
+    """Serve a synthetic load through each engine on one session (sharded
+    when ``topology`` or ``mesh`` spans several ranks)."""
     rng = np.random.default_rng(seed)
-    session = TMSession(cfg, topology, engines=engines, device=device)
+    session = TMSession(cfg, topology, mesh=mesh, engines=engines,
+                        device=device)
     bundle = session.prepare(_random_state(cfg, rng, include_density))
 
     x_all, _ = binarized_images(n_requests, cfg.n_features, cfg.n_classes,
@@ -184,6 +196,14 @@ def main(argv=None) -> None:
     ap.add_argument("--features", type=int, default=None)
     ap.add_argument("--device", default="cuda",
                     help="'cuda' (default; raises without a card) or 'cpu'")
+    ap.add_argument("--clause-shards", type=int, default=1,
+                    help="ways the clauses split over ranks")
+    ap.add_argument("--data-shards", type=int, default=1,
+                    help="ways each batch splits over ranks")
+    ap.add_argument("--devices", default=None,
+                    help="comma-separated devices of the ranks, data-major "
+                         "(a device may repeat; default: cuda:0..k-1, or "
+                         "cpu with --device cpu)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out", default="BENCH_tm_serve_torch.json")
     ap.add_argument("--smoke", action="store_true",
@@ -202,14 +222,25 @@ def main(argv=None) -> None:
             raise SystemExit(f"unknown engine {e!r}; "
                              f"registered: {registered_engines()}")
     policy = ServePolicy(max_batch=r["max_batch"], max_wait_ms=args.max_wait_ms)
-    record = run(cfg, engines=engines, n_requests=r["requests"], rps=args.rps,
-                 policy=policy, seed=args.seed, device=device)
+    topology = Topology(clause_shards=args.clause_shards,
+                        data_shards=args.data_shards)
+    mesh = None
+    if topology.is_sharded or args.devices is not None:
+        mesh = make_mesh(args.data_shards, args.clause_shards, device=device,
+                         devices=(args.devices.split(",")
+                                  if args.devices is not None else None))
+    record = run(cfg, engines=engines, topology=topology, mesh=mesh,
+                 n_requests=r["requests"], rps=args.rps, policy=policy,
+                 seed=args.seed, device=device)
     record["schema"] = 1
     with open(args.out, "w") as f:
         json.dump(record, f, indent=2)
     dev = record["device"]
+    topo = record["topology"]
     print(f"device: {dev['kind']} ({dev['platform']}), "
-          f"route={record['topology']['backend']}")
+          f"route={topo['backend']}, {topo['data_shards']} data x "
+          f"{topo['clause_shards']} clause shards "
+          f"({topo['composition']})")
     for name, e in record["engines"].items():
         lm = e["latency_ms"]
         tag = ("  [SATURATED: offered load > capacity; percentiles are "

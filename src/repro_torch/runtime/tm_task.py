@@ -1,5 +1,5 @@
 """TM training task for the fault-tolerant ``Trainer`` — port of
-``repro.runtime.tm_task`` (one device).
+``repro.runtime.tm_task`` (any placement).
 
 ``make_tm_task`` turns a ``TMConfig`` into what ``runtime/trainer.py``
 consumes, all driven through one ``TMSession``:
@@ -10,9 +10,9 @@ consumes, all driven through one ``TMSession``:
     ``fold_in(root, step)``), so a restarted run draws identical numbers;
   * ``state`` — ``{"bundle": TMBundle, "step": int}``;
   * ``batcher`` — the deterministic (seed, step) ``TMBatcher`` stream;
-  * ``to_ckpt`` / ``from_ckpt`` — the schema-v1 checkpoint view: TA state,
-    step and config fingerprint persist; every engine cache is rebuilt on
-    restore.
+  * ``to_ckpt`` / ``from_ckpt`` — the schema-v1 checkpoint view: the
+    unpadded global TA state, step and config fingerprint persist; every
+    engine cache is rebuilt on restore, on the restoring task's topology.
 
 Metrics per logged step: batch accuracy *before* the update, through
 ``DEFAULT_ENGINE``.
@@ -27,7 +27,7 @@ import torch
 
 from repro_torch.checkpoint import tm_store
 from repro_torch.core.api import DEFAULT_ENGINE
-from repro_torch.core.session import TMSession
+from repro_torch.core.session import TMSession, Topology
 from repro_torch.core.types import TMConfig, TMState
 from repro_torch.data.pipeline import TMBatcher
 
@@ -52,17 +52,20 @@ def step_generator(seed: int, step: int, device) -> torch.Generator:
         (int(hi) << 32 | int(lo)) & (2**63 - 1))
 
 
-def make_tm_task(cfg: TMConfig, *, batch: int = 32, seed: int = 0,
+def make_tm_task(cfg: TMConfig, *, topology: Topology | None = None,
+                 mesh=None, batch: int = 32, seed: int = 0,
                  data_seed: int = 7, parallel: bool = False,
                  max_events: int = 4096, metrics_every: int = 1,
                  device="cuda") -> TMTask:
     """Build a TM training task on one session that maintains every
-    registered engine's cache. ``metrics_every`` skips the pre-update
-    accuracy pass (through ``DEFAULT_ENGINE``) on the other steps: set it to
-    the trainer's ``log_every``.
+    registered engine's cache (``topology`` / ``mesh`` as ``TMSession``
+    takes them: the task itself is placement-transparent).
+    ``metrics_every`` skips the pre-update accuracy pass (through
+    ``DEFAULT_ENGINE``) on the other steps: set it to the trainer's
+    ``log_every``.
     """
-    session = TMSession(cfg, device=device, parallel=parallel,
-                        max_events=max_events)
+    session = TMSession(cfg, topology, mesh=mesh, device=device,
+                        parallel=parallel, max_events=max_events)
     batcher = TMBatcher(cfg.n_features, cfg.n_classes, batch, seed=data_seed)
 
     def step_fn(state: dict, batch_: dict):
@@ -76,14 +79,14 @@ def make_tm_task(cfg: TMConfig, *, batch: int = 32, seed: int = 0,
         return {"bundle": nb, "step": step + 1}, metrics
 
     def to_ckpt(state: dict) -> dict:
-        return tm_store.checkpoint_tree(cfg, state["bundle"].state.ta_state,
-                                        step=int(state["step"]))
+        ta = session.unpad_state(state["bundle"].state).ta_state
+        return tm_store.checkpoint_tree(cfg, ta, step=int(state["step"]))
 
     def from_ckpt(loaded: dict, state: dict) -> dict:
         tm_store.validate_meta(loaded, cfg, where="trainer checkpoint")
         ta = torch.from_numpy(np.asarray(loaded["ta_state"])).to(
             device=session.device, dtype=cfg.state_dtype)
-        # every cache is rebuilt from the restored state
+        # every cache is rebuilt from the restored state, on this topology
         return {"bundle": session.prepare(TMState(ta_state=ta)),
                 "step": int(loaded["step"])}
 

@@ -9,7 +9,9 @@ and paying every first-call cost there). ``lowerings`` stays constant after
 construction, and a shape that was not prepared raises ``AOTCacheMiss``.
 
 Entries are keyed on ``(engine, bucket, session fingerprint)``; the
-fingerprint covers config × placement × device (``TMSession.fingerprint``).
+fingerprint covers config × placement × devices (``TMSession.fingerprint``).
+On a sharded session a bucket callable is one ``make_sharded_scores`` call
+over every rank's cache, resolved once when the entry is prepared.
 """
 from __future__ import annotations
 
@@ -23,8 +25,9 @@ import torch
 def buckets(max_batch: int, min_batch: int = 1) -> list[int]:
     """Power-of-two padding buckets in [min_batch, max_batch].
 
-    ``min_batch`` is the topology's data-shard count (1 in this slice): a
-    top bucket that is not a multiple of it rounds *down* to one.
+    ``min_batch`` is the topology's data-shard count: every bucket is a
+    multiple of it (a sharded scores call splits the rows over the data
+    ranks), and a top bucket that is not one rounds *down* to one.
     """
     if min_batch > max_batch:
         raise ValueError(

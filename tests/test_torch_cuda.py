@@ -306,3 +306,91 @@ def test_train_step_on_card_equals_cpu(cuda_device, parallel):
     for a, b in zip(card.index, cpu.index):
         assert torch.equal(a.cpu(), b)
     assert int(card.event_overflow) == int(cpu.event_overflow) == 0
+
+
+# ---------------------------------------------------------------------------
+# sharded topologies: the kernels at shard widths, k shards on one card
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [334, 500, 667])
+def test_kernels_at_shard_widths_with_padding_rows(cuda_device, n):
+    """The shard widths of the MNIST width's sharded topologies (n_sub 334,
+    n_local 500 and 667), with the trailing rows padding: polarity 0 in the
+    vote kernels, frozen (active False) in ta_update."""
+    dev, m, o = cuda_device, 10, 784
+    _, x, pos, pol = make_case(m, n, o, 340, seed=n, dev=dev)
+    # about three literals per clause, so that clauses fire and votes vary
+    gen = torch.Generator(device=dev).manual_seed(n)
+    include = torch.rand((m, n, 2 * o), generator=gen, device=dev) < 3 / (2 * o)
+    pos = torch.where(include, pos.clamp(min=0), -1).contiguous()
+    pad = torch.arange(n, device=dev) >= n - 3
+    include[:, pad] = False
+    pos[:, pad] = -1
+    pol = torch.where(pad, 0, pol)
+    lit = torch.cat([x, 1 - x], dim=-1)
+    words, lw = bitpack.pack_bits(include), bitpack.packed_literals(x)
+    for b in (1, 2, 340):
+        torch.testing.assert_close(
+            indexed.indexed_votes(pos, lit[:b].contiguous(), pol),
+            indexed.indexed_votes_ref(pos, lit[:b], pol), rtol=0, atol=0)
+        torch.testing.assert_close(
+            clause_eval.clause_votes_packed(words, lw[:b].contiguous(), pol),
+            clause_eval.clause_votes_ref(words, lw[:b], pol), rtol=0, atol=0)
+    assert clause_eval.clause_votes_ref(words, lw, pol).unique().numel() > 1
+    for b, mm in ((1, 1), (32, m)):
+        w = words[:mm].contiguous()
+        torch.testing.assert_close(
+            clause_eval.clause_outputs_packed(w, lw[:b].contiguous()),
+            clause_eval.clause_outputs_ref(w, lw[:b]), rtol=0, atol=0)
+    L, kw = 2 * o, dict(n_states=127, s=3.9, boost_true_positive=False)
+    ta = torch.randint(1, 255, (n, L), generator=gen, device=dev,
+                       dtype=torch.int16)
+    cout = torch.randint(0, 2, (n,), generator=gen, device=dev, dtype=torch.int8)
+    act = (torch.rand(n, generator=gen, device=dev) < 0.7) & ~pad
+    u = edge_uniforms(n, L, 3.9, False, gen, dev)
+    got = ta_update.ta_update(ta, lit[0], cout, pol > 0, act, u, **kw)
+    torch.testing.assert_close(
+        got, ta_update.ta_update_ref(ta, lit[0], cout, pol > 0, act, u, **kw),
+        rtol=0, atol=0)
+    torch.testing.assert_close(got[pad], ta[pad], rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,d,parallel", [(3, 1, False), (2, 3, False),
+                                          (2, 2, True)],
+                         ids=["ragged", "composed_ragged", "batch_parallel"])
+def test_sharded_step_on_one_card_equals_topology_one(cuda_device, c, d,
+                                                      parallel):
+    from repro_torch.core.session import Topology
+    from repro_torch.launch.mesh import make_mesh
+
+    cfg = TMConfig(n_classes=4, n_clauses=66, n_features=100, n_states=20,
+                   s=3.9, threshold=8)
+    rng = np.random.default_rng(5)
+    ta = torch.from_numpy(rng.integers(1, 2 * cfg.n_states + 1,
+                                       (4, 66, 200)).astype(np.int16))
+    xs = rng.integers(0, 2, (12, 100)).astype(np.uint8)
+    ys = rng.integers(0, 4, 12)
+    engines = ("indexed", "bitpack", "dense")
+    one = TMSession(cfg, engines=engines, device=cuda_device,
+                    parallel=parallel, max_events=16384)
+    sharded = TMSession(cfg, Topology(clause_shards=c, data_shards=d),
+                        mesh=make_mesh(d, c, devices=["cuda:0"] * (c * d)),
+                        engines=engines, parallel=parallel, max_events=16384)
+    results = []
+    for s in (one, sharded):
+        bundle = s.prepare(TMState(ta_state=ta))
+        g = torch.Generator(device=cuda_device).manual_seed(9)
+        before = ta_update.ta_update.launches
+        bundle = s.train_step(bundle, xs, ys, g)
+        assert ta_update.ta_update.launches > before
+        results.append((s.unpad_state(bundle.state).ta_state.cpu(),
+                        [s.scores(bundle, xs, engine=e).cpu() for e in engines],
+                        int(bundle.event_overflow)))
+    (want, want_scores, _), (got, got_scores, overflow) = results
+    assert torch.equal(got, want) and not torch.equal(got, ta)
+    for a, b in zip(got_scores, want_scores):
+        assert torch.equal(a, b)
+    assert overflow == 0

@@ -208,14 +208,18 @@ def test_learning_kernel_wrappers_refuse_cpu_tensors():
 # ---------------------------------------------------------------------------
 
 # (B, m, n, W): the card tests' SHAPES, the training round and the top
-# serving bucket at the MNIST width, and row widths from one word to
-# IMDb-scale rows that need several chunks
+# serving bucket at the MNIST width, row widths from one word to
+# IMDb-scale rows that need several chunks, and the shard widths of the
+# MNIST width's sharded topologies (n_local 500 and 667, n_sub 334: the
+# training round, and scoring 1020 rows split over 1 or 3 data ranks)
 PLAN_SHAPES = sorted({
     (3, 2, 4, 1), (9, 3, 8, 2), (8, 10, 130, 4), (4, 2, 256, 13),
     (2, 1, 2, 129), (70, 2, 64, 3), (32, 10, 2000, 49), (1, 10, 2000, 49),
     (1, 1, 2000, 49), (33, 2, 130, 65), (9, 1, 2001, 49),
     *((b, m, n, w) for w in (1, 2, 49, 129, 2500)
       for b, m, n in ((1, 1, 2000), (32, 10, 2000), (70, 3, 130))),
+    *((b, m, n, 49) for n in (334, 500, 667)
+      for b, m in ((1, 1), (2, 1), (340, 10), (1020, 10))),
 })
 
 

@@ -318,6 +318,9 @@ def test_entry_points_need_cuda_unless_told_cpu(monkeypatch):
 
 
 def test_training_and_multi_device_wait_for_later_slices():
+    """Both later slices have landed: a CPU machine trains, and a
+    clause-sharded one trains as the single-device one does. (The name
+    dates from before either was ported.)"""
     # training is ported: a fit on the CPU trains and the served caches follow
     cfg = TMConfig(n_classes=2, n_clauses=4, n_features=3)
     machine = TsetlinMachine(cfg, device="cpu", seed=1).init()
@@ -328,9 +331,12 @@ def test_training_and_multi_device_wait_for_later_slices():
                            torch.full_like(machine.state.ta_state, cfg.n_states))
     assert torch.equal(machine.scores(xs, engine="indexed"),
                        machine.scores(xs, engine="dense"))
-    # multi-device topologies still wait for a later slice
-    with pytest.raises(NotImplementedError, match="later slice"):
-        Topology(clause_shards=2)
+    # multi-device topologies are ported: a clause-sharded machine on CPU
+    # ranks trains as the single-device one does from the same seed
+    sharded = TsetlinMachine(cfg, topology=Topology(clause_shards=2),
+                             device="cpu", seed=1).init()
+    sharded.fit(xs, np.array([0, 1] * 4), epochs=3, batch_size=4)
+    assert torch.equal(sharded.state.ta_state, machine.state.ta_state)
 
 
 HYGIENE = """

@@ -40,7 +40,7 @@ from repro.kernels.backend import _clause_outputs_xla, _ta_update_xla  # noqa: E
 from repro_torch import convert  # noqa: E402
 from repro_torch.core import api, bitpack, indexing, tm  # noqa: E402
 from repro_torch.core.session import TsetlinMachine  # noqa: E402
-from repro_torch.core.types import TMState  # noqa: E402
+from repro_torch.core.types import TMState, clause_polarity  # noqa: E402
 from repro_torch.kernels import clause_eval, ta_update  # noqa: E402
 
 # two small widths: tiny, and one past a 32-bit word with n ≠ 2^k
@@ -201,10 +201,15 @@ def test_class_round_matches_reference(kw, boost):
                 jcfg, jnp.asarray(ta[cls]), jnp.asarray(lit),
                 jtm.FeedbackRands(jnp.asarray(gate[0]), jnp.asarray(type_i[0])),
                 jnp.asarray(positive))
-            got = tm._class_round(
-                tcfg, torch.from_numpy(ta[cls]), torch.from_numpy(lit),
+            # the two halves of a round, called as tm.learn_batch calls them
+            row, tlit = torch.from_numpy(ta[cls]), torch.from_numpy(lit)
+            pol = clause_polarity(tcfg, "cpu")
+            clause_out, vote = tm._round_vote(
+                tcfg, row, bitpack.pack_bits(tlit[None]), pol)
+            got = tm._round_feedback(
+                tcfg, row, tlit, clause_out, vote,
                 tm.FeedbackRands(torch.from_numpy(gate[0]),
-                                 torch.from_numpy(type_i[0])), positive)
+                                 torch.from_numpy(type_i[0])), positive, pol)
             np.testing.assert_array_equal(got.numpy(), np.asarray(want))
             changed += int((got.numpy() != ta[cls]).sum())
     assert changed > 0
