@@ -74,10 +74,38 @@ failure, and at once when no CUDA device is present):
    requests equal to the dense scores. Launch counts are set to 0 before
    each part and read after it; sharded ms are printed beside
    ``Topology(1)``'s.
+8. **Compact, open loop, tm_imdb** (runs before phase 6's report; launch
+   counts are set to 0 just before each run of the entry points and read
+   just after; the comparisons of kernels with their plain versions fall
+   outside those windows).
+   (a) Phase 3's requests through the ``compact`` engine at the tm_mnist
+   width, directly and through a bucket cache of 32, equal to the dense
+   scores; the device ms and peak memory of one bucket; two ``partial_fit``
+   steps of B=32 with ``engines=("indexed", "bitpack", "compact")`` from
+   phase 5's trained-like state, after which every cache equals a rebuild
+   (the compact rows as sets) and ``validate_compact`` is clean; the ms of
+   one ``compact_apply_events`` per step.
+   (b) ``tm_serve.run_sustained`` for ``indexed`` and ``bitpack``
+   (``max_batch=32``, steps of 0.5 s): each engine's sync baseline, knee
+   (offered, submitted, achieved), ``speedup_at_knee`` and
+   ``hot_loop_compiles``, which must be 0; ``run_batch_axis_scaling`` for
+   ``indexed`` at 1, 2, 4 shards on ``cuda:0`` (k shards on one card).
+   (c) The paper's IMDb configuration (``tm_imdb``: m=2, n=2000, o=5000;
+   2o=10000 literals, W=313 words) at full width, about 116 literals per
+   clause, requests from ``bow_documents``: the four kernels against their
+   plain versions (votes at B=32 on the tiled route in more than one staged
+   chunk, clause outputs at (1, 1) and (32, 2), ``ta_update`` on a (2000,
+   10000) row), bit for bit and timed; scores through ``indexed``,
+   ``bitpack`` and ``compact`` equal to ``dense``; the work ratio
+   ``indexed_work / dense_work`` on the requests (printed, not gated); two
+   sequential ``partial_fit`` steps of B=32 from a trained-like state with
+   no event-buffer overflow and every cache equal to a rebuild.
+   Each kernel must have launched in phase 8.
 6. Print ``{"kernels": [...]}`` (all four kernels; ``launches`` from
-   phases 3 and 5, ``sharded_launches`` from phase 7), the card's name and
-   power limit as ``nvidia-smi`` reports them, and, last, the
-   ``{"ok": true, ...}`` line.
+   phases 3 and 5, ``sharded_launches`` from phase 7, ``phase8_launches``
+   from phase 8, and ``tm_imdb`` with the kernel's shape, error and times
+   at the IMDb width), the card's name and power limit as ``nvidia-smi``
+   reports them, and, last, the ``{"ok": true, ...}`` line.
 
 Imports nothing of JAX and nothing of the JAX package ``repro``.
 """
@@ -111,6 +139,11 @@ SHARD_SERVE, SHARD_REQUESTS = (2, 2), 256
 # clause rows of the kernels' direct checks at shard widths: n_sub of (2, 3),
 # n_local of (4, 1) and of (3, 1); the last rows of each are padding
 SHARD_WIDTHS, SHARD_PAD_ROWS = (334, 500, 667), 3
+# phase 8: compact at tm_mnist, the open loop, tm_imdb
+COMPACT_BUCKET, COMPACT_STEPS = 32, 2
+OPEN_LOOP_STEP_S = 0.5
+SCALING_RPS = 200_000.0
+IMDB_STEPS = 2
 # Peak rates of one H100 SXM. Memory: 3.35 TB/s (NVIDIA data sheet). The
 # votes are 32-bit compare and logic instructions, not FLOPs: the CUDA C++
 # Programming Guide's arithmetic-throughput table gives compute capability
@@ -270,12 +303,17 @@ def served_state(cfg, avg_len: int, gen, dev):
     return ta, inc
 
 
-def requests(inc, count: int, gen, dev) -> torch.Tensor:
-    """(count, o) uint8 rows, each satisfying one random (class, clause)."""
+def requests(inc, count: int, gen, dev, base=None) -> torch.Tensor:
+    """(count, o) uint8 rows, each satisfying one random (class, clause):
+    random bits, or the first ``count`` rows of ``base`` (bag-of-words
+    documents), with the chosen clause's literals made true."""
     m, n, two_o = inc.shape
     o = two_o // 2
-    x = torch.randint(0, 2, (count, o), generator=gen, device=dev,
-                      dtype=torch.uint8)
+    if base is None:
+        x = torch.randint(0, 2, (count, o), generator=gen, device=dev,
+                          dtype=torch.uint8)
+    else:
+        x = torch.as_tensor(np.ascontiguousarray(base[:count]), device=dev)
     ci = torch.randint(0, m, (count,), generator=gen, device=dev)
     cj = torch.randint(0, n, (count,), generator=gen, device=dev)
     rows = inc[ci, cj]
@@ -324,8 +362,73 @@ def to_device(tree, dev):
     return tree
 
 
-def learning_kernels(cfg, ta, inc, gen, dev, card, sms) -> dict:
-    """Phase 4: each learning kernel against its plain version, timed."""
+def vote_kernels(cfg, state, pos, words, x, card, sms) -> dict:
+    """Phase 2 (and phase 8 at the tm_imdb width): ``indexed_votes`` and
+    ``clause_votes_packed`` on the requests ``x`` against their plain
+    versions and the dense scores, bit for bit, timed (device ms from CUDA
+    graph replay; plain ms; the float32 matmul yardstick; bound; ms per call
+    from Python)."""
+    from repro_torch.core import tm
+    from repro_torch.core.bitpack import packed_literals, unpack_bits
+    from repro_torch.core.types import clause_polarity, literals_from_input
+    from repro_torch.kernels import clause_eval, indexed
+
+    m, n, L = cfg.n_classes, cfg.n_clauses, cfg.n_literals
+    b = x.shape[0]
+    pol = clause_polarity(cfg, x.device)
+    lit, lw = literals_from_input(x), packed_literals(x)
+    dense = tm.scores(cfg, state, x)
+    cases = {
+        "indexed_votes": (indexed.indexed_votes, indexed.indexed_votes_ref,
+                          (pos, lit, pol), lambda: (pos != -1)),
+        "clause_votes_packed": (clause_eval.clause_votes_packed,
+                                clause_eval.clause_votes_ref,
+                                (words, lw, pol),
+                                lambda: unpack_bits(words, L)),
+    }
+    false_f32 = (lit == 0).to(torch.float32)
+    rows = {}
+    for kname, (kernel, plain, args, mask) in cases.items():
+        got, want = kernel(*args), plain(*args)
+        torch.cuda.synchronize()
+        err = int((got - want).abs().max())
+        require(torch.equal(got, want),
+                f"{kname} B={b}: kernel != plain (max |diff| {err})")
+        require(torch.equal(got, dense),
+                f"{kname} B={b}: kernel != dense engine scores")
+        require(want.unique().numel() > 1,
+                f"{kname} B={b}: scores are all equal; the check is void")
+        ms = device_ms(lambda: kernel(*args), 50)
+        plain_ms = device_ms(lambda: plain(*args), 10)
+        mask_f32 = mask().reshape(m * n, L).to(torch.float32)
+        yard_ms = device_ms(lambda: torch.matmul(false_f32, mask_f32.T), 20)
+        del mask_f32
+        wrapper_ms = call_ms(lambda: kernel(*args), 50)
+        if kname == "clause_votes_packed":
+            print(f"{kname} B={b} " + plan_line(clause_eval.launch_plan(
+                b, m, n, words.shape[-1]), sms))
+        nbytes = sum(a.numel() * a.element_size() for a in args) + b * m * 4
+        # The function's own work, not this kernel's (its shuffles are
+        # one way of sharing a word among lanes, and not the work):
+        if kname == "indexed_votes":   # a compare and an OR per membership
+            ops = 2 * m * n * L * math.ceil(b / 32)   # test, 32 samples each
+        else:                          # one and-not-or (LOP3) per include
+            ops = m * n * words.shape[-1] * b         # word per sample
+        bound_ms, bound_by = bound(nbytes, ops)
+        rows[(kname, b)] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                                yardstick_ms=yard_ms, bound_ms=bound_ms,
+                                bound_by=bound_by, call_ms=wrapper_ms)
+        print(f"{kname} B={b} (m, n, 2o)=({m}, {n}, {L}): equal to plain and "
+              f"dense (max |diff| {err}); device ms: kernel {ms:.4f}, plain "
+              f"{plain_ms:.4f}, matmul yardstick {yard_ms:.4f}, bound "
+              f"{bound_ms:.4f} ({bound_by}); kernel per call from Python "
+              f"{wrapper_ms:.4f} ms [{card}]")
+    return rows
+
+
+def learning_kernels(cfg, ta, inc, gen, dev, card, sms, docs=None) -> dict:
+    """Phase 4 (and phase 8 at the tm_imdb width, with ``docs`` as the
+    request rows): each learning kernel against its plain version, timed."""
     from repro_torch.core.bitpack import pack_bits, packed_literals
     from repro_torch.core.types import clause_polarity, literals_from_input
     from repro_torch.kernels import clause_eval, ta_update
@@ -337,7 +440,7 @@ def learning_kernels(cfg, ta, inc, gen, dev, card, sms) -> dict:
     kernel, plain = clause_eval.clause_outputs_packed, clause_eval.clause_outputs_ref
     for b, m in ((1, 1), (32, cfg.n_classes)):
         words = words_all[:m].contiguous()
-        lw = packed_literals(requests(inc[:m], b, gen, dev))
+        lw = packed_literals(requests(inc[:m], b, gen, dev, docs))
         got, want = kernel(words, lw), plain(words, lw)
         torch.cuda.synchronize()
         err = int((got.to(torch.int32) - want.to(torch.int32)).abs().max())
@@ -363,7 +466,7 @@ def learning_kernels(cfg, ta, inc, gen, dev, card, sms) -> dict:
                   b, m, n, w), sms) + f" [{card}]")
 
     row = ta[0]
-    x = requests(inc[:1], 1, gen, dev)
+    x = requests(inc[:1], 1, gen, dev, docs)
     lit = literals_from_input(x)[0]
     cout = kernel(words_all[:1], packed_literals(x))[0, 0]
     pol = clause_polarity(cfg, dev)
@@ -454,6 +557,28 @@ def profile_step(session, bundle, xb, yb, dev, card) -> None:
           + ", ".join(f"{k} {v:.3f}" for k, v in ours.items()) + f" [{card}]")
 
 
+class Counts:
+    """The four kernels' launch counters: ``reset`` sets them to 0 just
+    before a run of the main path, ``read`` takes them just after (and adds
+    them to the phase's totals)."""
+
+    def __init__(self):
+        from repro_torch.kernels import clause_eval, indexed, ta_update
+        self.kernels = (indexed.indexed_votes, clause_eval.clause_votes_packed,
+                        clause_eval.clause_outputs_packed, ta_update.ta_update)
+        self.total = {k.__name__: 0 for k in self.kernels}
+
+    def reset(self) -> None:
+        for k in self.kernels:
+            k.launches = 0
+
+    def read(self) -> dict:
+        got = {k.__name__: k.launches for k in self.kernels}
+        for name, v in got.items():
+            self.total[name] += v
+        return got
+
+
 def train(cfg, inc, gen, dev, card) -> dict:
     """Phase 5: train at the tm_mnist width through the estimator."""
     from repro_torch.core import api, indexing, tm
@@ -461,7 +586,7 @@ def train(cfg, inc, gen, dev, card) -> dict:
     from repro_torch.core.session import TsetlinMachine
     from repro_torch.core.types import TMState, include_mask
     from repro_torch.data.synthetic import templated_images
-    from repro_torch.kernels import clause_eval, indexed, ta_update
+    from repro_torch.kernels import clause_eval, ta_update
 
     b_size, engines = TRAIN_BATCH, ("indexed", "bitpack", "dense")
     ta0 = trained_like_state(cfg, inc, gen, dev)
@@ -487,10 +612,8 @@ def train(cfg, inc, gen, dev, card) -> dict:
     batch_parallel = TsetlinMachine(cfg, engines=engines, device=dev,
                                     seed=SEED + 2, parallel=True,
                                     max_events_per_batch=max_events)
-    counters = (clause_eval.clause_outputs_packed, ta_update.ta_update,
-                indexed.indexed_votes, clause_eval.clause_votes_packed)
-    for c in counters:
-        c.launches = 0
+    counts = Counts()
+    counts.reset()
     seq_s, events = [], []
     for xb, yb in batches[1:1 + SEQ_STEPS]:
         before = include_mask(cfg, machine.state)
@@ -514,7 +637,7 @@ def train(cfg, inc, gen, dev, card) -> dict:
     par_s = time.perf_counter() - t0
     events.append(int((include_mask(cfg, batch_parallel.state) != before).sum()))
     accuracy = batch_parallel.evaluate(x_test, y_test, engine="indexed")
-    launches = {c.__name__: c.launches for c in counters}
+    launches = counts.read()
     require(launches["clause_outputs_packed"] == launches["ta_update"]
             == 2 * b_size * (SEQ_STEPS + 1),
             f"training launches {launches}: want 2·B per step")
@@ -700,23 +823,12 @@ def sharded(cfg, state, inc, trained, gen, dev, card) -> dict:
     from repro_torch.core import tm
     from repro_torch.core.session import TMSession, Topology, TsetlinMachine
     from repro_torch.core.types import TMState
-    from repro_torch.kernels import clause_eval, indexed, ta_update
+    from repro_torch.kernels import clause_eval, indexed
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.serving import AsyncTMServer, ScoreResult
 
-    counters = (indexed.indexed_votes, clause_eval.clause_votes_packed,
-                clause_eval.clause_outputs_packed, ta_update.ta_update)
-    launched = {c.__name__: 0 for c in counters}
-
-    def reset():
-        for c in counters:
-            c.launches = 0
-
-    def read() -> dict:
-        got = {c.__name__: c.launches for c in counters}
-        for k, v in got.items():
-            launched[k] += v
-        return got
+    counts = Counts()
+    reset, read = counts.reset, counts.read
 
     def mesh(c, d):
         return make_mesh(d, c, devices=["cuda:0"] * (c * d))
@@ -899,9 +1011,276 @@ def sharded(cfg, state, inc, trained, gen, dev, card) -> dict:
               f"equal to Topology(1) dense, {n_launch} kernel launches; bucket "
               f"B={top} {ms:.4f} ms per call vs Topology(1) {ms1:.4f} ms "
               f"({c * d} shards on one card) [{card}]")
-    for name, n in launched.items():
+    for name, n in counts.total.items():
         require(n > 0, f"phase 7 never launched {name}")
-    return launched
+    return counts.total
+
+
+def same_sets(a, b) -> bool:
+    """Two ``CompactClauses`` hold the same literal set in every row."""
+    def rows(c):
+        return torch.sort(torch.where(c.lit_idx < 0, 1 << 30, c.lit_idx),
+                          dim=-1).values
+    return torch.equal(a.lengths, b.lengths) and torch.equal(rows(a), rows(b))
+
+
+def caches_match(cfg, bundle, where: str) -> None:
+    """Every cache of a trained bundle equals a rebuild from its state: the
+    index passes ``validate``, the bitpack words equal a fresh pack, the
+    compact rows equal a fresh ``compact()`` as sets and pass
+    ``validate_compact``."""
+    from repro_torch.core import indexing
+    from repro_torch.core.bitpack import pack_bits
+    from repro_torch.core.types import include_mask
+
+    state = bundle.state
+    checks = indexing.validate(cfg, state, bundle.index)
+    require(all(bool(v) for v in checks.values()), f"{where}: validate: {checks}")
+    require(torch.equal(bundle.caches["bitpack"],
+                        pack_bits(include_mask(cfg, state))),
+            f"{where}: bitpack cache != a fresh pack")
+    comp = bundle.caches["compact"]
+    require(same_sets(comp, indexing.compact(cfg, state,
+                                             cfg.resolved_clause_capacity)),
+            f"{where}: compact cache != a fresh compact() as sets")
+    checks = indexing.validate_compact(cfg, state, comp)
+    require(all(bool(v) for v in checks.values()),
+            f"{where}: validate_compact: {checks}")
+
+
+def replay_ms(cfg, before, inc_before, inc_after, max_events) -> tuple[float, int]:
+    """Wall ms of one ``compact_apply_events`` of a step's event buffer
+    (median of 3; it waits for the device on its own) and the events."""
+    from repro_torch.core import indexing
+    buf = indexing.events_from_transition(inc_before, inc_after, max_events)
+    times = [_wall_ms(lambda: indexing.compact_apply_events(before, buf.events),
+                      sync=True) for _ in range(3)]
+    return float(np.median(times)), int(buf.events.valid.sum())
+
+
+def train_steps(cfg, ta0, batches, max_events, counts, seed, dev):
+    """``partial_fit`` steps of B=32 with the three caches maintained, from
+    ``ta0``; launch counts set to 0 just before and read just after.
+    Returns (machine, step ms, launches, per-step replay inputs)."""
+    from repro_torch.core.session import TsetlinMachine
+    from repro_torch.core.types import TMState, include_mask
+
+    machine = TsetlinMachine(cfg, engines=("indexed", "bitpack", "compact"),
+                             device=dev, seed=seed,
+                             max_events_per_batch=max_events)
+    machine.bundle = machine.session.prepare(TMState(ta_state=ta0))
+    steps, times = [], []
+    counts.reset()
+    for xb, yb in batches:
+        before = (machine.bundle.caches["compact"], include_mask(cfg, machine.state))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        machine.partial_fit(xb, yb)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        require(machine.event_overflow == 0,
+                f"event buffer overflowed at step {len(times)} "
+                f"(max_events_per_batch={max_events})")
+        steps.append(before + (include_mask(cfg, machine.state),))
+    launched = counts.read()
+    want = 2 * TRAIN_BATCH * len(batches)
+    require(launched["clause_outputs_packed"] == launched["ta_update"] == want,
+            f"training launches {launched}: want {want} of each learning kernel")
+    return machine, times, launched, steps
+
+
+def compact_mnist(cfg, state, x32, xs_host, dense_rows, trained, counts, dev,
+                  card):
+    """Phase 8 (a): the compact engine at the tm_mnist width."""
+    from repro_torch.core import indexing
+    from repro_torch.core.session import TMSession
+    from repro_torch.serving import AOTBucketCache
+
+    session = TMSession(cfg, engines=("compact", "dense"), device=dev)
+    bundle = session.prepare(state)
+    checks = indexing.validate_compact(cfg, state, bundle.caches["compact"])
+    require(all(bool(v) for v in checks.values()), f"compact: {checks}")
+    require(torch.equal(session.scores(bundle, x32, engine="compact"),
+                        session.scores(bundle, x32, engine="dense")),
+            "compact scores != dense at B=32")
+    top = COMPACT_BUCKET
+    aot = AOTBucketCache(session, bundle, engines=("compact",),
+                         bucket_sizes=(top,))
+    served = np.concatenate([
+        aot(xs_host[i:i + top], engine="compact", bucket=top).cpu().numpy()
+        for i in range(0, len(xs_host), top)])
+    require(np.array_equal(served, dense_rows),
+            "compact bucket scores != dense for phase 3's requests")
+    require(aot.counters()["misses"] == 0, f"compact bucket cache: {aot.counters()}")
+    fn = session.lower_scores(bundle, top, engine="compact")
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fn(x32)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    ms = device_ms(lambda: fn(x32), 5)
+    wrapper_ms = call_ms(lambda: fn(x32), 5)
+    lit_mb = bundle.caches["compact"].lit_idx.numel() * 4 / 1e6
+    print(f"compact (tm_mnist, l_max={cfg.resolved_clause_capacity}, lit_idx "
+          f"{lit_mb:.1f} MB): B={len(x32)} and {len(xs_host)} requests through "
+          f"a bucket of {top} equal dense; bucket device ms {ms:.4f}, per call "
+          f"{wrapper_ms:.4f} ms; peak device memory of one bucket "
+          f"{(peak - resident) / 1e9:.3f} GB above the {resident / 1e9:.3f} GB "
+          f"resident ({peak / 1e9:.3f} GB max_memory_allocated) [{card}]")
+
+    batches = trained["batches"][1:1 + COMPACT_STEPS]
+    machine, times, launched, steps = train_steps(
+        cfg, trained["ta0"], batches, trained["max_events"], counts, SEED + 20,
+        dev)
+    caches_match(cfg, machine.bundle, "compact training (tm_mnist)")
+    replays = [replay_ms(cfg, *st, trained["max_events"]) for st in steps]
+    print(f"compact training (tm_mnist): {len(batches)} sequential steps of "
+          f"B={TRAIN_BATCH} with engines (indexed, bitpack, compact) in "
+          f"{[round(t, 3) for t in times]} ms; launches {launched}; overflow "
+          f"0; every cache equals a rebuild (compact as sets); "
+          f"compact_apply_events per step "
+          f"{[f'{r:.3f} ms ({e} events)' for r, e in replays]} [{card}]")
+
+
+def open_loop(cfg, counts, dev, card) -> None:
+    """Phase 8 (b): the open-loop sync-vs-async sweep and the batch-axis
+    sweep at the tm_mnist width."""
+    from repro_torch.launch.tm_serve import run_batch_axis_scaling, run_sustained
+
+    counts.reset()
+    t0 = time.perf_counter()
+    rec = run_sustained(cfg, engines=("indexed", "bitpack"), max_batch=32,
+                        step_duration_s=OPEN_LOOP_STEP_S, seed=SEED,
+                        device=dev)
+    wall = time.perf_counter() - t0
+    launched = counts.read()
+    require(launched["indexed_votes"] > 0 and launched["clause_votes_packed"] > 0,
+            f"open loop: launches {launched}")
+    for engine, r in rec["engines"].items():
+        aot, knee = r["aot"], r["knee"]
+        require(aot["hot_loop_compiles"] == 0 and aot["misses"] == 0,
+                f"open loop {engine}: bucket cache in the hot loop {aot}")
+        at = r["steps"][knee["index"]]
+        base = r["sync_baseline"]
+        print(f"open loop[{engine}] (tm_mnist, max_batch=32, steps of "
+              f"{OPEN_LOOP_STEP_S} s): sync baseline {base['achieved_rps']} "
+              f"rows/s; async knee offered {knee['offered_rps']} (submitted "
+              f"{at['submitted_rps']}) achieved {knee['achieved_rps']} rows/s, "
+              f"p50 {at['latency_ms']['p50']} p99 {at['latency_ms']['p99']} ms "
+              f"at the knee; speedup_at_knee {r['speedup_at_knee']}; "
+              f"hot_loop_compiles {aot['hot_loop_compiles']} [{card}]")
+        print(f"open loop[{engine}] sync ramp (offered / submitted / achieved "
+              f"rows/s, rejected): " + "; ".join(
+                  f"{s['offered_rps']} / {s['submitted_rps']} / "
+                  f"{s['achieved_rps']}, {s['rejection_rate']}"
+                  for s in base["ramp"]))
+        print(f"open loop[{engine}] async (offered / submitted / achieved "
+              f"rows/s, rejected, mean batch): " + "; ".join(
+                  f"{s['offered_rps']} / {s['submitted_rps']} / "
+                  f"{s['achieved_rps']}, {s['rejection_rate']}, {s['mean_batch']}"
+                  for s in r["steps"]))
+    print(f"open loop: {wall:.1f} s wall; launches {launched}")
+
+    counts.reset()
+    # offered far past capacity, so each row's closed-loop throughput is
+    # what its shards can serve (the rows are saturated)
+    rows = run_batch_axis_scaling(cfg, engine="indexed", rps=SCALING_RPS,
+                                  devices=["cuda:0"] * 4, device=dev)
+    launched = counts.read()
+    require([r["data_shards"] for r in rows] == [1, 2, 4], f"scaling rows {rows}")
+    require(all(r["devices"] == 1 and (" shards on one " in r["placement"]
+                                       or r["data_shards"] == 1) for r in rows),
+            f"scaling rows must read as shards on one card: {rows}")
+    require(launched["indexed_votes"] > 0, f"scaling: launches {launched}")
+    for r in rows:
+        print(f"batch-axis rows[indexed] data_shards={r['data_shards']} "
+              f"({r['placement']}; k shards on one card, not scaling): "
+              f"closed-loop {r['throughput_rps']:.1f} rows/s at {SCALING_RPS} "
+              f"offered (saturated {r['saturated']}), p50 {r['p50_ms']:.3f} "
+              f"p95 {r['p95_ms']:.3f} ms [{card}]")
+
+
+def imdb(gen, counts, dev, card, sms) -> dict:
+    """Phase 8 (c): the paper's IMDb configuration at full width."""
+    from repro_torch.configs.tm import PAPER_TM_CONFIGS
+    from repro_torch.core import indexing, tm
+    from repro_torch.core.session import TMSession
+    from repro_torch.core.types import TMState, include_mask
+    from repro_torch.data.synthetic import bow_documents
+    from repro_torch.kernels import clause_eval
+
+    exp = PAPER_TM_CONFIGS["tm_imdb"]
+    cfg = exp.tm
+    m, n, L = cfg.n_classes, cfg.n_clauses, cfg.n_literals
+    ta, inc = served_state(cfg, int(exp.avg_clause_len), gen, dev)
+    state = TMState(ta_state=ta)
+    docs, labels = bow_documents(TRAIN_BATCH * (IMDB_STEPS + 2), cfg.n_features,
+                                 cfg.n_classes, seed=SEED)
+    x = requests(inc, TRAIN_BATCH, gen, dev, base=docs)
+    session = TMSession(cfg, engines=("indexed", "bitpack", "compact", "dense"),
+                        device=dev)
+    bundle = session.prepare(state)
+    words = bundle.caches["bitpack"]
+    print(f"tm_imdb: m={m} n={n} 2o={L} W={words.shape[-1]}, mean clause "
+          f"length {float(inc.sum(-1).float().mean()):.2f} literals, "
+          f"bag-of-words requests with {float(x.float().sum(1).mean()):.1f} "
+          f"of {cfg.n_features} terms present")
+
+    # the four kernels against their plain versions at the IMDb shapes
+    plan = clause_eval.launch_plan(TRAIN_BATCH, m, n, words.shape[-1])
+    require(plan.route == "tiled" and plan.n_chunks > 1,
+            f"tm_imdb votes plan is not the multi-chunk tiled route: {plan}")
+    rows = vote_kernels(cfg, state, bundle.index.pos, words, x, card, sms)
+    rows.update(learning_kernels(cfg, ta, inc, gen, dev, card, sms, docs=docs))
+    w = words.shape[-1]
+    for key, shape in ((("indexed_votes", TRAIN_BATCH), f"B={TRAIN_BATCH}, pos ({m}, {n}, {L})"),
+                       (("clause_votes_packed", TRAIN_BATCH), f"B={TRAIN_BATCH}, words ({m}, {n}, {w}), {plan.n_chunks} chunks"),
+                       (("clause_outputs_packed", 1), f"(1, 1, {n}, {w})"),
+                       (("ta_update", True), f"({n}, {L}), target round")):
+        rows[key]["shape"] = shape
+
+    # scores through every engine, and the work ratio
+    counts.reset()
+    dense = session.scores(bundle, x, engine="dense")
+    for engine in ("indexed", "bitpack", "compact"):
+        require(torch.equal(session.scores(bundle, x, engine=engine), dense),
+                f"tm_imdb {engine} scores != dense")
+    launched = counts.read()
+    require(dense.unique().numel() > 1, "tm_imdb scores all equal")
+    work = indexing.indexed_work(bundle.index, x).double()
+    ratio = float(work.mean()) / indexing.dense_work(cfg)
+    print(f"tm_imdb scores: indexed, bitpack and compact equal dense at "
+          f"B={TRAIN_BATCH}; launches {launched}; work ratio indexed_work / "
+          f"dense_work on the requests {ratio:.6f} (mean of {len(x)}; "
+          f"min {float(work.min()) / indexing.dense_work(cfg):.6f}, max "
+          f"{float(work.max()) / indexing.dense_work(cfg):.6f}; the paper "
+          f"reports about 0.006 on IMDb)")
+
+    # two sequential steps from a trained-like state, every cache in step
+    ta0 = trained_like_state(cfg, inc, gen, dev)
+    batches = [(docs[i:i + TRAIN_BATCH], labels[i:i + TRAIN_BATCH])
+               for i in range(0, len(docs), TRAIN_BATCH)]
+    probe = tm.update_batch_sequential(
+        cfg, TMState(ta0), *batches[0],
+        torch.Generator(device=dev).manual_seed(SEED + 31))
+    crossings = int((include_mask(cfg, probe) != (ta0 > cfg.n_states)).sum())
+    max_events = max(1024, 1 << (4 * crossings - 1).bit_length())
+    machine, times, launched, steps = train_steps(
+        cfg, ta0, batches[1:1 + IMDB_STEPS], max_events, counts, SEED + 30, dev)
+    caches_match(cfg, machine.bundle, "tm_imdb training")
+    xt = session.scores(machine.bundle, x, engine="dense")
+    for engine in ("indexed", "bitpack", "compact"):
+        require(torch.equal(machine.scores(x, engine=engine), xt),
+                f"tm_imdb {engine} scores != dense after training")
+    replays = [replay_ms(cfg, *st, max_events) for st in steps]
+    print(f"tm_imdb training: probe step crossed {crossings} cells, "
+          f"max_events_per_batch={max_events}; {IMDB_STEPS} sequential steps "
+          f"of B={TRAIN_BATCH} in {[round(t, 3) for t in times]} ms; launches "
+          f"{launched}; the event buffer never overflowed; every cache equals "
+          f"a rebuild; compact_apply_events per step "
+          f"{[f'{r:.3f} ms ({e} events)' for r, e in replays]} [{card}]")
+    return rows
 
 
 def main() -> int:
@@ -911,10 +1290,8 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
     from repro_torch.configs.tm import PAPER_TM_CONFIGS
-    from repro_torch.core import tm
-    from repro_torch.core.bitpack import packed_literals, unpack_bits
     from repro_torch.core.session import TMSession
-    from repro_torch.core.types import TMState, clause_polarity, literals_from_input
+    from repro_torch.core.types import TMState
     from repro_torch.kernels import _build, clause_eval, indexed
     from repro_torch.serving import AsyncTMServer, ScoreResult
 
@@ -946,59 +1323,16 @@ def main() -> int:
     session = TMSession(cfg, engines=("indexed", "bitpack", "dense"), device=dev)
     bundle = session.prepare(state)
     pos, words = bundle.index.pos, bundle.caches["bitpack"]
-    pol = clause_polarity(cfg, dev)
     print(f"state: m={m} n={n} 2o={L}, mean clause length "
           f"{float(inc.sum(-1).float().mean()):.2f} literals; pos "
           f"{pos.numel() * 4 / 1e6:.1f} MB, include words "
           f"{words.numel() * 4 / 1e6:.2f} MB")
 
-    member_f32 = (pos != -1).reshape(m * n, L).to(torch.float32)
-    inc_f32 = unpack_bits(words, L).reshape(m * n, L).to(torch.float32)
-    rows = {}
+    rows, x32 = {}, None
     for b in BATCHES:
         x = requests(inc, b, gen, dev)
-        lit, lw = literals_from_input(x), packed_literals(x)
-        dense = tm.scores(cfg, state, x)
-        cases = {
-            "indexed_votes": (indexed.indexed_votes, indexed.indexed_votes_ref,
-                              (pos, lit, pol), member_f32),
-            "clause_votes_packed": (clause_eval.clause_votes_packed,
-                                    clause_eval.clause_votes_ref,
-                                    (words, lw, pol), inc_f32),
-        }
-        false_f32 = (lit == 0).to(torch.float32)
-        for kname, (kernel, plain, args, mask_f32) in cases.items():
-            got, want = kernel(*args), plain(*args)
-            torch.cuda.synchronize()
-            err = int((got - want).abs().max())
-            require(torch.equal(got, want),
-                    f"{kname} B={b}: kernel != plain (max |diff| {err})")
-            require(torch.equal(got, dense),
-                    f"{kname} B={b}: kernel != dense engine scores")
-            require(want.unique().numel() > 1,
-                    f"{kname} B={b}: scores are all equal; the check is void")
-            ms = device_ms(lambda: kernel(*args), 50)
-            plain_ms = device_ms(lambda: plain(*args), 10)
-            yard_ms = device_ms(lambda: torch.matmul(false_f32, mask_f32.T), 20)
-            wrapper_ms = call_ms(lambda: kernel(*args), 50)
-            if kname == "clause_votes_packed":
-                print(f"{kname} B={b} " + plan_line(clause_eval.launch_plan(
-                    b, m, n, words.shape[-1]), sms))
-            nbytes = sum(a.numel() * a.element_size() for a in args) + b * m * 4
-            # The function's own work, not this kernel's (its shuffles are
-            # one way of sharing a word among lanes, and not the work):
-            if kname == "indexed_votes":   # a compare and an OR per membership
-                ops = 2 * m * n * L * math.ceil(b / 32)   # test, 32 samples each
-            else:                          # one and-not-or (LOP3) per include
-                ops = m * n * words.shape[-1] * b         # word per sample
-            bound_ms, bound_by = bound(nbytes, ops)
-            rows[(kname, b)] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                                    yardstick_ms=yard_ms, bound_ms=bound_ms,
-                                    bound_by=bound_by, call_ms=wrapper_ms)
-            print(f"{kname} B={b}: equal to plain and dense (max |diff| {err}); "
-                  f"device ms: kernel {ms:.4f}, plain {plain_ms:.4f}, matmul "
-                  f"yardstick {yard_ms:.4f}, bound {bound_ms:.4f} ({bound_by}); "
-                  f"kernel per call from Python {wrapper_ms:.4f} ms [{card}]")
+        rows.update(vote_kernels(cfg, state, pos, words, x, card, sms))
+        x32 = x
 
     # -- 3. serve through the entry points ------------------------------------
     xs = requests(inc, N_REQUESTS, gen, dev)
@@ -1073,8 +1407,24 @@ def main() -> int:
     # -- 7. sharded topologies, k shards on one card -------------------------
     shard_launches = sharded(cfg, state, inc, trained, gen, dev, card)
 
+    # -- 8. compact, the open loop, tm_imdb ------------------------------------
+    counts = Counts()
+    compact_mnist(cfg, state, x32, xs_host, dense_rows, trained, counts, dev,
+                  card)
+    open_loop(cfg, counts, dev, card)
+    imdb_rows = imdb(gen, counts, dev, card, sms)
+    for kname, launched in counts.total.items():
+        require(launched > 0, f"phase 8 never launched {kname}")
+    print(f"phase 8 launches: {counts.total}")
+
     # -- 6. report ----------------------------------------------------------
     top = BATCHES[-1]
+
+    def imdb_row(key):
+        r = imdb_rows[key]
+        return {k: r[k] for k in ("shape", "max_abs_err", "ms", "plain_ms",
+                                  "bound_ms", "bound_by", "call_ms")}
+
     kernels = []
     for kname, engine, src, replaces in (
             ("indexed_votes", "indexed", "src/repro_torch/csrc/indexed_votes.cu",
@@ -1091,7 +1441,9 @@ def main() -> int:
                         # float32 matmul they are built on is the yardstick
                         "library_ms": None, "yardstick_ms": r["yardstick_ms"],
                         "call_ms": r["call_ms"],
-                        "sharded_launches": shard_launches[kname]})
+                        "sharded_launches": shard_launches[kname],
+                        "phase8_launches": counts.total[kname],
+                        "tm_imdb": imdb_row((kname, top))})
     # the learning kernels at the training round's shapes
     for kname, key, src, replaces in (
             ("clause_outputs_packed", ("clause_outputs_packed", 1),
@@ -1108,7 +1460,9 @@ def main() -> int:
                         "bound_by": r["bound_by"],
                         # no single PyTorch call computes either function
                         "library_ms": None, "call_ms": r["call_ms"],
-                        "sharded_launches": shard_launches[kname]})
+                        "sharded_launches": shard_launches[kname],
+                        "phase8_launches": counts.total[kname],
+                        "tm_imdb": imdb_row(key)})
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -28,6 +28,7 @@ import numpy as np
 import torch
 
 from repro_torch.checkpoint.checkpointer import Checkpointer
+from repro_torch.core.types import resolve_device
 
 SCHEMA_VERSION = 1
 _DIGEST_BYTES = 32  # sha256
@@ -107,13 +108,16 @@ def save_tm(directory, cfg, ta_state, *, step: int = 0, keep: int = 3,
 
 
 def load_tm(directory, cfg, like_ta_state, *, step: int | None = None,
-            device="cpu") -> tuple[torch.Tensor, int]:
+            device="cuda") -> tuple[torch.Tensor, int]:
     """Restore ``(ta_state, step)`` from the newest (or given) step.
 
     ``like_ta_state`` supplies the expected shape (anything with ``.shape``);
-    the state lands on ``device`` in ``cfg.state_dtype``. Meta is validated
-    first, so a config mismatch surfaces as ``CheckpointMismatch``.
+    the state lands on ``device`` in ``cfg.state_dtype``: the card by
+    default, as at every entry point, so without CUDA it raises unless the
+    caller passes ``device="cpu"``. Meta is validated first, so a config
+    mismatch surfaces as ``CheckpointMismatch``.
     """
+    device = resolve_device(device)
     ckpt = _checkpointer(directory)
     ckpt.wait()  # drain any in-flight save (and surface its error) first
     if step is None:

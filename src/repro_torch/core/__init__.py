@@ -27,16 +27,25 @@ from repro_torch.core.tm import (
 )
 from repro_torch.core.indexing import (
     ClauseIndex,
+    CompactClauses,
     Event,
     EventBuffer,
     apply_events,
     build_index,
+    compact,
+    compact_apply_events,
+    compact_eval,
+    compact_scores,
     delete,
+    dense_work,
     empty_index,
     events_from_transition,
     index_update,
+    indexed_scores,
+    indexed_work,
     insert,
     validate,
+    validate_compact,
 )
 from repro_torch.core.engines import (
     EvalEngine,
@@ -72,9 +81,11 @@ __all__ = [
     "clause_votes", "dense_clause_outputs", "draw_feedback_rands",
     "draw_negatives", "draw_sample_draws", "predict", "scores",
     "update_batch_parallel", "update_batch_sequential", "update_sample",
-    "ClauseIndex", "Event", "EventBuffer", "apply_events", "build_index",
-    "delete", "empty_index", "events_from_transition", "index_update",
-    "insert", "validate", "EvalEngine", "cache_provider", "get_engine",
+    "ClauseIndex", "CompactClauses", "Event", "EventBuffer", "apply_events",
+    "build_index", "compact", "compact_apply_events", "compact_eval",
+    "compact_scores", "delete", "dense_work", "empty_index",
+    "events_from_transition", "index_update", "indexed_scores",
+    "indexed_work", "insert", "validate", "validate_compact", "EvalEngine", "cache_provider", "get_engine",
     "register_engine", "registered_engines", "DEFAULT_ENGINE", "TMBundle",
     "bundle_predict", "bundle_scores", "cache_keys_for", "init_bundle",
     "sync_caches", "train_step", "ClauseGeometry", "ShardedBundle",

@@ -8,13 +8,16 @@ very different work profiles (exhaustive vs the falsification index).
     evaluates from the cache alone; ``update_cache`` absorbs the include /
     exclude events of a training step.
   * ``register_engine`` / ``get_engine`` / ``registered_engines`` /
-    ``cache_provider`` — the registry. ``dense``, ``bitpack`` and
-    ``indexed`` register at import.
+    ``cache_provider`` — the registry. ``dense``, ``bitpack``, ``compact``
+    and ``indexed`` register at import.
 
 The packed and indexed engines score through the kernel registry
 (``kernels/backend.py``), where the tensors' device picks the CUDA kernel
-or the plain body. The ``compact`` engine and the ``bitpack_xla`` alias
-come in later slices.
+or the plain body. The ``compact`` engine is PyTorch tensor code on both
+devices, as it is XLA code in the reference (no Pallas body). The
+reference's ``bitpack_xla`` alias is not registered: it pins the plain
+body regardless of the device, and the port keeps plain bodies off card
+paths.
 
 Shard contract (``core/distributed.py``): ``shard_prepare`` builds a clause
 shard's cache from the shard's state slice, and ``partial_scores`` gives the
@@ -35,7 +38,7 @@ import torch
 from repro_torch.core import indexing, tm
 from repro_torch.core.bitpack import WORD, pack_bits, packed_literals
 from repro_torch.core.types import (
-    TMConfig, TMState, clause_polarity, include_mask, literals_from_input)
+    TMConfig, TMState, clause_polarity, include_mask)
 from repro_torch.kernels import backend as kbackend
 
 
@@ -211,8 +214,7 @@ class IndexedEngine(EvalEngine):
         return indexing.index_update(cache, events)
 
     def scores(self, cfg, cache, x):
-        return self.partial_scores(cfg, cache, x,
-                                   clause_polarity(cfg, cache.pos.device))
+        return indexing.indexed_scores(cfg, cache, x)
 
     def shard_prepare(self, cfg, state, n_shards):
         cap = indexing.shard_capacity(cfg.resolved_index_capacity, n_shards)
@@ -222,10 +224,32 @@ class IndexedEngine(EvalEngine):
         # -Σ_{falsified} pol: a shard's partial is not its own vote sum
         # (that would add Σ pol_local), but the partials of all shards add
         # up to the scores because the full polarity sums to 0
-        return kbackend.resolve("indexed_votes")(
-            cache.pos, literals_from_input(x), pol)
+        return indexing.indexed_partial_scores(cache, x, pol)
+
+
+class CompactEngine(EvalEngine):
+    """Clause-compact transpose layout (``indexing.CompactClauses``): each
+    clause's included literal ids, evaluated by one gather. ℓ_max is
+    static from the config (``cfg.resolved_clause_capacity``), not a
+    data-dependent host sync."""
+
+    name = "compact"
+
+    def prepare(self, cfg: TMConfig, state: TMState) -> indexing.CompactClauses:
+        return indexing.compact(cfg, state, cfg.resolved_clause_capacity)
+
+    def scores(self, cfg, cache, x):
+        return indexing.compact_scores(cfg, cache, x)
+
+    def update_cache(self, cfg, cache, state, events):
+        del state
+        return indexing.compact_apply_events(cache, events)
+
+    def partial_scores(self, cfg, cache, x, pol):
+        return _partial_votes(indexing.compact_eval(cfg, cache, x), pol)
 
 
 register_engine(DenseEngine())
 register_engine(BitpackEngine())
+register_engine(CompactEngine())
 register_engine(IndexedEngine())

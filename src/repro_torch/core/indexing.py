@@ -13,6 +13,18 @@ the paper's O(1) swap-with-last updates, and :func:`apply_events` replays a
 buffer through them one event at a time: the sequential oracle the batched
 replay is tested against.
 
+Index-based inference: :func:`indexed_partial_scores` /
+:func:`indexed_scores` go through the ``indexed_votes`` primitive, and
+:func:`indexed_work` / :func:`dense_work` are the paper's work metric
+(§3 "Remarks": about 0.02 on MNIST, 0.006 on IMDb).
+
+The clause-compact (transpose) layout ``CompactClauses`` holds each
+clause's included literal ids (:func:`compact`, :func:`compact_eval`,
+:func:`compact_scores`, :func:`validate_compact`); training keeps it in
+step through :func:`compact_apply_events`, a replay vectorised over the
+event buffer, with :func:`compact_apply_events_sequential` (the
+reference's one-event-at-a-time scan, on the host) as its test oracle.
+
 The reference's ``mode="drop"`` scatters become explicit masks here: an
 entry whose slot lies past the capacity is not written, exactly as JAX
 drops it.
@@ -23,8 +35,11 @@ from typing import NamedTuple
 
 import torch
 
-from repro_torch.core.types import TMConfig, TMState, include_mask
+from repro_torch.core import tm
+from repro_torch.core.types import (
+    TMConfig, TMState, clause_polarity, include_mask, literals_from_input)
 from repro_torch.kernels import backend as kbackend
+from repro_torch.kernels.indexed import _segment_layout, _unsort
 
 NA = -1
 
@@ -238,3 +253,266 @@ def events_from_transition(old_include: torch.Tensor,
                      is_insert=new_include.reshape(-1)[sel],
                      valid=flat[sel]),
         overflow=(total - max_events).clamp(min=0).to(torch.int32))
+
+
+# ---------------------------------------------------------------------------
+# Index-based inference (paper §3 "Index Based Inference", Eq. 4)
+# ---------------------------------------------------------------------------
+
+
+def indexed_partial_scores(index: ClauseIndex, x: torch.Tensor,
+                           pol: torch.Tensor) -> torch.Tensor:
+    """(B, o) inputs + per-clause ±1 polarity → (B, m) int32 partial vote
+    sums ``-Σ_{j falsified} pol_j`` over the clauses this index covers,
+    through the ``indexed_votes`` primitive (the CUDA kernel on the card).
+    The partials of a clause-sharded index's shards add up to the scores."""
+    return kbackend.resolve("indexed_votes")(
+        index.pos, literals_from_input(x), pol)
+
+
+def indexed_scores(cfg: TMConfig, index: ClauseIndex,
+                   x: torch.Tensor) -> torch.Tensor:
+    """(B, o) inputs → (B, m) scores by falsification look-up (Eq. 4):
+    equal to the dense scores with ``empty_clause_output=1``."""
+    return indexed_partial_scores(index, x,
+                                  clause_polarity(cfg, index.pos.device))
+
+
+def indexed_work(index: ClauseIndex, x: torch.Tensor) -> torch.Tensor:
+    """The paper's work metric per sample, ``Σ_i Σ_{k false} |L[i,k]|``
+    (B,) int32: the list entries a falsification look-up visits. Over
+    :func:`dense_work` it gives the §3 work ratio."""
+    false_lit = literals_from_input(x) == 0                      # (B, 2o)
+    per_literal = index.counts.sum(0, dtype=torch.int64)         # (2o,)
+    return (false_lit * per_literal).sum(-1).to(torch.int32)
+
+
+def dense_work(cfg: TMConfig) -> int:
+    """Work of exhaustive evaluation: m·n·2o literal inspections."""
+    return cfg.n_classes * cfg.n_clauses * cfg.n_literals
+
+
+# ---------------------------------------------------------------------------
+# Clause-compact (transpose) layout
+# ---------------------------------------------------------------------------
+
+
+class CompactClauses(NamedTuple):
+    """Each clause's included literal ids (all int32)."""
+
+    lit_idx: torch.Tensor  # (m, n, l_max) literal ids; NA beyond lengths
+    lengths: torch.Tensor  # (m, n)
+
+
+def compact(cfg: TMConfig, state: TMState, l_max: int) -> CompactClauses:
+    """Include mask → per-clause rows of included literal ids, ascending.
+
+    ``lengths`` are the true clause lengths, also past ``l_max`` (then
+    :func:`validate_compact` reports ``overflow_ok`` False), and the ids
+    past ``l_max`` are dropped, as the reference drops them.
+    """
+    inc = include_mask(cfg, state)                                # (m, n, 2o)
+    m, n, _ = inc.shape
+    lengths = inc.sum(-1, dtype=torch.int32)
+    slot = torch.cumsum(inc.to(torch.int32), dim=-1, dtype=torch.int32) - 1
+    lit_idx = torch.full((m, n, l_max), NA, dtype=torch.int32,
+                         device=inc.device)
+    ii, jj, kk = torch.nonzero(inc & (slot < l_max), as_tuple=True)
+    lit_idx[ii, jj, slot[ii, jj, kk].long()] = kk.to(torch.int32)
+    return CompactClauses(lit_idx=lit_idx, lengths=lengths)
+
+
+def compact_eval(cfg: TMConfig, comp: CompactClauses,
+                 x: torch.Tensor) -> torch.Tensor:
+    """(B, o) → (B, m, n) uint8 clause outputs from the included literals
+    alone: a clause is false iff one of its literals is false. Empty
+    clauses evaluate true (Eq. 4).
+
+    Work: B·m·n·l_max gathered booleans (an extra never-false column
+    stands for the ``NA`` slots), against B·m·n·2o for the dense form.
+    """
+    del cfg
+    lit = literals_from_input(x)                                  # (B, 2o)
+    b, n_lit = lit.shape
+    false_lit = torch.cat(
+        [lit == 0, torch.zeros((b, 1), dtype=torch.bool, device=lit.device)],
+        dim=1)
+    idx = torch.where(comp.lit_idx == NA, n_lit, comp.lit_idx)    # (m, n, l_max)
+    falsified = false_lit.index_select(1, idx.reshape(-1)).reshape(
+        b, *idx.shape).any(-1)
+    return (~falsified).to(torch.uint8)
+
+
+def compact_scores(cfg: TMConfig, comp: CompactClauses,
+                   x: torch.Tensor) -> torch.Tensor:
+    """(B, o) → (B, m) int32 class scores through :func:`compact_eval`."""
+    return tm.clause_votes(cfg, compact_eval(cfg, comp, x))
+
+
+def compact_apply_events_sequential(comp: CompactClauses,
+                                    events: Event) -> CompactClauses:
+    """Replay an event buffer one event at a time, on host copies: the
+    reference's ``lax.scan`` step for step (the test oracle of
+    :func:`compact_apply_events`). An insert appends the literal (dropped,
+    length unchanged, past ``l_max``); a delete swaps the last entry into
+    the literal's slot, and is a no-op for a literal the row does not hold.
+    """
+    lit_idx, lengths = (t.cpu().numpy().copy() for t in comp)
+    l_max = lit_idx.shape[-1]
+    for i, j, k, ins, ok in zip(*(t.tolist() for t in events)):
+        if not ok:
+            continue
+        row = lit_idx[i, j]
+        if ins:
+            if lengths[i, j] < l_max:
+                row[lengths[i, j]] = k
+                lengths[i, j] += 1
+            continue
+        hits = (row == k).nonzero()[0]
+        if hits.size:
+            last = lengths[i, j] - 1
+            row[hits[0]] = row[last]
+            row[last] = NA
+            lengths[i, j] -= 1
+    dev = comp.lit_idx.device
+    return CompactClauses(lit_idx=torch.from_numpy(lit_idx).to(dev),
+                          lengths=torch.from_numpy(lengths).to(dev))
+
+
+# literal ids are < 2**31, so (row, literal) packs into one int64 key
+_LITERAL_SPAN = 1 << 31
+
+
+def compact_apply_events(comp: CompactClauses, events: Event) -> CompactClauses:
+    """Replay include/exclude events on the clause-compact layout at once,
+    vectorised over the event buffer. Returns new tensors.
+
+    Contract, against the reference's sequential scan
+    (:func:`compact_apply_events_sequential`), for a buffer diffed against
+    exactly the state this cache was built from (so each valid event names
+    a distinct TA cell, as ``events_from_transition``'s buffers do):
+
+      * whenever no row's length passes ``l_max``, ``lengths`` are
+        identical and every row holds the identical set of literal ids;
+        only the order inside a row may differ (rows are sets:
+        ``compact_eval`` is order-blind);
+      * at overflow, ``lengths`` and the sets are still the reference's:
+        an insert is dropped exactly when the reference's running length
+        stood at ``l_max`` when it came, and a delete of a literal the row
+        never absorbed is a no-op. So ``lengths <= l_max``, no surviving
+        entry is corrupted, slots past a length stay ``NA``, and
+        :func:`validate_compact` reports ``lengths_ok=False`` wherever the
+        reference's does.
+
+    A buffer that names one cell several times (alternating crossings, as
+    ``index_update_batched`` admits) is first reduced to its net event per
+    cell; without overflow the result is again the reference's, and at
+    overflow the invariants above hold.
+
+    How: net events per cell; the survivors of each touched row (entries no
+    net delete names) compacted in order; each row's running length in
+    buffer order as a walk clamped at ``l_max`` (an insert that finds the
+    row full is dropped, a delete that finds its literal lowers it), whose
+    accepted inserts are appended after the survivors.
+    """
+    lit_idx, lengths = comp
+    m, n, l_max = lit_idx.shape
+    n_events = events.cls.shape[0]
+    if n_events == 0:
+        return CompactClauses(lit_idx.clone(), lengths.clone())
+    dev = lit_idx.device
+    v = events.valid.to(torch.bool)
+    ins = events.is_insert.to(torch.bool)
+    c, j, k = (torch.where(v, t, 0).long()
+               for t in (events.cls, events.clause, events.literal))
+    idx = torch.arange(n_events, dtype=torch.int64, device=dev)
+
+    # -- net event per cell: an odd run's last event carries its effect
+    row_key = c * n + j
+    cell = torch.where(v, row_key * _LITERAL_SPAN + k, m * n * _LITERAL_SPAN)
+    order, _, last, first_idx = _segment_layout(cell)
+    effective = _unsort(order, v[order] & last & ((idx - first_idx) % 2 == 0))
+
+    # -- group the net events by clause row, buffer order within a row
+    order, start, _, first_idx = _segment_layout(
+        torch.where(effective, row_key, m * n))
+    eff, ins, k, key = effective[order], ins[order], k[order], row_key[order]
+    head = start & eff
+    rid = torch.cumsum(head, 0) - 1                # touched-row id per event
+    heads = torch.nonzero(head).squeeze(1)
+    if heads.numel() == 0:
+        return CompactClauses(lit_idx.clone(), lengths.clone())
+    rc, rj = c[order][heads], j[order][heads]
+    rows = lit_idx[rc, rj]                                       # (R, l_max)
+    old_len = lengths[rc, rj].long()
+    rid = rid.clamp(min=0)
+
+    # -- entries a net delete names, matched through sorted (row, literal)
+    # keys; each match also marks its delete as present in the row
+    slot = torch.arange(l_max, device=dev)[None, :]
+    live = (slot < old_len[:, None]) & (rows >= 0)
+    is_del = eff & ~ins
+    del_at = torch.nonzero(is_del).squeeze(1)
+    del_keys, del_order = torch.sort(key[del_at] * _LITERAL_SPAN + k[del_at])
+    present = torch.zeros(n_events, dtype=torch.bool, device=dev)
+    hit = torch.zeros_like(live)
+    if del_keys.numel():
+        entry_keys = key[heads][:, None] * _LITERAL_SPAN + rows.long()
+        at = torch.searchsorted(del_keys, entry_keys).clamp(
+            max=del_keys.numel() - 1)
+        hit = live & (del_keys[at] == entry_keys)
+        found = torch.zeros(del_keys.numel(), dtype=torch.bool, device=dev)
+        found[at[hit]] = True
+        present[del_at[del_order]] = found
+
+    # -- each row's running length in buffer order, clamped at l_max: the
+    # unclamped walk minus the running maximum of its excess over l_max
+    step = torch.where(eff & ins, 1, torch.where(present, -1, 0))
+    walk = torch.cumsum(step, 0)
+    walk = old_len[rid] + walk - (walk[first_idx] - step[first_idx])
+    span = 2 * n_events + l_max + 1       # > any row's range of excess
+    excess = torch.where(eff, walk - l_max + rid * span,
+                         heads.numel() * span)
+    clamp = (torch.cummax(excess, 0).values - rid * span).clamp(min=0)
+    before = torch.where(start, 0, torch.roll(clamp, 1))
+    accepted = eff & ins & (clamp == before)
+
+    # -- new rows: survivors compacted, then accepted inserts appended
+    survive = live & ~hit
+    n_surv = survive.sum(1)
+    new_rows = torch.full_like(rows, NA)
+    sr, ss = torch.nonzero(survive, as_tuple=True)
+    new_rows[sr, (torch.cumsum(survive, 1) - 1)[sr, ss]] = rows[sr, ss]
+    acc = accepted.long()
+    rank = torch.cumsum(acc, 0) - acc
+    rank = rank - rank[first_idx]
+    new_rows[rid[accepted], (n_surv[rid] + rank)[accepted]] = (
+        k[accepted].to(torch.int32))
+    n_acc = torch.zeros_like(n_surv).index_add_(0, rid[accepted],
+                                                acc[accepted])
+    out_idx, out_len = lit_idx.clone(), lengths.clone()
+    out_idx[rc, rj] = new_rows
+    out_len[rc, rj] = (n_surv + n_acc).to(torch.int32)
+    return CompactClauses(lit_idx=out_idx, lengths=out_len)
+
+
+def validate_compact(cfg: TMConfig, state: TMState,
+                     comp: CompactClauses) -> dict:
+    """Invariant checks for the clause-compact layout: ``{name: 0-d bool
+    tensor}``. ``lengths_ok`` fails when capacity overflow has lost
+    literals: ``lengths`` track true clause lengths only while they fit."""
+    inc = include_mask(cfg, state)                                # (m, n, 2o)
+    l_max = comp.lit_idx.shape[-1]
+    lengths_ok = torch.all(comp.lengths == inc.sum(-1, dtype=torch.int32))
+    overflow_ok = torch.all(comp.lengths <= l_max)
+    na = comp.lit_idx == NA
+    # every non-NA entry is an included literal of its clause (ids out of
+    # range read the last literal, like JAX's clamped gather)
+    safe = torch.where(na, 0, comp.lit_idx).long().clamp(
+        max=inc.shape[-1] - 1)
+    member_ok = torch.all(torch.gather(inc, 2, safe) | na)
+    slot_valid = (torch.arange(l_max, device=inc.device)[None, None, :]
+                  < comp.lengths[..., None])
+    padding_ok = torch.all(slot_valid | na)
+    return dict(lengths_ok=lengths_ok, overflow_ok=overflow_ok,
+                member_ok=member_ok, padding_ok=padding_ok)

@@ -1,9 +1,15 @@
-"""Deterministic TM batch stream (the port's own numpy copy of
-``repro.data.pipeline.TMBatcher``): a batch is a pure function of
-(seed, step), so a restarted run replays the exact batch sequence from its
-checkpointed step, and both packages see the same batches.
+"""Deterministic TM batch stream and background prefetch (the port's own
+copies of ``repro.data.pipeline.TMBatcher`` and ``Prefetcher``): a batch
+is a pure function of (seed, step), so a restarted run replays the exact
+batch sequence from its checkpointed step, and both packages see the same
+batches; ``Prefetcher`` prepares the next batches on a host thread while
+the device works on the current step.
 """
 from __future__ import annotations
+
+import queue
+import threading
+from typing import Callable, Iterator
 
 import numpy as np
 
@@ -31,3 +37,37 @@ class TMBatcher:
         x, y = templated_images(self._templates, self.batch,
                                 noise=self.noise, rng=rng)
         return {"x": x, "y": y}
+
+
+class Prefetcher:
+    """Double-buffered background prefetch of a step-indexed source:
+    iterating yields ``(step, source(step))`` from ``start_step`` on, with up
+    to ``depth`` steps prepared ahead by a daemon thread. ``close`` stops
+    and joins it."""
+
+    def __init__(self, source: Callable[[int], dict], start_step: int = 0,
+                 depth: int = 2):
+        self.source = source
+        self.q: queue.Queue = queue.Queue(maxsize=depth)
+        self._stop = threading.Event()
+
+        def work():
+            s = start_step
+            while not self._stop.is_set():
+                try:
+                    self.q.put((s, self.source(s)), timeout=0.2)
+                    s += 1
+                except queue.Full:
+                    continue
+
+        self._thread = threading.Thread(target=work, daemon=True)
+        self._thread.start()
+
+    def __iter__(self) -> Iterator[tuple[int, dict]]:
+        while True:
+            yield self.q.get()
+
+    def close(self) -> None:
+        """Stop the worker and wait (up to 2 s) for it to exit."""
+        self._stop.set()
+        self._thread.join(timeout=2)

@@ -1,7 +1,9 @@
-"""Synthetic TM data (the port's own copy of the image generators in
+"""Synthetic TM data (the port's own copy of the TM generators in
 ``repro.data.synthetic``): distribution-matched stand-ins for the paper's
-binarized MNIST/F-MNIST images — class templates with ~20-40% active bits
-and per-pixel flip noise. Seeded numpy, so both packages see the same data.
+datasets — binarized MNIST/F-MNIST images (class templates with ~20-40%
+active bits and per-pixel flip noise) and IMDb bags of words (~1% active
+terms, the sparsity behind the paper's 0.006 work ratio). Seeded numpy, so
+both packages see the same data.
 """
 from __future__ import annotations
 
@@ -22,3 +24,19 @@ def binarized_images(n, o, n_classes=10, *, active=0.3, noise=0.05, seed=0):
     rng = np.random.default_rng(seed)
     templates = rng.uniform(size=(n_classes, o)) < active
     return templated_images(templates, n, noise=noise, rng=rng)
+
+
+def bow_documents(n, o, n_classes=2, *, active_frac=0.01, signal=40, seed=0):
+    """IMDb-like sparse bag-of-words → (x (n, o) uint8, y (n,) int32): a
+    shared random background of ``active_frac·o`` terms per document plus a
+    quarter of its class's ``signal`` terms."""
+    rng = np.random.default_rng(seed)
+    n_active = max(4, int(active_frac * o))
+    y = rng.integers(0, n_classes, n).astype(np.int32)
+    sig = rng.integers(0, o, (n_classes, signal))
+    x = np.zeros((n, o), np.uint8)
+    for i in range(n):
+        x[i, rng.integers(0, o, n_active)] = 1
+        take = rng.integers(0, signal, max(2, signal // 4))
+        x[i, sig[y[i], take]] = 1
+    return x, y

@@ -98,7 +98,21 @@ def test_not_a_tm_checkpoint_is_a_mismatch(tmp_path):
     cfg = convert.config_from_reference({"n_classes": 2, "n_clauses": 4,
                                          "n_features": 3})
     with pytest.raises(tm_store.CheckpointMismatch, match="schema-v1"):
-        tm_store.load_tm(tmp_path, cfg, np.zeros((2, 4, 6)))
+        tm_store.load_tm(tmp_path, cfg, np.zeros((2, 4, 6)), device="cpu")
+
+
+def test_load_tm_defaults_to_the_card(tmp_path, monkeypatch):
+    """Like every entry point, ``load_tm`` lands on ``cuda`` unless told
+    ``device="cpu"``, and raises on a host without CUDA."""
+    cfg = convert.config_from_reference({"n_classes": 2, "n_clauses": 4,
+                                         "n_features": 3})
+    ta = torch.full((2, 4, 6), 7, dtype=torch.int16)
+    tm_store.save_tm(tmp_path, cfg, ta)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tm_store.load_tm(tmp_path, cfg, ta)
+    got, step = tm_store.load_tm(tmp_path, cfg, ta, device="cpu")
+    assert step == 0 and torch.equal(got, ta)
 
 
 # -- Checkpointer units ------------------------------------------------------

@@ -6,10 +6,10 @@ Run on a machine with an NVIDIA GPU:
 
 Each kernel is held against its plain PyTorch version on the same CUDA
 tensors, bit for bit (integer results, tolerance 0), over unaligned shapes,
-batches past one 32-sample word and the MNIST width; the session's scores
-on the card equal the same session's on the CPU; and one training step on
-the card equals the same step on the CPU under the same draws, state and
-caches alike. Imports no JAX, so it runs where JAX is not installed.
+batches past one 32-sample word and the MNIST width and the IMDb width; the session's
+scores on the card equal the same session's on the CPU (the compact engine
+too); and one training step on the card equals the same step on the CPU
+under the same draws, state and caches alike. Imports no JAX, so it runs where JAX is not installed.
 """
 import numpy as np
 import pytest
@@ -74,7 +74,7 @@ def test_kernels_refuse_what_they_do_not_take(cuda_device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("engine", ["indexed", "bitpack", "dense"])
+@pytest.mark.parametrize("engine", ["indexed", "bitpack", "dense", "compact"])
 def test_session_scores_on_card_equal_cpu(cuda_device, engine):
     cfg = TMConfig(n_classes=4, n_clauses=66, n_features=100)
     rng = np.random.default_rng(1)
@@ -84,7 +84,8 @@ def test_session_scores_on_card_equal_cpu(cuda_device, engine):
     xs = rng.integers(0, 2, (45, 100)).astype(np.uint8)
     scores = []
     for dev in (cuda_device, "cpu"):
-        session = TMSession(cfg, engines=("indexed", "bitpack"), device=dev)
+        session = TMSession(cfg, engines=("indexed", "bitpack", "compact"),
+                            device=dev)
         bundle = session.prepare(TMState(ta_state=ta))
         scores.append(session.scores(bundle, xs, engine=engine).cpu())
     torch.testing.assert_close(scores[0], scores[1], rtol=0, atol=0)
@@ -394,3 +395,93 @@ def test_sharded_step_on_one_card_equals_topology_one(cuda_device, c, d,
     for a, b in zip(got_scores, want_scores):
         assert torch.equal(a, b)
     assert overflow == 0
+
+
+# ---------------------------------------------------------------------------
+# the compact engine on the card; the four kernels at the IMDb width
+# ---------------------------------------------------------------------------
+
+
+def _row_sets(comp):
+    ids = torch.where(comp.lit_idx < 0, 1 << 30, comp.lit_idx)
+    return comp.lengths.cpu(), torch.sort(ids, dim=-1).values.cpu()
+
+
+@pytest.mark.cuda
+def test_compact_engine_on_card_equals_dense_and_the_cpu(cuda_device):
+    """Scores equal the dense engine's; a step's compact replay on the card
+    ends where it ends on the CPU, lengths and rows as sets, and equals a
+    rebuild of the stepped state."""
+    from repro_torch.core import indexing
+
+    cfg = TMConfig(n_classes=4, n_clauses=66, n_features=100, n_states=20,
+                   s=3.9, threshold=8)
+    rng = np.random.default_rng(11)
+    ta = torch.from_numpy(rng.integers(1, 2 * cfg.n_states + 1,
+                                       (4, 66, 200)).astype(np.int16))
+    xs = rng.integers(0, 2, (5, 100)).astype(np.uint8)
+    ys = rng.integers(0, 4, 5)
+    draws = tm.draw_sample_draws(
+        cfg, torch.Generator(device=cuda_device).manual_seed(12), 5)
+    out = []
+    for dev in (cuda_device, "cpu"):
+        session = TMSession(cfg, engines=("compact", "dense"), device=dev,
+                            max_events=16384)
+        bundle = session.prepare(TMState(ta_state=ta))
+        assert torch.equal(session.scores(bundle, xs, engine="compact"),
+                           session.scores(bundle, xs, engine="dense"))
+        on_dev = tm.SampleDraws(*(
+            t.to(dev) if isinstance(t, torch.Tensor) else
+            tm.FeedbackRands(*(f.to(dev) for f in t)) for t in draws))
+        bundle = session.train_step(bundle, xs, ys, on_dev)
+        comp = bundle.caches["compact"]
+        rebuilt = indexing.compact(cfg, bundle.state, cfg.n_literals)
+        for a, b in zip(_row_sets(comp), _row_sets(rebuilt)):
+            assert torch.equal(a, b)
+        assert all(bool(v) for v in indexing.validate_compact(
+            cfg, bundle.state, comp).values())
+        out.append(_row_sets(comp))
+    for a, b in zip(*out):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_four_kernels_at_the_imdb_width(cuda_device):
+    """tm_imdb: m=2, n=2000, o=5000 (2o=10000 literals, W=313 words), the
+    votes at B=32 on the tiled route in more than one staged chunk."""
+    dev, m, n, o, b = cuda_device, 2, 2000, 5000, 32
+    L = 2 * o
+    gen = torch.Generator(device=dev).manual_seed(13)
+    include = torch.rand((m, n, L), generator=gen, device=dev) < 116 / L
+    x = (torch.rand((b, o), generator=gen, device=dev) < 0.01).to(torch.uint8)
+    include[:, :, :o] = False     # clauses of absent words: about half fire
+    pos = torch.where(include, torch.randint(0, n, (m, n, L), generator=gen,
+                                             device=dev, dtype=torch.int32),
+                      -1).contiguous()
+    pol = torch.where(torch.arange(n, device=dev) < n // 2, 1, -1).to(torch.int32)
+    lit = torch.cat([x, 1 - x], dim=-1)
+    words, lw = bitpack.pack_bits(include), bitpack.packed_literals(x)
+    plan = clause_eval.launch_plan(b, m, n, words.shape[-1])
+    assert words.shape[-1] == 313 and plan.route == "tiled" and plan.n_chunks > 1
+    want = indexed.indexed_votes_ref(pos, lit, pol)
+    torch.testing.assert_close(indexed.indexed_votes(pos, lit, pol), want,
+                               rtol=0, atol=0)
+    torch.testing.assert_close(clause_eval.clause_votes_packed(words, lw, pol),
+                               want, rtol=0, atol=0)
+    assert want.unique().numel() > 1
+    for bb, mm in ((1, 1), (b, m)):
+        w = words[:mm].contiguous()
+        torch.testing.assert_close(
+            clause_eval.clause_outputs_packed(w, lw[:bb].contiguous()),
+            clause_eval.clause_outputs_ref(w, lw[:bb]), rtol=0, atol=0)
+    kw = dict(n_states=127, s=27.0, boost_true_positive=False)
+    ta = torch.randint(1, 255, (n, L), generator=gen, device=dev,
+                       dtype=torch.int16)
+    cout = clause_eval.clause_outputs_packed(words[:1], lw[:1])[0, 0]
+    act = torch.rand(n, generator=gen, device=dev) < 0.5
+    u = edge_uniforms(n, L, 27.0, False, gen, dev)
+    for t1 in (pol > 0, pol <= 0):
+        torch.testing.assert_close(
+            ta_update.ta_update(ta, lit[0], cout, t1, act, u, **kw),
+            ta_update.ta_update_ref(ta, lit[0], cout, t1, act, u, **kw),
+            rtol=0, atol=0)

@@ -23,6 +23,7 @@ from repro.core.types import TMConfig as JConfig  # noqa: E402
 from repro.core.types import TMState as JState  # noqa: E402
 from repro_torch import convert  # noqa: E402
 from repro_torch.core import api, indexing, tm  # noqa: E402
+from repro_torch.core.engines import registered_engines  # noqa: E402
 from repro_torch.core.types import TMConfig, TMState  # noqa: E402
 
 ENGINES = ("dense", "bitpack", "indexed")
@@ -131,8 +132,10 @@ def test_missing_cache_slot_rebuilds_with_one_warning():
 def test_fresh_state_scores_zero_on_every_engine():
     cfg = TMConfig(n_classes=2, n_clauses=4, n_features=5)
     bundle = api.init_bundle(cfg, device="cpu")
-    assert set(bundle.caches) == {"bitpack", "indexed"}
+    # engines=None maintains every registered engine's cache, as the
+    # reference's default bundle does
+    assert set(bundle.caches) == {"bitpack", "compact", "indexed"}
     assert bundle.state.ta_state.dtype == torch.int16
     x = torch.ones((3, 5), dtype=torch.uint8)
-    for engine in ENGINES:
+    for engine in registered_engines():
         assert api.bundle_scores(bundle, x, engine=engine).abs().sum() == 0
