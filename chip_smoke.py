@@ -101,22 +101,53 @@ failure, and at once when no CUDA device is present):
    sequential ``partial_fit`` steps of B=32 from a trained-like state with
    no event-buffer overflow and every cache equal to a rebuild.
    Each kernel must have launched in phase 8.
+9. **Oracles, wrappers, examples** (runs before phase 6's report; launch
+   counts are set to 0 just before each part and read just after).
+   (a) The ``kernels/ops.py`` wrappers on the card at the tm_mnist width
+   (B=32): ``tm_votes``, ``tm_votes_packed`` and ``tm_predict`` equal
+   ``kernels/ref.clause_votes_ref`` on the unpacked include mask, the
+   dense scores and their argmax; ``tm_clause_outputs`` equals
+   ``clause_outputs_ref``; ``tm_ta_update`` equals ``ta_update_ref`` on
+   random and edge uniforms in both rounds; each launches its kernel;
+   ``call_ms`` per wrapper.
+   (b) The numpy oracle ``core/ref.py`` at (m, n, o) = (3, 32, 45) (a
+   partial last literal word, empty clauses): the class round on the card
+   (``_round_vote`` / ``_round_feedback`` with injected uniforms) equals
+   ``class_round_ref`` in both polarities, ``boost_true_positive`` off and
+   on; ``indexed_scores`` and the indexed engine equal
+   ``indexed_scores_ref``; ``dense_clause_outputs`` (empty output 0 and 1)
+   and ``clause_votes`` equal ``clause_outputs_ref`` / ``votes_ref``.
+   (c) ``examples/torch_quickstart.py`` and ``examples/torch_tm_mnist.py``
+   (the reference's widths, one epoch, checkpoints in a temporary
+   directory) through their ``main`` in this process on the card: no
+   overflow, every engine equal to dense, the checkpoint round-trip ok;
+   samples/s, µs/sample per engine, the work ratio, peak memory.
+   (d) ``make_tm_task(engines=("indexed",))`` against the default four
+   caches: ``TASK_STEPS`` ``Trainer`` steps of B=32 each from phase 5's
+   trained-like state, the kept caches exactly the named ones, equal
+   states and metrics, step ms of both; and the two shards of
+   ``TMBatcher(..., shard_count=2)`` concatenate to the global batch.
+   Each kernel must have launched in phase 9.
 6. Print ``{"kernels": [...]}`` (all four kernels; ``launches`` from
    phases 3 and 5, ``sharded_launches`` from phase 7, ``phase8_launches``
-   from phase 8, and ``tm_imdb`` with the kernel's shape, error and times
-   at the IMDb width), the card's name and power limit as ``nvidia-smi``
-   reports them, and, last, the ``{"ok": true, ...}`` line.
+   from phase 8, ``phase9_launches`` from phase 9, and ``tm_imdb`` with the
+   kernel's shape, error and times at the IMDb width), the card's name and
+   power limit as ``nvidia-smi`` reports them, and, last, the
+   ``{"ok": true, ...}`` line.
 
 Imports nothing of JAX and nothing of the JAX package ``repro``.
 """
 from __future__ import annotations
 
+import dataclasses
+import importlib.util
 import json
 import math
 import re
 import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -144,6 +175,10 @@ COMPACT_BUCKET, COMPACT_STEPS = 32, 2
 OPEN_LOOP_STEP_S = 0.5
 SCALING_RPS = 200_000.0
 IMDB_STEPS = 2
+# phase 9: the numpy oracle's (m, n, o), 2o = 90 so the last literal word is
+# partial; Trainer steps of each make_tm_task
+ORACLE_SHAPE = (3, 32, 45)
+TASK_STEPS = 3
 # Peak rates of one H100 SXM. Memory: 3.35 TB/s (NVIDIA data sheet). The
 # votes are 32-bit compare and logic instructions, not FLOPs: the CUDA C++
 # Programming Guide's arithmetic-throughput table gives compute capability
@@ -1283,6 +1318,313 @@ def imdb(gen, counts, dev, card, sms) -> dict:
     return rows
 
 
+def wrappers_vs_oracles(cfg, state, inc, trained, counts, gen, dev,
+                        card) -> None:
+    """Phase 9 (a): the ``kernels/ops.py`` wrappers on the card against the
+    unpacked oracles of ``kernels/ref.py`` and the dense scores, at the
+    tm_mnist width, bit for bit; each must launch its kernel."""
+    from repro_torch.core import tm
+    from repro_torch.core.types import clause_polarity, literals_from_input
+    from repro_torch.kernels import ops, ref, ta_update
+
+    n, L, b = cfg.n_clauses, cfg.n_literals, TRAIN_BATCH
+    x = requests(inc, b, gen, dev)
+    lit = literals_from_input(x)
+    votes = ref.clause_votes_ref(inc, lit)
+    require(torch.equal(votes, tm.scores(cfg, state, x)),
+            "kernels/ref.clause_votes_ref != the dense scores")
+    require(votes.unique().numel() > 1, "oracle votes all equal")
+    outputs = ref.clause_outputs_ref(inc, lit)
+    row = trained["ta0"][0]
+    cout = ref.clause_outputs_ref(row[None] > cfg.n_states, lit[:1])[0, 0]
+    active = torch.rand(n, generator=gen, device=dev) < 0.5
+    pol = clause_polarity(cfg, dev)
+    kw = dict(n_states=cfg.n_states, s=cfg.s,
+              boost_true_positive=cfg.boost_true_positive)
+    uniforms = {"random": torch.rand((n, L), generator=gen, device=dev),
+                "edge": edge_uniforms((n, L), ta_update.thresholds(
+                    cfg.s, cfg.boost_true_positive), gen, dev)}
+    words = ops.pack_include(cfg, state)
+    calls = {
+        "tm_votes": (lambda: ops.tm_votes(cfg, state, x), votes),
+        "tm_votes_packed": (lambda: ops.tm_votes_packed(words, x), votes),
+        "tm_predict": (lambda: ops.tm_predict(cfg, state, x), votes.argmax(-1)),
+        "tm_clause_outputs": (lambda: ops.tm_clause_outputs(cfg, state, x),
+                              outputs),
+    }
+    for name, u in uniforms.items():
+        for positive in (True, False):
+            t1 = (pol > 0) if positive else (pol <= 0)
+            calls[f"tm_ta_update[{name}, {'target' if positive else 'negative'}]"] = (
+                lambda t1=t1, u=u: ops.tm_ta_update(cfg, row, lit[0], cout, t1,
+                                                    active, u),
+                ref.ta_update_ref(row, lit[0], cout, t1, active, u, **kw))
+    counts.reset()
+    got = {name: fn() for name, (fn, _) in calls.items()}
+    torch.cuda.synchronize()
+    launched = counts.read()
+    for name, (_, want) in calls.items():
+        err = int((got[name].long() - want.long()).abs().max())
+        require(torch.equal(got[name], want),
+                f"{name}: wrapper != unpacked oracle (max |diff| {err})")
+    for kname in ("clause_votes_packed", "clause_outputs_packed", "ta_update"):
+        require(launched[kname] > 0, f"phase 9 wrappers never launched {kname}")
+    require(launched["clause_votes_packed"] == 3
+            and launched["clause_outputs_packed"] == 1
+            and launched["ta_update"] == 4,
+            f"phase 9 wrapper launches {launched}: want 3, 1 and 4")
+    times = {}
+    for name, (fn, _) in calls.items():     # one variant of tm_ta_update
+        key = name.split("[")[0]
+        if key not in times:
+            times[key] = call_ms(fn, 20)
+    print(f"wrappers (tm_mnist, B={b}, m={cfg.n_classes}, n={n}, 2o={L}): "
+          f"tm_votes, tm_votes_packed, tm_predict equal clause_votes_ref, the "
+          f"dense scores and their argmax; tm_clause_outputs equals "
+          f"clause_outputs_ref; tm_ta_update equals ta_update_ref on random "
+          f"and edge uniforms, both rounds (max |diff| 0); launches {launched}; "
+          f"call ms " + ", ".join(f"{k} {v:.4f}" for k, v in times.items())
+          + f" [{card}]")
+
+
+def round_vs_numpy_oracle(counts, dev, card) -> None:
+    """Phase 9 (b): the card's class round, ``indexed_scores`` (and the
+    indexed engine) and ``dense_clause_outputs`` against the numpy oracle
+    of ``core/ref.py`` at a small size whose last literal word is partial."""
+    from repro_torch.core import bitpack, indexing, ref, tm
+    from repro_torch.core.engines import get_engine
+    from repro_torch.core.types import TMConfig, TMState, clause_polarity
+
+    m, n, o = ORACLE_SHAPE
+    rng = np.random.default_rng(SEED + 90)
+    base = TMConfig(n_classes=m, n_clauses=n, n_features=o, n_states=127,
+                    s=3.9, threshold=6)
+    ta = np.where(rng.uniform(size=(m, n, 2 * o)) < 0.08,
+                  rng.integers(128, 255, (m, n, 2 * o)),
+                  rng.integers(1, 128, (m, n, 2 * o))).astype(np.int16)
+    ta[:, :2] = 127                                   # empty clauses
+    x = rng.integers(0, 2, (8, o)).astype(np.uint8)
+    counts.reset()
+    changed = 0
+    for boost in (False, True):
+        cfg = dataclasses.replace(base, boost_true_positive=boost)
+        pol = clause_polarity(cfg, dev)
+        for positive in (True, False):
+            for cls in range(m):
+                lit = np.concatenate([x[cls], 1 - x[cls]]).astype(np.uint8)
+                gate = rng.uniform(size=n).astype(np.float32)
+                type_i = rng.uniform(size=(n, 2 * o)).astype(np.float32)
+                row = torch.from_numpy(ta[cls]).to(dev)
+                tlit = torch.from_numpy(lit).to(dev)
+                cout, vote = tm._round_vote(cfg, row,
+                                            bitpack.pack_bits(tlit[None]), pol)
+                got = tm._round_feedback(
+                    cfg, row, tlit, cout, vote,
+                    tm.FeedbackRands(torch.from_numpy(gate).to(dev),
+                                     torch.from_numpy(type_i).to(dev)),
+                    positive, pol)
+                want = ref.class_round_ref(
+                    ta[cls], lit, gate, type_i, n_states=cfg.n_states, s=cfg.s,
+                    threshold=cfg.threshold, half=n // 2,
+                    positive_round=positive, boost_true_positive=boost)
+                require(np.array_equal(got.cpu().numpy().astype(np.int64), want),
+                        f"class round (boost {boost}, "
+                        f"{'target' if positive else 'negative'}, class {cls}) "
+                        "!= class_round_ref")
+                changed += int((want != ta[cls]).sum())
+    require(changed > 0, "the class rounds changed nothing")
+    cfg = base
+    state = TMState(ta_state=torch.from_numpy(ta).to(dev))
+    xs = torch.from_numpy(x).to(dev)
+    index = indexing.build_index(cfg, state, cfg.resolved_index_capacity)
+    scores = indexing.indexed_scores(cfg, index, xs).cpu().numpy()
+    engine = get_engine("indexed").scores(cfg, index, xs).cpu().numpy()
+    lists, cnts = index.lists.cpu().numpy(), index.counts.cpu().numpy()
+    outs = {e: tm.dense_clause_outputs(cfg, state, xs, empty_output=e)
+            for e in (0, 1)}
+    votes = tm.clause_votes(cfg, outs[1]).cpu().numpy()
+    outs = {e: out.cpu().numpy() for e, out in outs.items()}
+    launched = counts.read()
+    for i in range(len(x)):
+        want = ref.indexed_scores_ref(lists, cnts, x[i], n)
+        require(np.array_equal(scores[i], want) and np.array_equal(engine[i], want),
+                f"indexed_scores / the indexed engine != indexed_scores_ref "
+                f"(sample {i})")
+        for e, out in outs.items():
+            want = ref.clause_outputs_ref(ta, x[i], cfg.n_states, e)
+            require(np.array_equal(out[i], want),
+                    f"dense_clause_outputs(empty_output={e}) != "
+                    f"clause_outputs_ref (sample {i})")
+        require(np.array_equal(votes[i], ref.votes_ref(outs[1][i])),
+                f"clause_votes != votes_ref (sample {i})")
+    require(np.unique(scores).size > 1, "oracle scores all equal")
+    for kname in ("indexed_votes", "clause_outputs_packed", "ta_update"):
+        require(launched[kname] > 0, f"phase 9 (b) never launched {kname}")
+    n_empty = int((~(ta > cfg.n_states).any(-1)).sum())
+    print(f"numpy oracle (m, n, o)=({m}, {n}, {o}), 2o={2 * o} (partial last "
+          f"word), {n_empty} empty clauses: class rounds on the card equal class_round_ref in "
+          f"both polarities with boost_true_positive off and on ({changed} "
+          f"cells changed); indexed_scores and the indexed engine equal "
+          f"indexed_scores_ref, dense_clause_outputs (empty 0 and 1) and "
+          f"clause_votes equal clause_outputs_ref / votes_ref on {len(x)} "
+          f"samples; launches {launched} [{card}]")
+
+
+def load_example(name: str):
+    """``examples/<name>.py`` of this checkout, as a module."""
+    path = Path(__file__).resolve().parent / "examples" / f"{name}.py"
+    spec = importlib.util.spec_from_file_location(name, path)
+    require(spec is not None and path.exists(), f"{path} is missing")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def examples(counts, card) -> None:
+    """Phase 9 (c): the two examples' ``main`` in this process, on the card."""
+    out = {}
+    for name, argv in (("torch_quickstart", ["--device", "cuda"]),
+                       ("torch_tm_mnist", ["--device", "cuda", "--epochs", "1"])):
+        main_fn = load_example(name).main
+        with tempfile.TemporaryDirectory() as tmp:
+            if name == "torch_tm_mnist":
+                argv = argv + ["--ckpt-dir", tmp]
+            torch.cuda.synchronize()
+            resident = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            counts.reset()
+            t0 = time.perf_counter()
+            out[name] = main_fn(argv)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launched = counts.read()
+            peak = torch.cuda.max_memory_allocated() - resident
+        for kname in ("clause_outputs_packed", "ta_update", "indexed_votes"):
+            require(launched[kname] > 0, f"{name} never launched {kname}")
+        out[name].update(wall_s=wall, peak_gb=peak / 1e9, launches=launched)
+    q, t = out["torch_quickstart"], out["torch_tm_mnist"]
+    require(q["event_overflow"] == 0, "quickstart: event buffer overflowed")
+    require(t["roundtrip_ok"], "torch_tm_mnist: checkpoint round-trip mismatch")
+    require(0 < t["work_ratio"] < 1, f"torch_tm_mnist work ratio {t['work_ratio']}")
+    print(f"example torch_quickstart (cuda): accuracy per epoch "
+          f"{[round(a, 4) for a in q['accuracy']]}, all engines agree, work "
+          f"ratio {q['work_ratio']:.4f}; {q['wall_s']:.2f} s wall, peak "
+          f"{q['peak_gb']:.3f} GB above resident; launches {q['launches']} "
+          f"[{card}]")
+    e = t["epochs"][0]
+    print(f"example torch_tm_mnist (cuda, reference widths, 1 epoch): "
+          f"{e['samples_per_s']:.1f} samples/s over {t['train']} rows in one "
+          f"partial_fit step, {e['events']} cache events of {t['max_events']} "
+          f"(no overflow), accuracy {e['acc']:.4f}; us/sample "
+          + ", ".join(f"{k} {v:.3f}" for k, v in t["us_per_sample"].items())
+          + f"; work ratio {t['work_ratio']:.4f}; checkpoint round-trip "
+          f"{'ok' if t['roundtrip_ok'] else 'MISMATCH'}; {t['wall_s']:.2f} s "
+          f"wall, peak {t['peak_gb']:.3f} GB above resident; launches "
+          f"{t['launches']} [{card}]")
+
+
+def task_engines(cfg, trained, counts, dev, card) -> None:
+    """Phase 9 (d): ``make_tm_task(engines=("indexed",))`` against the
+    default four caches, a few ``Trainer`` steps of B=32 each from phase
+    5's trained-like state; and ``TMBatcher`` shards."""
+    from repro_torch.checkpoint import tm_store
+    from repro_torch.checkpoint.checkpointer import Checkpointer
+    from repro_torch.core import indexing, tm
+    from repro_torch.core.engines import cache_provider
+    from repro_torch.core.types import include_mask
+    from repro_torch.data.pipeline import TMBatcher
+    from repro_torch.runtime import Trainer, TrainLoopConfig, make_tm_task
+
+    tree = tm_store.checkpoint_tree(cfg, trained["ta0"].cpu().numpy(), step=0)
+    runs = {}
+    for label, engines in (("indexed only", ("indexed",)),
+                           ("default four", None)):
+        task = make_tm_task(cfg, engines=engines, batch=TRAIN_BATCH, seed=SEED,
+                            max_events=trained["max_events"], device=dev)
+        keys = set(task.state["bundle"].caches)
+        # the dense engine scores from the state: it keeps no cache
+        want = {"indexed"} if engines else {"bitpack", "indexed", "compact"}
+        require(keys == want, f"task {label}: caches {sorted(keys)}")
+        step_ms = []
+
+        def timed(state, batch, fn=task.step_fn):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(state, batch)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            return out
+
+        with tempfile.TemporaryDirectory() as tmp:
+            trainer = Trainer(
+                step_fn=timed, state=task.from_ckpt(tree, task.state),
+                batcher=task.batcher, checkpointer=Checkpointer(tmp, keep=1),
+                loop=TrainLoopConfig(total_steps=TASK_STEPS,
+                                     ckpt_every=TASK_STEPS + 1, log_every=1),
+                to_ckpt=task.to_ckpt, from_ckpt=task.from_ckpt)
+            counts.reset()
+            trainer.run(start_step=0)
+            launched = counts.read()
+        bundle = trainer.state["bundle"]
+        require(int(bundle.event_overflow) == 0, f"task {label}: overflow")
+        require(launched["ta_update"] == 2 * TRAIN_BATCH * TASK_STEPS,
+                f"task {label}: launches {launched}")
+        checks = indexing.validate(cfg, bundle.state, bundle.index)
+        require(all(bool(v) for v in checks.values()),
+                f"task {label}: validate {checks}")
+        runs[label] = (bundle, step_ms, trainer.metrics_log, launched)
+    (one, ms1, log1, _), (four, ms4, log4, _) = runs.values()
+    require(torch.equal(one.state.ta_state, four.state.ta_state),
+            "make_tm_task: the cache set changed the learning")
+    require(log1 == log4, f"make_tm_task metrics differ: {log1} vs {log4}")
+    caches_match(cfg, four, "make_tm_task, default engines")
+    # where the difference goes: one more step's event buffer replayed
+    # into each maintained cache alone (median of 3 each)
+    batch = TMBatcher(cfg.n_features, cfg.n_classes, TRAIN_BATCH,
+                      seed=7)(TASK_STEPS)
+    new_state = tm.update_batch_sequential(
+        cfg, four.state, batch["x"], batch["y"],
+        torch.Generator(device=dev).manual_seed(SEED + 40))
+    buf = indexing.events_from_transition(
+        include_mask(cfg, four.state), include_mask(cfg, new_state),
+        trained["max_events"])
+    sync_ms = {key: float(np.median([_wall_ms(
+        lambda: cache_provider(key).update_cache(cfg, cache, new_state,
+                                                 buf.events), sync=True)
+        for _ in range(3)])) for key, cache in four.caches.items()}
+    print(f"make_tm_task at tm_mnist, {TASK_STEPS} Trainer steps of "
+          f"B={TRAIN_BATCH} from a trained-like state (equal states and "
+          f"metrics): engines=('indexed',) {[round(t, 3) for t in ms1]} ms, "
+          f"default four caches {[round(t, 3) for t in ms4]} ms per step; "
+          f"one step's {int(buf.events.valid.sum())} events replayed into "
+          f"each cache alone: " + ", ".join(
+              f"{k} {v:.3f} ms" for k, v in sync_ms.items()) + f" [{card}]")
+
+    full = TMBatcher(cfg.n_features, cfg.n_classes, TRAIN_BATCH, seed=7)
+    for step in (0, 5):
+        shards = [TMBatcher(cfg.n_features, cfg.n_classes, TRAIN_BATCH, seed=7,
+                            shard_index=i, shard_count=2)(step) for i in (0, 1)]
+        for key in ("x", "y"):
+            require(np.array_equal(np.concatenate([s[key] for s in shards]),
+                                   full(step)[key]),
+                    f"TMBatcher shards of step {step} != the global batch")
+    print("TMBatcher: the two shards of shard_count=2 concatenate to the "
+          "global batch")
+
+
+def phase9(cfg, state, inc, trained, gen, dev, card) -> dict:
+    """Phase 9: oracles, wrappers, examples. Returns the launch totals."""
+    counts = Counts()
+    wrappers_vs_oracles(cfg, state, inc, trained, counts, gen, dev, card)
+    round_vs_numpy_oracle(counts, dev, card)
+    examples(counts, card)
+    task_engines(cfg, trained, counts, dev, card)
+    for kname, launched in counts.total.items():
+        require(launched > 0, f"phase 9 never launched {kname}")
+    print(f"phase 9 launches: {counts.total}")
+    return counts.total
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU",
@@ -1417,6 +1759,11 @@ def main() -> int:
         require(launched > 0, f"phase 8 never launched {kname}")
     print(f"phase 8 launches: {counts.total}")
 
+    # -- 9. oracles, wrappers, examples ------------------------------------------
+    t0 = time.perf_counter()
+    phase9_launches = phase9(cfg, state, inc, trained, gen, dev, card)
+    print(f"phase 9: {time.perf_counter() - t0:.1f} s wall")
+
     # -- 6. report ----------------------------------------------------------
     top = BATCHES[-1]
 
@@ -1443,6 +1790,7 @@ def main() -> int:
                         "call_ms": r["call_ms"],
                         "sharded_launches": shard_launches[kname],
                         "phase8_launches": counts.total[kname],
+                        "phase9_launches": phase9_launches[kname],
                         "tm_imdb": imdb_row((kname, top))})
     # the learning kernels at the training round's shapes
     for kname, key, src, replaces in (
@@ -1462,6 +1810,7 @@ def main() -> int:
                         "library_ms": None, "call_ms": r["call_ms"],
                         "sharded_launches": shard_launches[kname],
                         "phase8_launches": counts.total[kname],
+                        "phase9_launches": phase9_launches[kname],
                         "tm_imdb": imdb_row(key)})
     print(json.dumps({"kernels": kernels}))
     print(card)

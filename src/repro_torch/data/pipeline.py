@@ -20,15 +20,26 @@ class TMBatcher:
     """Deterministic (seed, step) → TM batch {"x": (B, o) uint8, "y": (B,)}.
 
     Class-template Bernoulli images with the templates fixed by ``seed`` and
-    the per-step noise a pure function of (seed, step). (The reference's
-    data-shard slicing comes with multi-device topologies.)
+    the per-step noise a pure function of (seed, step). ``shard_index`` /
+    ``shard_count`` take contiguous row blocks of the *global* batch, so the
+    shards of one step concatenate, in shard order, to the one-shard stream
+    (each process of a multi-process run reads its own rows).
     """
 
     def __init__(self, n_features: int, n_classes: int, batch: int, *,
-                 seed: int = 0, active: float = 0.3, noise: float = 0.05):
+                 seed: int = 0, active: float = 0.3, noise: float = 0.05,
+                 shard_index: int = 0, shard_count: int = 1):
+        if shard_count < 1 or batch % shard_count:
+            raise ValueError(f"batch={batch} must be a multiple of "
+                             f"shard_count={shard_count} (>= 1)")
+        if not 0 <= shard_index < shard_count:
+            raise ValueError(f"shard_index={shard_index} outside "
+                             f"[0, {shard_count})")
         self.n_features, self.n_classes = n_features, n_classes
         self.batch, self.seed = batch, seed
         self.active, self.noise = active, noise
+        self.shard_index, self.shard_count = shard_index, shard_count
+        self.local_batch = batch // shard_count
         rng = np.random.default_rng(seed)
         self._templates = rng.uniform(size=(n_classes, n_features)) < active
 
@@ -36,7 +47,9 @@ class TMBatcher:
         rng = np.random.default_rng(self.seed * 1_000_003 + 7919 * step + 1)
         x, y = templated_images(self._templates, self.batch,
                                 noise=self.noise, rng=rng)
-        return {"x": x, "y": y}
+        lo = self.shard_index * self.local_batch
+        hi = lo + self.local_batch
+        return {"x": x[lo:hi], "y": y[lo:hi]}
 
 
 class Prefetcher:

@@ -15,7 +15,8 @@ consumes, all driven through one ``TMSession``:
     engine cache is rebuilt on restore, on the restoring task's topology.
 
 Metrics per logged step: batch accuracy *before* the update, through
-``DEFAULT_ENGINE``.
+``metrics_engine`` (by default ``DEFAULT_ENGINE`` when the session keeps
+its cache, else the session's first engine).
 """
 from __future__ import annotations
 
@@ -53,26 +54,36 @@ def step_generator(seed: int, step: int, device) -> torch.Generator:
 
 
 def make_tm_task(cfg: TMConfig, *, topology: Topology | None = None,
-                 mesh=None, batch: int = 32, seed: int = 0,
+                 mesh=None, engines=None, batch: int = 32, seed: int = 0,
                  data_seed: int = 7, parallel: bool = False,
-                 max_events: int = 4096, metrics_every: int = 1,
-                 device="cuda") -> TMTask:
-    """Build a TM training task on one session that maintains every
-    registered engine's cache (``topology`` / ``mesh`` as ``TMSession``
-    takes them: the task itself is placement-transparent).
-    ``metrics_every`` skips the pre-update accuracy pass (through
-    ``DEFAULT_ENGINE``) on the other steps: set it to the trainer's
+                 max_events: int = 4096, metrics_engine: str | None = None,
+                 metrics_every: int = 1, device="cuda") -> TMTask:
+    """Build a TM training task on one session (``topology`` / ``mesh`` /
+    ``engines`` as ``TMSession`` takes them: the task itself is
+    placement-transparent; ``engines=None`` maintains every registered
+    engine's cache).
+
+    ``metrics_engine`` defaults to ``DEFAULT_ENGINE`` when the session
+    keeps it, else to the session's first engine. An explicit one is used
+    as given: on one device an engine whose cache the session does not keep
+    is prepared on the fly for each metrics pass (warned once per cache
+    slot, as ``TMSession.scores`` does). ``metrics_every`` skips the
+    pre-update accuracy pass on the other steps: set it to the trainer's
     ``log_every``.
     """
-    session = TMSession(cfg, topology, mesh=mesh, device=device,
-                        parallel=parallel, max_events=max_events)
+    session = TMSession(cfg, topology, mesh=mesh, engines=engines,
+                        device=device, parallel=parallel,
+                        max_events=max_events)
+    if metrics_engine is None:
+        metrics_engine = (DEFAULT_ENGINE if DEFAULT_ENGINE in session.engines
+                          else session.engines[0])
     batcher = TMBatcher(cfg.n_features, cfg.n_classes, batch, seed=data_seed)
 
     def step_fn(state: dict, batch_: dict):
         b, step = state["bundle"], state["step"]
         metrics = {}
         if (step + 1) % metrics_every == 0:  # logged steps only
-            pred = session.predict(b, batch_["x"], engine=DEFAULT_ENGINE).cpu()
+            pred = session.predict(b, batch_["x"], engine=metrics_engine).cpu()
             metrics = {"acc": float((pred.numpy() == batch_["y"]).mean())}
         nb = session.train_step(b, batch_["x"], batch_["y"],
                                 step_generator(seed, step, session.device))

@@ -9,7 +9,9 @@ tensors, bit for bit (integer results, tolerance 0), over unaligned shapes,
 batches past one 32-sample word and the MNIST width and the IMDb width; the session's
 scores on the card equal the same session's on the CPU (the compact engine
 too); and one training step on the card equals the same step on the CPU
-under the same draws, state and caches alike. Imports no JAX, so it runs where JAX is not installed.
+under the same draws, state and caches alike; and the TM-native wrappers
+of ``kernels/ops.py`` equal the unpacked oracles of ``kernels/ref.py``.
+Imports no JAX, so it runs where JAX is not installed.
 """
 import numpy as np
 import pytest
@@ -18,7 +20,7 @@ import torch
 from repro_torch.core import bitpack, tm
 from repro_torch.core.session import TMSession
 from repro_torch.core.types import TMConfig, TMState
-from repro_torch.kernels import clause_eval, indexed, ta_update
+from repro_torch.kernels import clause_eval, indexed, ops, ref, ta_update
 
 # (m, n, o, b): the unaligned sweep of tests/test_kernels.py, a batch past
 # one 32-sample word, and the tm_mnist width at the top serving bucket
@@ -485,3 +487,58 @@ def test_four_kernels_at_the_imdb_width(cuda_device):
             ta_update.ta_update(ta, lit[0], cout, t1, act, u, **kw),
             ta_update.ta_update_ref(ta, lit[0], cout, t1, act, u, **kw),
             rtol=0, atol=0)
+
+
+# (m, n, o, b): mid sizes, a partial last literal word (2o = 650, W = 21)
+# and full ones (2o = 640, W = 20), batches past one 32-sample word
+OPS_SHAPES = [(5, 200, 325, 40), (4, 128, 320, 33)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", OPS_SHAPES)
+def test_wrappers_equal_the_unpacked_oracles(cuda_device, shape):
+    """``kernels/ops`` on CUDA tensors (packing, then each kernel) against
+    ``kernels/ref`` on the unpacked include mask, bit for bit; each wrapper
+    launches its kernel."""
+    dev, (m, n, o, b) = cuda_device, shape
+    cfg = TMConfig(n_classes=m, n_clauses=n, n_features=o, n_states=127,
+                   s=3.9)
+    gen = torch.Generator(device=dev).manual_seed(sum(shape))
+    include = torch.rand((m, n, 2 * o), generator=gen, device=dev) < 0.01
+    ta = torch.where(include, 128, 127).to(torch.int16)
+    state = TMState(ta_state=ta)
+    x = torch.randint(0, 2, (b, o), generator=gen, device=dev,
+                      dtype=torch.uint8)
+    lit = torch.cat([x, 1 - x], dim=-1)
+    votes = ref.clause_votes_ref(include, lit)
+    assert votes.unique().numel() > 1
+    assert torch.equal(ops.pack_include(cfg, state).cpu(),
+                       ops.pack_include(cfg, TMState(ta_state=ta.cpu())))
+    for call, want, kernel in (
+            (lambda: ops.tm_votes(cfg, state, x), votes,
+             clause_eval.clause_votes_packed),
+            (lambda: ops.tm_votes_packed(ops.pack_include(cfg, state), x),
+             votes, clause_eval.clause_votes_packed),
+            (lambda: ops.tm_predict(cfg, state, x), votes.argmax(-1),
+             clause_eval.clause_votes_packed),
+            (lambda: ops.tm_clause_outputs(cfg, state, x),
+             ref.clause_outputs_ref(include, lit),
+             clause_eval.clause_outputs_packed)):
+        before = kernel.launches
+        torch.testing.assert_close(call(), want, rtol=0, atol=0)
+        assert kernel.launches == before + 1
+    row = torch.randint(1, 255, (n, 2 * o), generator=gen, device=dev,
+                        dtype=torch.int16)
+    cout = ref.clause_outputs_ref(row[None] > 127, lit[:1])[0, 0]
+    act = torch.rand(n, generator=gen, device=dev) < 0.6
+    pol = torch.arange(n, device=dev) < n // 2
+    kw = dict(n_states=127, s=3.9, boost_true_positive=False)
+    for u in (torch.rand((n, 2 * o), generator=gen, device=dev),
+              edge_uniforms(n, 2 * o, 3.9, False, gen, dev)):
+        for t1 in (pol, ~pol):
+            before = ta_update.ta_update.launches
+            got = ops.tm_ta_update(cfg, row, lit[0], cout, t1, act, u)
+            assert ta_update.ta_update.launches == before + 1
+            torch.testing.assert_close(
+                got, ref.ta_update_ref(row, lit[0], cout, t1, act, u, **kw),
+                rtol=0, atol=0)

@@ -7,8 +7,8 @@ fixed entry set and ``AOTCacheMiss``; and both server modes returning
 exactly ``session.scores`` through their threads, which the JAX reference's
 scores equal too. Also the port's ground rules: the device rule
 (``TMSession(cfg)`` needs CUDA unless ``device="cpu"``), and import hygiene
-(no ``jax``, no ``repro`` module reachable from the port or
-``chip_smoke.py``).
+(no ``jax``, no ``repro`` module reachable from the port,
+``chip_smoke.py`` or ``examples/torch_*.py``).
 """
 import ast
 import subprocess
@@ -317,11 +317,9 @@ def test_entry_points_need_cuda_unless_told_cpu(monkeypatch):
         main(["--smoke"])
 
 
-def test_training_and_multi_device_wait_for_later_slices():
-    """Both later slices have landed: a CPU machine trains, and a
-    clause-sharded one trains as the single-device one does. (The name
-    dates from before either was ported.)"""
-    # training is ported: a fit on the CPU trains and the served caches follow
+def test_cpu_machine_trains_and_a_clause_sharded_one_matches_it():
+    """A CPU machine trains (its served caches follow), and a clause-sharded
+    one trains as the single-device one does from the same seed."""
     cfg = TMConfig(n_classes=2, n_clauses=4, n_features=3)
     machine = TsetlinMachine(cfg, device="cpu", seed=1).init()
     xs = np.array([[1, 0, 1], [0, 1, 0]] * 4, np.uint8)
@@ -331,8 +329,6 @@ def test_training_and_multi_device_wait_for_later_slices():
                            torch.full_like(machine.state.ta_state, cfg.n_states))
     assert torch.equal(machine.scores(xs, engine="indexed"),
                        machine.scores(xs, engine="dense"))
-    # multi-device topologies are ported: a clause-sharded machine on CPU
-    # ranks trains as the single-device one does from the same seed
     sharded = TsetlinMachine(cfg, topology=Topology(clause_shards=2),
                              device="cpu", seed=1).init()
     sharded.fit(xs, np.array([0, 1] * 4), epochs=3, batch_size=4)
@@ -364,13 +360,27 @@ def test_port_imports_neither_jax_nor_the_reference():
     assert bad.strip() == "[]", bad
 
 
-def test_chip_smoke_imports_neither_jax_nor_the_reference():
-    tree = ast.parse((ROOT / "chip_smoke.py").read_text())
+def import_roots(path: Path) -> set[str]:
+    """Top-level package names a Python file imports, anywhere in it."""
     roots = set()
-    for node in ast.walk(tree):
+    for node in ast.walk(ast.parse(path.read_text())):
         if isinstance(node, ast.Import):
             roots |= {a.name.split(".")[0] for a in node.names}
         elif isinstance(node, ast.ImportFrom) and node.module:
             roots.add(node.module.split(".")[0])
+    return roots
+
+
+def test_chip_smoke_imports_neither_jax_nor_the_reference():
+    roots = import_roots(ROOT / "chip_smoke.py")
     assert "repro_torch" in roots and "torch" in roots
     assert not roots & {"jax", "jaxlib", "repro"}, roots
+
+
+def test_torch_examples_import_neither_jax_nor_the_reference():
+    paths = sorted((ROOT / "examples").glob("torch_*.py"))
+    assert len(paths) >= 2
+    for path in paths:
+        roots = import_roots(path)
+        assert "repro_torch" in roots, path.name
+        assert not roots & {"jax", "jaxlib", "repro"}, (path.name, roots)
