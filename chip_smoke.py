@@ -128,7 +128,33 @@ failure, and at once when no CUDA device is present):
    states and metrics, step ms of both; and the two shards of
    ``TMBatcher(..., shard_count=2)`` concatenate to the global batch.
    Each kernel must have launched in phase 9.
-6. Print ``{"kernels": [...]}`` (all four kernels; ``launches`` from
+10. **LM serving** (runs before phase 6's report; the four kernels' counts
+   are set to 0 just before it and read just after: the LM path reaches no
+   Pallas kernel of the reference, so they must stay 0). Random weights
+   from a seeded generator; tolerances are relative to max |logit|:
+   ``LM_F32_TOL`` for float32 against float32, ``LM_BF16_TOL`` for bf16
+   against float32 or against bf16 summed in another order, with greedy
+   tokens equal wherever the top-2 margin exceeds twice the tolerance.
+   (a) ``launch.serve.main`` on ``qwen3-1.7b`` at full width, B=4, prompt
+   128, 32 generated (twice; the second is reported, and both must
+   generate the same tokens): prefill and decode ms and tok/s beside their
+   bounds (weight bytes over 3.35 TB/s, matrix-product FLOPs over 989
+   TFLOP/s), parameter bytes, peak memory. On the same weights and
+   prompts, the bf16 prefill against a float32 one, and against 128
+   single decode steps from an empty cache; its argmax is the CLI's first
+   token. (b) The same for ``minitron-4b`` (untied ``lm_head``, squared-ReLU
+   MLP, vocab 256000), prompt 32, 16 generated. (c) ``qwen3-1.7b`` decode
+   steps against a cache of ``decode_32k``'s length at B=4, filled from the
+   generator: ms per step against its byte bound (cache plus weights), and
+   one layer's float32-accumulated bf16 products against the upcast form.
+   (d) One row of 9216 tokens through the blockwise prefill (above
+   ``dense_attn_max``) and the dense one: logits and caches agree; ms and
+   peak memory of each. (e) ``granite-8b``, ``qwen2-72b`` (qkv bias) and
+   ``llava-next-mistral-7b`` (vision prefix) at ``reduce_config`` width:
+   float32 on the card against the CPU, prefill then a decode step against
+   a longer prefill, bf16 against float32.
+6. Print ``{"lm": {...}}`` (phase 10's numbers, each beside its bound),
+   ``{"kernels": [...]}`` (all four kernels; ``launches`` from
    phases 3 and 5, ``sharded_launches`` from phase 7, ``phase8_launches``
    from phase 8, ``phase9_launches`` from phase 9, and ``tm_imdb`` with the
    kernel's shape, error and times at the IMDb width), the card's name and
@@ -139,6 +165,8 @@ Imports nothing of JAX and nothing of the JAX package ``repro``.
 """
 from __future__ import annotations
 
+import contextlib
+import copy
 import dataclasses
 import importlib.util
 import json
@@ -179,6 +207,19 @@ IMDB_STEPS = 2
 # partial; Trainer steps of each make_tm_task
 ORACLE_SHAPE = (3, 32, 45)
 TASK_STEPS = 3
+# phase 10: (arch, batch, prompt, gen) served at full width; decode_32k's
+# cache length at B=4 (cut from 128 so that the cache fits: 15.0 GB); one
+# prefill row past dense_attn_max (8192); the other dense / vlm configs at
+# reduce_config width
+LM_SERVE = (("qwen3-1.7b", 4, 128, 32), ("minitron-4b", 4, 32, 16))
+LM_DECODE_BATCH, LM_DECODE_STEPS = 4, 8
+LM_BLOCKWISE_SEQ = 9216
+LM_REDUCED = ("granite-8b", "qwen2-72b", "llava-next-mistral-7b")
+# Float32 against float32 (TF32 off) differs only in summation order: 1e-4
+# of max|logit|. bf16 against float32, or against bf16 summed in another
+# order, at full depth: 5e-2 of max|logit|. The CPU tests measured 0.3-0.9%
+# for XLA's bf16 against PyTorch's at two layers; 28-32 layers compound it.
+LM_F32_TOL, LM_BF16_TOL = 1e-4, 5e-2
 # Peak rates of one H100 SXM. Memory: 3.35 TB/s (NVIDIA data sheet). The
 # votes are 32-bit compare and logic instructions, not FLOPs: the CUDA C++
 # Programming Guide's arithmetic-throughput table gives compute capability
@@ -187,6 +228,7 @@ TASK_STEPS = 3
 # logic rate is 67e12 / 4 (132 SMs x 64 x 1.98 GHz).
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_LOGIC_OPS_PER_S = 67e12 / 4
+PEAK_BF16_FLOPS_PER_S = 989e12      # dense bf16 tensor-core rate (data sheet)
 
 
 def require(cond, msg: str) -> None:
@@ -1625,6 +1667,356 @@ def phase9(cfg, state, inc, trained, gen, dev, card) -> dict:
     return counts.total
 
 
+# ---------------------------------------------------------------------------
+# Phase 10: LM serving (dense and vlm families)
+# ---------------------------------------------------------------------------
+
+
+@contextlib.contextmanager
+def lm_compute_dtype(dtype):
+    """Run the port's LM in ``dtype`` (the module constant both packages'
+    tests patch), restoring bf16 after."""
+    from repro_torch.models import transformer
+    old, transformer.COMPUTE_DTYPE = transformer.COMPUTE_DTYPE, dtype
+    try:
+        yield
+    finally:
+        transformer.COMPUTE_DTYPE = old
+
+
+def lm_compare(got, want, tol: float, what: str) -> tuple[float, int]:
+    """Require max |got - want| <= tol · max |want| and equal argmax in every
+    row whose top-2 margin exceeds 2 · tol · max |want|. Returns the
+    relative error and the number of rows whose argmax was held."""
+    got, want = got.double(), want.double()
+    require(bool(torch.isfinite(got).all()), f"{what}: non-finite values")
+    scale = float(want.abs().max())
+    rel = float((got - want).abs().max()) / scale
+    require(rel <= tol, f"{what}: max|diff| {rel:.3e} of max|ref| {scale:.3f} "
+            f"> {tol}")
+    top2 = want.topk(2, dim=-1).values
+    sure = (top2[..., 0] - top2[..., 1]) > 2 * tol * scale
+    require(torch.equal(got.argmax(-1)[sure], want.argmax(-1)[sure]),
+            f"{what}: greedy tokens differ where the margin exceeds 2 x tol")
+    return rel, int(sure.sum())
+
+
+def synced_ms(fn):
+    """(result, wall ms) of ``fn()`` between two device synchronisations."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def lm_profile(fn, what: str, card) -> dict:
+    """One call of ``fn`` under ``torch.profiler``: wall ms, the device's busy
+    ms (kernel-level events), how many device events, the top ops."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        _, wall = synced_ms(fn)
+
+    def dev_ms(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0)) / 1e3
+
+    events = prof.key_averages()
+    on_device = [e for e in events
+                 if str(getattr(e, "device_type", "")).endswith("CUDA")]
+    busy = sum(dev_ms(e) for e in on_device)
+    n_dev = sum(e.count for e in on_device)
+    if busy == 0:
+        print(f"profile {what}: the profiler recorded no device time (not measured)")
+        return {"wall_ms": wall, "device_busy_ms": None, "device_events": n_dev}
+    ops = sorted((e for e in events if e.key.startswith("aten::")),
+                 key=dev_ms, reverse=True)[:5]
+    print(f"profile {what}: wall {wall:.3f} ms under the profiler, device "
+          f"busy {busy:.3f} ms ({100 * busy / wall:.1f}%) in {n_dev} device "
+          f"events; device ms by op: "
+          + ", ".join(f"{e.key} {dev_ms(e):.3f}/{e.count} calls" for e in ops)
+          + f" [{card}]")
+    return {"wall_ms": wall, "device_busy_ms": busy, "device_events": n_dev}
+
+
+def lm_work(cfg, params, batch: int, seq: int, cache_tokens: int) -> dict:
+    """Least time (ms) of a prefill of ``batch`` x ``seq`` tokens and of one
+    decode step over ``cache_tokens`` cached tokens per row: each weight
+    read once (the embedding as rows gathered, unless tied, when the
+    unembedding reads it whole), each cached K/V read once; matrix-product
+    FLOPs at the bf16 tensor rate (the causal half of the attention scores
+    and values; logits at the last position only)."""
+    w_bytes = sum(p.numel() * p.element_size() for p in params.parameters())
+    table = cfg.vocab * cfg.d_model
+    n_params = sum(p.numel() for p in params.parameters())
+    body = n_params - table * (1 if cfg.tie_embeddings else 2)
+    read = w_bytes - (0 if cfg.tie_embeddings else table * 2)
+    hd = cfg.head_dim_
+    attn = 2 * 2 * batch * cfg.n_heads * hd * seq * (seq + 1) / 2 * cfg.n_layers
+    prefill_flops = 2 * body * batch * seq + 2 * table * batch + attn
+    kv_bytes = 2 * batch * cfg.n_kv_heads * hd * 2 * cache_tokens * cfg.n_layers
+    decode_flops = (2 * (body + table) * batch
+                    + 4 * batch * cfg.n_heads * hd * cache_tokens * cfg.n_layers)
+    t = lambda nbytes, flops: max(nbytes / PEAK_BYTES_PER_S,
+                                  flops / PEAK_BF16_FLOPS_PER_S) * 1e3
+    return {"prefill_bound_ms": t(read, prefill_flops),
+            "prefill_bound_by": ("bytes" if read / PEAK_BYTES_PER_S
+                                 >= prefill_flops / PEAK_BF16_FLOPS_PER_S
+                                 else "operations"),
+            "decode_bound_ms": t(read + kv_bytes, decode_flops),
+            "weight_bytes_read": read, "kv_bytes": kv_bytes}
+
+
+def lm_serve(arch: str, batch: int, prompt: int, gen: int, dev, card) -> dict:
+    """Phase 10 (a), (b): ``launch.serve.main`` at full width; then, on the
+    same weights and prompts, the bf16 prefill against a float32 one and
+    against ``prompt`` single decode steps from an empty cache."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models.model import build
+
+    argv = ["--arch", arch, "--batch", str(batch), "--prompt-len", str(prompt),
+            "--gen", str(gen)]
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated()
+    first = serve.main(argv)     # pays cuBLAS's first use of these shapes
+    res = serve.main(argv)
+    require(np.array_equal(first["generations"], res["generations"]),
+            f"{arch}: two serve runs generated different tokens")
+    cfg = get_config(arch)
+    m = build(cfg)
+    prompts = serve.make_prompts(cfg, batch, prompt, dev)
+    params = m.init(torch.Generator(device=dev).manual_seed(serve.SEED))
+    with lm_compute_dtype(torch.float32):
+        l32, _ = m.prefill(params, prompt + gen, tokens=prompts)
+    params = params.to(torch.bfloat16)
+    l16, _ = m.prefill(params, prompt + gen, tokens=prompts)
+    require(np.array_equal(l16.argmax(-1).cpu().numpy(), res["generations"][:, 0]),
+            f"{arch}: the serve CLI's first token is not this prefill's")
+    rel32, rows32 = lm_compare(l16, l32, LM_BF16_TOL, f"{arch} bf16 vs float32")
+    cache = m.init_cache(batch, prompt + gen)
+    for i in range(prompt):
+        pos = torch.full((batch,), i, dtype=torch.int32, device=dev)
+        logits, cache = m.decode_step(params, prompts[:, i:i + 1], cache, pos)
+    rel_dec, rows_dec = lm_compare(logits, l16, LM_BF16_TOL,
+                                   f"{arch} {prompt} decode steps vs prefill")
+    pos = torch.full((batch,), prompt, dtype=torch.int32, device=dev)
+    tok = logits.argmax(-1)[:, None].to(torch.int32)
+    prof = {"decode_profile": lm_profile(
+        lambda: m.decode_step(params, tok, cache, pos),
+        f"{arch} decode step B={batch}", card),
+        "prefill_profile": lm_profile(
+        lambda: m.prefill(params, prompt + gen, tokens=prompts),
+        f"{arch} prefill B={batch} S={prompt}", card)}
+    out = {k: res[k] for k in ("batch", "prompt_len", "gen", "param_count",
+                               "param_bytes", "prefill_ms", "prefill_tok_s",
+                               "decode_ms_per_step", "decode_tok_s")}
+    out.update(lm_work(cfg, params, batch, prompt, prompt + gen // 2))
+    out.update(peak_gb_above_resident=(res["peak_bytes"] - resident) / 1e9,
+               first_prefill_ms=first["prefill_ms"],
+               first_decode_ms_per_step=first["decode_ms_per_step"],
+               bf16_vs_f32_rel=rel32, bf16_vs_f32_rows=rows32,
+               decode_vs_prefill_rel=rel_dec, decode_vs_prefill_rows=rows_dec,
+               **prof)
+    print(f"lm serve {arch} (full width, {res['param_count']} params, "
+          f"{res['param_bytes'] / 1e9:.3f} GB bf16) B={batch} prompt={prompt} "
+          f"gen={gen}: prefill {res['prefill_ms']:.3f} ms ({res['prefill_tok_s']:.0f} "
+          f"tok/s; bound {out['prefill_bound_ms']:.3f} ms, {out['prefill_bound_by']}),"
+          f" decode {res['decode_ms_per_step']:.3f} ms/step ({res['decode_tok_s']:.0f} "
+          f"tok/s; bound {out['decode_bound_ms']:.3f} ms); first run "
+          f"{first['prefill_ms']:.3f} / {first['decode_ms_per_step']:.3f}; peak "
+          f"{out['peak_gb_above_resident']:.3f} GB above resident; bf16 vs "
+          f"float32 prefill {rel32:.3e} of max|logit| ({rows32} of {batch} "
+          f"argmax held), {prompt} decode steps vs prefill {rel_dec:.3e} "
+          f"({rows_dec} held), tolerance {LM_BF16_TOL} [{card}]")
+    return out
+
+
+def lm_decode_32k(dev, card) -> dict:
+    """Phase 10 (c): qwen3-1.7b decode steps against a cache of decode_32k's
+    length (B cut from 128 to fit), filled from the generator."""
+    from repro_torch.configs import get_config, get_shape
+    from repro_torch.launch import serve
+    from repro_torch.models import attention
+    from repro_torch.models.model import build
+
+    cfg = get_config("qwen3-1.7b")
+    clen = get_shape("decode_32k").seq_len
+    m = build(cfg)
+    params = serve.init_bf16(m, dev)
+    cache = m.init_cache(LM_DECODE_BATCH, clen)
+    layer = cache["layers"]["b0_attn_mlp"]
+    filled = clen - LM_DECODE_STEPS - 2
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    for j in range(cfg.n_layers):
+        layer["k"][j, :, :, :filled].normal_(generator=gen)
+        layer["v"][j, :, :, :filled].normal_(generator=gen)
+    layer["pos"][:, :, :filled] = torch.arange(filled, dtype=torch.int32,
+                                               device=dev)
+    cache_gb = sum(t.numel() * t.element_size() for t in layer.values()) / 1e9
+    # the two bf16 products accumulate in float32 without an upcast of the
+    # cache (bmm's out_dtype): layer 0's against the upcast operands
+    g = cfg.n_heads // cfg.n_kv_heads
+    qg = torch.randn(LM_DECODE_BATCH, cfg.n_kv_heads, g, cfg.head_dim_,
+                     generator=gen, device=dev, dtype=torch.bfloat16)
+    k0, v0 = layer["k"][0], layer["v"][0]
+    s16 = attention._dot_f32(qg, k0.transpose(-1, -2))
+    s32 = torch.matmul(qg.float(), k0.float().transpose(-1, -2))
+    p16 = torch.softmax(s32, dim=-1).to(torch.bfloat16)
+    a16 = attention._dot_f32(p16, v0)
+    a32 = torch.matmul(p16.float(), v0.float())
+    rel_dot = max(float((x - y).abs().max() / y.abs().max())
+                  for x, y in ((s16, s32), (a16, a32)))
+    require(s16.dtype == a16.dtype == torch.float32 and rel_dot <= LM_F32_TOL,
+            f"decode_32k: out_dtype products differ from the upcast form by "
+            f"{rel_dot:.3e}")
+    del s16, s32, p16, a16, a32
+    tok = torch.from_numpy(np.random.default_rng(SEED).integers(
+        0, cfg.vocab, (LM_DECODE_BATCH, 1))).to(dev)
+    times = []
+    for i in range(LM_DECODE_STEPS + 2):
+        pos = torch.full((LM_DECODE_BATCH,), filled + i, dtype=torch.int32,
+                         device=dev)
+        (logits, cache), ms = synced_ms(lambda: m.decode_step(params, tok, cache,
+                                                              pos))
+        require(bool(torch.isfinite(logits).all()), "decode_32k: non-finite logits")
+        tok = logits.argmax(-1)[:, None]
+        times.append(ms)
+    steady = times[2:]
+    step_prof = lm_profile(lambda: m.decode_step(params, tok, cache, pos),
+                           f"decode_32k step B={LM_DECODE_BATCH}", card)
+    out = {"batch": LM_DECODE_BATCH, "cache_len": clen, "cache_gb": cache_gb,
+           "ms_per_step": float(np.median(steady)),
+           "ms_per_step_all": steady, "out_dtype_vs_upcast_rel": rel_dot,
+           "decode_profile": step_prof}
+    work = lm_work(cfg, params, LM_DECODE_BATCH, 1, filled + LM_DECODE_STEPS)
+    out.update(bound_ms=work["decode_bound_ms"], kv_bytes=work["kv_bytes"])
+    print(f"lm decode_32k qwen3-1.7b B={LM_DECODE_BATCH} (cut from 128) cache "
+          f"{clen} ({cache_gb:.3f} GB, {filled} slots filled from the "
+          f"generator): {out['ms_per_step']:.3f} ms/step (median of "
+          f"{len(steady)}: {', '.join(f'{t:.3f}' for t in steady)}; bound "
+          f"{out['bound_ms']:.3f} ms, bytes); out_dtype products vs upcast "
+          f"{rel_dot:.3e} [{card}]")
+    del cache, layer, params
+    return out
+
+
+def lm_blockwise(dev, card) -> dict:
+    """Phase 10 (d): qwen3-1.7b prefill of one row of LM_BLOCKWISE_SEQ tokens
+    through the blockwise path (above dense_attn_max) and the dense one."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models.model import build
+
+    cfg = get_config("qwen3-1.7b")
+    require(LM_BLOCKWISE_SEQ > cfg.dense_attn_max, "the blockwise path is not taken")
+    dense_cfg = dataclasses.replace(cfg, dense_attn_max=LM_BLOCKWISE_SEQ)
+    params = serve.init_bf16(build(cfg), dev)
+    tokens = torch.from_numpy(np.random.default_rng(SEED + 1).integers(
+        0, cfg.vocab, (1, LM_BLOCKWISE_SEQ))).to(dev)
+    res = {}
+    for name, c in (("blockwise", cfg), ("dense", dense_cfg)):
+        m = build(c)
+        m.prefill(params, LM_BLOCKWISE_SEQ, tokens=tokens[:, :256])   # warm
+        torch.cuda.reset_peak_memory_stats()
+        resident = torch.cuda.memory_allocated()
+        res[name], ms = synced_ms(lambda: m.prefill(params, LM_BLOCKWISE_SEQ,
+                                                    tokens=tokens))
+        res[name + "_ms"] = ms
+        res[name + "_peak_gb"] = (torch.cuda.max_memory_allocated() - resident) / 1e9
+    (lb, cb), (ld, cd) = res["blockwise"], res["dense"]
+    rel, rows = lm_compare(lb, ld, LM_BF16_TOL, "blockwise vs dense prefill")
+    kb, kd = cb["layers"]["b0_attn_mlp"], cd["layers"]["b0_attn_mlp"]
+    require(torch.equal(kb["pos"], kd["pos"]), "blockwise vs dense: cache positions")
+    rel_kv = max(float((kb[n].float() - kd[n].float()).abs().max()
+                       / kd[n].float().abs().max()) for n in ("k", "v"))
+    require(rel_kv <= LM_BF16_TOL, f"blockwise vs dense caches: {rel_kv:.3e}")
+    work = lm_work(cfg, params, 1, LM_BLOCKWISE_SEQ, LM_BLOCKWISE_SEQ)
+    out = {"seq": LM_BLOCKWISE_SEQ, "kv_block": cfg.kv_block,
+           "logits_rel": rel, "cache_rel": rel_kv,
+           "blockwise_ms": res["blockwise_ms"], "dense_ms": res["dense_ms"],
+           "blockwise_peak_gb": res["blockwise_peak_gb"],
+           "dense_peak_gb": res["dense_peak_gb"],
+           "bound_ms": work["prefill_bound_ms"], "bound_by": work["prefill_bound_by"]}
+    print(f"lm blockwise vs dense prefill qwen3-1.7b B=1 S={LM_BLOCKWISE_SEQ} "
+          f"(kv_block {cfg.kv_block}): logits {rel:.3e} of max|logit| ({rows} "
+          f"argmax held), caches {rel_kv:.3e}, tolerance {LM_BF16_TOL}; "
+          f"blockwise {res['blockwise_ms']:.3f} ms (peak "
+          f"{res['blockwise_peak_gb']:.3f} GB above resident), dense "
+          f"{res['dense_ms']:.3f} ms (peak {res['dense_peak_gb']:.3f} GB); "
+          f"bound {out['bound_ms']:.3f} ms ({out['bound_by']}) [{card}]")
+    return out
+
+
+def lm_reduced(dev, card) -> dict:
+    """Phase 10 (e): the other dense and vlm configs at reduce_config width:
+    float32 on the card against float32 on the CPU (same weights), prefill
+    then one decode step against a longer prefill, and bf16 on the card
+    against float32."""
+    from repro_torch.configs import get_config, reduce_config
+    from repro_torch.models.model import build
+
+    out = {}
+    for arch in LM_REDUCED:
+        cfg = reduce_config(get_config(arch))
+        m = build(cfg)
+        cpu_params = m.init(torch.Generator().manual_seed(SEED))
+        params = copy.deepcopy(cpu_params).to(dev)
+        rng = np.random.default_rng(SEED)
+        tokens = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 9)))
+        extra, n_vis = {}, 0
+        if cfg.family == "vlm":
+            n_vis = cfg.n_vision_tokens
+            extra["vision_embeds"] = torch.from_numpy(
+                rng.normal(size=(2, n_vis, cfg.d_model)).astype(np.float32))
+        card_extra = {k: v.to(dev) for k, v in extra.items()}
+        with lm_compute_dtype(torch.float32):
+            host, _ = m.prefill(cpu_params, 16, tokens=tokens, **extra)
+            full, _ = m.prefill(params, 16, tokens=tokens.to(dev), **card_extra)
+            part, cache = m.prefill(params, 16, tokens=tokens[:, :8].to(dev),
+                                    **card_extra)
+            pos = torch.full((2,), n_vis + 8, dtype=torch.int32, device=dev)
+            step, _ = m.decode_step(params, tokens[:, 8:].to(dev), cache, pos)
+        r_host, _ = lm_compare(full.cpu(), host, LM_F32_TOL, f"{arch} card vs CPU")
+        r_step, _ = lm_compare(step, full, LM_F32_TOL, f"{arch} prefill+decode")
+        l16, _ = m.prefill(params.to(torch.bfloat16), 16, tokens=tokens.to(dev),
+                           **card_extra)
+        r16, _ = lm_compare(l16, full, LM_BF16_TOL, f"{arch} bf16 vs float32")
+        out[arch] = {"card_vs_cpu_f32_rel": r_host, "decode_vs_prefill_f32_rel":
+                     r_step, "bf16_vs_f32_rel": r16}
+        print(f"lm {arch} (reduced{', vision prefix' if n_vis else ''}): card "
+              f"vs CPU float32 {r_host:.3e}, prefill+decode vs prefill "
+              f"{r_step:.3e} (tolerance {LM_F32_TOL}); bf16 vs float32 "
+              f"{r16:.3e} (tolerance {LM_BF16_TOL}) [{card}]")
+    return out
+
+
+def phase10(dev, card) -> dict:
+    """Phase 10: LM serving. Returns the ``lm`` record."""
+    torch.cuda.empty_cache()
+    counts = Counts()
+    counts.reset()
+    lm = {}
+    for arch, batch, prompt, gen in LM_SERVE:
+        lm[arch] = lm_serve(arch, batch, prompt, gen, dev, card)
+        torch.cuda.empty_cache()
+    lm["decode_32k"] = lm_decode_32k(dev, card)
+    torch.cuda.empty_cache()
+    lm["blockwise_vs_dense"] = lm_blockwise(dev, card)
+    torch.cuda.empty_cache()
+    lm["reduced"] = lm_reduced(dev, card)
+    launched = counts.read()
+    require(not any(launched.values()),
+            f"the LM path launched a TM kernel: {launched}")
+    lm["tm_kernel_launches"] = launched
+    print(f"phase 10 launches: {launched} (the LM path reaches no Pallas "
+          f"kernel of the reference, so none of the four)")
+    return lm
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU",
@@ -1764,6 +2156,11 @@ def main() -> int:
     phase9_launches = phase9(cfg, state, inc, trained, gen, dev, card)
     print(f"phase 9: {time.perf_counter() - t0:.1f} s wall")
 
+    # -- 10. LM serving --------------------------------------------------------
+    t0 = time.perf_counter()
+    lm = phase10(dev, card)
+    print(f"phase 10: {time.perf_counter() - t0:.1f} s wall")
+
     # -- 6. report ----------------------------------------------------------
     top = BATCHES[-1]
 
@@ -1812,6 +2209,7 @@ def main() -> int:
                         "phase8_launches": counts.total[kname],
                         "phase9_launches": phase9_launches[kname],
                         "tm_imdb": imdb_row(key)})
+    print(json.dumps({"lm": lm}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

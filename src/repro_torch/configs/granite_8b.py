@@ -1,0 +1,11 @@
+"""granite-8b [dense]: llama-arch code model (arXiv:2405.04324).
+
+36L, d_model 4096, 32 heads (GQA kv=8), d_ff 14336, vocab 49152.
+"""
+from repro_torch.configs.base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="granite-8b", family="dense",
+    n_layers=36, d_model=4096, n_heads=32, n_kv_heads=8, d_ff=14336,
+    vocab=49152, head_dim=128, rope_theta=1e4, tie_embeddings=True,
+)

@@ -11,6 +11,13 @@ schema-v1 checkpoint written by either package. Randomness crosses through
 :func:`draws_from_reference`: the reference's draws for a batch, as numpy
 arrays, become the port's ``SampleDraws``, so both packages can train on
 identical uniforms.
+
+LM weights cross with :func:`lm_params_from_reference`: the reference's
+param pytree, as nested dicts of numpy arrays, becomes the port's ``LM``
+module::
+
+    params_np = jax.tree.map(np.asarray, jax_model.init(jax.random.key(0)))
+    params = lm_params_from_reference(cfg, params_np, "cuda")
 """
 from __future__ import annotations
 
@@ -21,6 +28,7 @@ import torch
 
 from repro_torch.core.tm import FeedbackRands, SampleDraws
 from repro_torch.core.types import TMConfig, TMState, resolve_device
+from repro_torch.models.transformer import LM
 
 
 def config_from_reference(jax_cfg_fields: dict) -> TMConfig:
@@ -75,3 +83,62 @@ def draws_from_reference(neg_raw, target_gate, target_type_i, other_gate,
                              t(target_type_i, torch.float32)),
         other=FeedbackRands(t(other_gate, torch.float32),
                             t(other_type_i, torch.float32)))
+
+
+def _lm_leaves(tree: dict, prefix: tuple = ()):
+    """(path, array) for every leaf of a nested dict."""
+    for key, val in tree.items():
+        if isinstance(val, dict):
+            yield from _lm_leaves(val, prefix + (key,))
+        else:
+            yield prefix + (key,), val
+
+
+def _lm_target(path: tuple) -> tuple[str, bool]:
+    """The port's parameter name for a reference leaf path (layer index
+    excluded) and whether its 2-D array is transposed: the reference keeps
+    a dense layer as ``(in, out)``, ``nn.Linear`` as ``(out, in)``."""
+    *head, last = path
+    if last.endswith("_bias"):                   # attn wq_bias → attn.wq.bias
+        return ".".join((*head, last[:-len("_bias")], "bias")), False
+    if last.startswith("w") or last == "lm_head":  # wq, w_up, lm_head
+        return ".".join((*head, last, "weight")), True
+    return ".".join(path), False
+
+
+@torch.no_grad()
+def lm_params_from_reference(cfg, params_np: dict, device) -> LM:
+    """The port's float32 ``LM`` on ``device`` holding the reference's
+    weights (``cfg`` is the port's ``ModelConfig``).
+
+    ``params_np`` is the reference's tree as nested dicts of arrays: layers
+    stacked ``(L, …)`` under ``layers/b0_attn_mlp``, ``embed/tokens``,
+    ``final_norm`` and, untied, ``lm_head``. Any float dtype is taken
+    through float32 (exact for bf16); cast the result with ``.to`` for
+    bf16 serving. Every leaf lands in exactly one parameter and every
+    parameter is filled, or this raises ``ValueError``.
+    """
+    dev = resolve_device(device)
+    params = LM(cfg, dev)
+    left = dict(params.named_parameters())
+    for path, arr in _lm_leaves(params_np):
+        arr = np.array(arr, dtype=np.float32)    # a writable copy
+        if path[0] == "layers":                  # ("layers", key, …) stacked
+            name, transpose = _lm_target(path[2:])
+            targets = [(f"layers.{j}.{path[1]}.{name}", arr[j])
+                       for j in range(arr.shape[0])]
+        else:
+            name, transpose = _lm_target(path)
+            targets = [(name, arr)]
+        for name, a in targets:
+            if name not in left:
+                raise ValueError(f"reference leaf {'/'.join(path)} has no "
+                                 f"port parameter {name!r} (or fills it twice)")
+            t = torch.from_numpy(np.ascontiguousarray(a.T if transpose else a))
+            if t.shape != left[name].shape:
+                raise ValueError(f"{'/'.join(path)} → {name}: shape "
+                                 f"{tuple(t.shape)} != {tuple(left[name].shape)}")
+            left.pop(name).copy_(t)
+    if left:
+        raise ValueError(f"port parameters with no reference leaf: {sorted(left)}")
+    return params

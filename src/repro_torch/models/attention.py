@@ -1,0 +1,276 @@
+"""Attention: GQA with rope / qk-norm / bias, causal and sliding-window
+masks, dense and blockwise (flash-style) paths, and KV caches. The port's
+``repro.models.attention`` on one device.
+
+Cache layout (per layer): ``{"k": (B, Hkv, S, Dh), "v": same, "pos": (B, S)}``.
+``pos`` is the absolute position stored in each slot (-1 = empty). Sliding
+windows use rolling-buffer caches of size ``min(window, seq)``. K is stored
+post-rope.
+
+The arithmetic mirrors the reference's: einsum products in the compute
+dtype, scores masked with ``NEG_INF`` and softmaxed in float32, the weights
+cast back to the compute dtype. ``decode_attend`` writes the new token into
+the cache it is given, in place, and returns that same cache. The
+reference's mesh branch of ``decode_attend`` (a shard_map over a
+seq-sharded cache) comes with the sharded LM path.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from repro_torch.models.common import (
+    RMSNorm,
+    apply_rope,
+    empty_linear,
+    init_linear_,
+    rmsnorm,
+)
+
+NEG_INF = -2.0 ** 30  # large-but-finite: keeps masked softmax NaN-free
+
+
+class Attention(nn.Module):
+    """``wq``, ``wk``, ``wv`` (with biases when ``qkv_bias``), ``wo``, and
+    per-head ``q_norm`` / ``k_norm`` when ``qk_norm``."""
+
+    def __init__(self, d_model: int, n_heads: int, n_kv_heads: int,
+                 head_dim: int, *, qkv_bias: bool = False,
+                 qk_norm: bool = False, device=None):
+        super().__init__()
+        self.wq = empty_linear(d_model, n_heads * head_dim, bias=qkv_bias,
+                               device=device)
+        self.wk = empty_linear(d_model, n_kv_heads * head_dim, bias=qkv_bias,
+                               device=device)
+        self.wv = empty_linear(d_model, n_kv_heads * head_dim, bias=qkv_bias,
+                               device=device)
+        self.wo = empty_linear(n_heads * head_dim, d_model, device=device)
+        self.q_norm = RMSNorm(head_dim, device) if qk_norm else None
+        self.k_norm = RMSNorm(head_dim, device) if qk_norm else None
+
+
+def init_attention(gen: torch.Generator, d_model: int, n_heads: int,
+                   n_kv_heads: int, head_dim: int, *, qkv_bias: bool = False,
+                   qk_norm: bool = False) -> Attention:
+    """An ``Attention`` on the generator's device: ``dense_init`` weights,
+    zero biases, unit norm scales."""
+    p = Attention(d_model, n_heads, n_kv_heads, head_dim, qkv_bias=qkv_bias,
+                  qk_norm=qk_norm, device=gen.device)
+    for lin in (p.wq, p.wk, p.wv, p.wo):
+        init_linear_(gen, lin)
+    return p
+
+
+def _proj(lin: nn.Linear, x: torch.Tensor) -> torch.Tensor:
+    bias = None if lin.bias is None else lin.bias.to(x.dtype)
+    return F.linear(x, lin.weight.to(x.dtype), bias)
+
+
+def _project_qkv(p: Attention, x, n_heads, n_kv_heads, head_dim, positions,
+                 theta, use_rope=True):
+    b, s, _ = x.shape
+    q = _proj(p.wq, x).reshape(b, s, n_heads, head_dim)
+    k = _proj(p.wk, x).reshape(b, s, n_kv_heads, head_dim)
+    v = _proj(p.wv, x).reshape(b, s, n_kv_heads, head_dim)
+    if p.q_norm is not None:  # qwen3-style per-head rms norm
+        q = rmsnorm(p.q_norm, q)
+        k = rmsnorm(p.k_norm, k)
+    if use_rope:
+        q = apply_rope(q, positions, theta)
+        k = apply_rope(k, positions, theta)
+    return q, k, v
+
+
+def _mask(q_pos, k_pos, kind, window):
+    """q_pos: (…, Sq), k_pos: (…, Sk) → bool (…, Sq, Sk) allowed."""
+    dq = q_pos[..., :, None]
+    dk = k_pos[..., None, :]
+    ok = dk >= 0
+    if kind == "causal":
+        ok = ok & (dk <= dq)
+        if window is not None:
+            ok = ok & (dk > dq - window)
+    elif kind != "full":
+        raise ValueError(kind)
+    return ok
+
+
+def _repeat_kv(k, g):
+    """(B, S, Hkv, Dh) → (B, S, H, Dh): query head h reads kv head h // g."""
+    if g == 1:
+        return k
+    return k.repeat_interleave(g, dim=2)
+
+
+def _sdpa(q, k, v, mask, scale):
+    """Dense attention. q: (B,Sq,H,Dh), k/v: (B,Sk,Hkv,Dh), mask (B,Sq,Sk)."""
+    g = q.shape[2] // k.shape[2]
+    k = _repeat_kv(k, g)
+    v = _repeat_kv(v, g)
+    scores = torch.einsum("bqhd,bshd->bhqs", q, k) * scale   # (B,H,Sq,Sk)
+    scores = torch.where(mask[:, None], scores.float(), NEG_INF)
+    w = torch.softmax(scores, dim=-1).to(q.dtype)
+    return torch.einsum("bhqs,bshd->bqhd", w, v)
+
+
+def _blockwise_sdpa(q, k, v, q_pos, k_pos, kind, window, scale, kv_block=512):
+    """Flash-style attention: a loop over KV blocks with running (max,
+    denom, acc) in float32, so live memory is O(Sq · kv_block), not O(Sq²)."""
+    b, sq, h, dh = q.shape
+    g = h // k.shape[2]
+    k = _repeat_kv(k, g)
+    v = _repeat_kv(v, g)
+    pad = (-k.shape[1]) % kv_block
+    if pad:
+        k = F.pad(k, (0, 0, 0, 0, 0, pad))
+        v = F.pad(v, (0, 0, 0, 0, 0, pad))
+        k_pos = F.pad(k_pos, (0, pad), value=-1)
+
+    acc = torch.zeros((b, sq, h, dh), dtype=torch.float32, device=q.device)
+    m = torch.full((b, h, sq), NEG_INF, dtype=torch.float32, device=q.device)
+    l = torch.zeros((b, h, sq), dtype=torch.float32, device=q.device)
+    for start in range(0, k.shape[1], kv_block):
+        kc = k[:, start:start + kv_block]
+        vc = v[:, start:start + kv_block]
+        pc = k_pos[:, start:start + kv_block]
+        s = torch.einsum("bqhd,bshd->bhqs", q, kc).float() * scale
+        ok = _mask(q_pos, pc, kind, window)               # (B, Sq, blk)
+        s = torch.where(ok[:, None], s, NEG_INF)
+        m_new = torch.maximum(m, s.amax(-1))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(s - m_new[..., None])
+        l = l * alpha + p.sum(-1)
+        acc = acc * alpha.transpose(1, 2)[..., None] + torch.einsum(
+            "bhqs,bshd->bqhd", p.to(q.dtype), vc).float()
+        m = m_new
+    out = acc / torch.clamp(l, min=1e-30).transpose(1, 2)[..., None]
+    return out.to(q.dtype)
+
+
+def _broadcast_positions(positions, shape):
+    """(S,) or (B, S) positions → (B, S)."""
+    return (positions if positions.ndim == 2 else positions[None]).expand(shape)
+
+
+def attend(p: Attention, x, positions, *, n_heads, n_kv_heads, head_dim,
+           rope_theta, kind="causal", window=None, use_rope=True,
+           dense_max_seq=8192, kv_block=512):
+    """Full-sequence attention (training / prefill). x: (B, S, D) →
+    (y (B, S, D), (k, v) each (B, S, Hkv, Dh))."""
+    q, k, v = _project_qkv(p, x, n_heads, n_kv_heads, head_dim, positions,
+                           rope_theta, use_rope)
+    scale = head_dim ** -0.5
+    pos2 = _broadcast_positions(positions, x.shape[:2])
+    if x.shape[1] <= dense_max_seq:
+        out = _sdpa(q, k, v, _mask(pos2, pos2, kind, window), scale)
+    else:
+        out = _blockwise_sdpa(q, k, v, pos2, pos2, kind, window, scale,
+                              kv_block)
+    out = out.reshape(*x.shape[:2], n_heads * head_dim)
+    return F.linear(out, p.wo.weight.to(x.dtype)), (k, v)
+
+
+# ---------------------------------------------------------------------------
+# KV caches
+# ---------------------------------------------------------------------------
+
+
+def init_cache(batch, cache_len, n_kv_heads, head_dim, dtype=torch.bfloat16,
+               device=None):
+    """An empty decode cache, layout (B, Hkv, S, Dh): the decode products
+    read it without a transpose."""
+    return {
+        "k": torch.zeros((batch, n_kv_heads, cache_len, head_dim), dtype=dtype,
+                         device=device),
+        "v": torch.zeros((batch, n_kv_heads, cache_len, head_dim), dtype=dtype,
+                         device=device),
+        "pos": torch.full((batch, cache_len), -1, dtype=torch.int32,
+                          device=device),
+    }
+
+
+def cache_from_prefill(k, v, positions, cache_len):
+    """Keep the trailing ``cache_len`` positions (rolling buffer for SWA).
+    k, v: (B, S, Hkv, Dh) from the prefill pass → (B, Hkv, S', Dh) cache."""
+    s = k.shape[1]
+    kt = k.transpose(1, 2)                                # (B, Hkv, S, Dh)
+    vt = v.transpose(1, 2)
+    pos2 = _broadcast_positions(positions, k.shape[:2]).to(torch.int32)
+    if s <= cache_len:
+        pad = cache_len - s
+        return {"k": F.pad(kt, (0, 0, 0, pad)), "v": F.pad(vt, (0, 0, 0, pad)),
+                "pos": F.pad(pos2, (0, pad), value=-1)}
+    # rolling placement: absolute position t lives in slot t % cache_len
+    keep = torch.arange(s - cache_len, s, device=k.device)
+    slots = keep % cache_len
+    out = init_cache(k.shape[0], cache_len, k.shape[2], k.shape[3], k.dtype,
+                     k.device)
+    out["k"][:, :, slots] = kt[:, :, keep]
+    out["v"][:, :, slots] = vt[:, :, keep]
+    out["pos"][:, slots] = pos2[:, keep]
+    return out
+
+
+def _dot_f32(a, b):
+    """Batched ``a @ b`` accumulated and returned in float32, like the
+    reference's ``preferred_element_type=float32``. On the card two bf16
+    operands go to ``bmm(..., out_dtype=float32)``, so the cache is never
+    upcast (a float32 copy of a layer's cache is 1 GB at B=4, 32k); the
+    CPU has no such kernel, so there both operands are upcast, which is the
+    same function."""
+    if a.is_cuda and a.dtype == b.dtype == torch.bfloat16:
+        lead = a.shape[:-2]
+        out = torch.bmm(a.reshape(-1, *a.shape[-2:]),
+                        b.reshape(-1, *b.shape[-2:]), out_dtype=torch.float32)
+        return out.reshape(*lead, *out.shape[-2:])
+    return torch.matmul(a.float(), b.float())
+
+
+def _decode_attend_local(q, cache_k, cache_v, cache_pos, pos, scale):
+    """Single-token attention against a cache; returns the un-normalised
+    flash-decode partials (acc, m, l).
+
+    q: (B, H, Dh); cache: (B, Hkv, S, Dh); pos: (B,) current position.
+    """
+    b, h, dh = q.shape
+    hkv = cache_k.shape[1]
+    qg = q.reshape(b, hkv, h // hkv, dh)
+    s = _dot_f32(qg, cache_k.transpose(-1, -2)) * scale  # (B, Hkv, G, S)
+    ok = (cache_pos >= 0) & (cache_pos <= pos[:, None])   # (B, S)
+    s = torch.where(ok[:, None, None], s, NEG_INF)
+    m = s.amax(-1)                                        # (B, Hkv, G)
+    p = torch.exp(s - m[..., None])
+    l = p.sum(-1)
+    acc = _dot_f32(p.to(cache_v.dtype), cache_v)          # (B, Hkv, G, Dh)
+    return acc, m, l
+
+
+def decode_attend(p: Attention, x, cache, pos, *, n_heads, n_kv_heads,
+                  head_dim, rope_theta, window, use_rope=True):
+    """One-token decode: x (B, 1, D); pos (B,) or (B, 1) absolute positions.
+
+    Writes the token's K/V and position into slot ``pos % cache_len`` of
+    ``cache`` in place, attends over the slots the position (and window)
+    allows, and returns ``(y (B, 1, D), cache)``."""
+    b = x.shape[0]
+    positions = pos[:, None] if pos.ndim == 1 else pos
+    q, k_new, v_new = _project_qkv(p, x, n_heads, n_kv_heads, head_dim,
+                                   positions, rope_theta, use_rope)
+    q = q[:, 0]                                           # (B, H, Dh)
+    cache_len = cache["k"].shape[2]                       # (B, Hkv, S, Dh)
+    pos_b = positions[:, 0]
+    slot = (pos_b % cache_len).long()
+    bidx = torch.arange(b, device=x.device)
+    # (B, Hkv, Dh) into (B, Hkv, S, Dh) at [b, :, slot[b]]
+    cache["k"][bidx, :, slot] = k_new[:, 0].to(cache["k"].dtype)
+    cache["v"][bidx, :, slot] = v_new[:, 0].to(cache["v"].dtype)
+    cache["pos"][bidx, slot] = pos_b.to(torch.int32)
+    cpos = cache["pos"]
+    if window is not None:
+        cpos = torch.where(cpos > (pos_b[:, None] - window), cpos, -1)
+    acc, m, l = _decode_attend_local(q, cache["k"], cache["v"], cpos, pos_b,
+                                     head_dim ** -0.5)
+    out = acc / torch.clamp(l, min=1e-30)[..., None]
+    out = out.reshape(b, 1, n_heads * head_dim).to(x.dtype)
+    return F.linear(out, p.wo.weight.to(x.dtype)), cache

@@ -1,0 +1,129 @@
+"""Uniform model facade (the port's ``repro.models.model``).
+
+  build(cfg)  → Model with init / apply_train / prefill / decode_step /
+                init_cache
+  input_specs(cfg, shape, …) → zero tensors of a shape cell's inputs
+  cache_specs(cfg, shape, …) → the decode cache's shapes and dtypes
+
+The port runs the dense and vlm families. ``build`` raises
+``NotImplementedError`` for the others, naming the slice that brings them.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, Optional
+
+import torch
+
+from repro_torch.configs.base import ModelConfig, ShapeSpec
+from repro_torch.core.types import resolve_device
+from repro_torch.models import transformer
+
+COMPUTE_DTYPE = torch.bfloat16
+
+
+@dataclasses.dataclass(frozen=True)
+class Model:
+    """One config's functions; ``params`` is the ``LM`` module ``init``
+    returns (or ``convert.lm_params_from_reference`` builds)."""
+
+    cfg: ModelConfig
+    init: Callable          # (generator) -> params (float32, on its device)
+    apply_train: Callable   # (params, **batch) -> (logits, aux)
+    prefill: Callable       # (params, cache_len, **batch) -> (logits, cache)
+    decode_step: Callable   # (params, token, caches, pos) -> (logits, cache)
+    init_cache: Callable    # (batch, cache_len, device="cuda") -> cache
+
+
+def build(cfg: ModelConfig) -> Model:
+    """The facade of ``cfg``; raises ``NotImplementedError`` for a family
+    the port does not run yet."""
+    if cfg.family == "encdec":
+        raise transformer.not_ported("encdec")
+    transformer._plan(cfg)
+
+    def init(generator: torch.Generator):
+        return transformer.init_params(generator, cfg)
+
+    def apply_train(params, *, tokens, vision_embeds=None):
+        return transformer.apply_train(cfg, params, tokens, vision_embeds)
+
+    def prefill_fn(params, cache_len, *, tokens, vision_embeds=None):
+        return transformer.prefill(cfg, params, tokens, cache_len,
+                                   vision_embeds)
+
+    def decode_fn(params, token, caches, pos):
+        return transformer.decode_step(cfg, params, token, caches, pos)
+
+    def init_cache(batch, cache_len, device="cuda"):
+        return transformer.init_cache(cfg, batch, cache_len, device=device)
+
+    return Model(cfg, init, apply_train, prefill_fn, decode_fn, init_cache)
+
+
+# ---------------------------------------------------------------------------
+# Inputs and caches per shape cell
+# ---------------------------------------------------------------------------
+
+
+def input_specs(cfg: ModelConfig, shape: ShapeSpec, *,
+                batch_override: Optional[int] = None,
+                seq_override: Optional[int] = None,
+                device="cuda") -> dict[str, Any]:
+    """Zero tensors of one cell's model inputs on ``device``.
+
+    train/prefill: full-sequence inputs (+labels for train).
+    decode: single token + positions; the cache comes from ``cache_specs``.
+    """
+    dev = resolve_device(device)
+    b = batch_override or shape.global_batch
+    s = seq_override or shape.seq_len
+
+    def arr(shp, dtype):
+        return torch.zeros(shp, dtype=dtype, device=dev)
+
+    if shape.kind in ("train", "prefill"):
+        if cfg.family == "vlm":
+            s_text = s - cfg.n_vision_tokens
+            if s_text <= 0:
+                raise ValueError("shape too small for vision tokens")
+            batch = {
+                "tokens": arr((b, s_text), torch.int32),
+                "vision_embeds": arr((b, cfg.n_vision_tokens, cfg.d_model),
+                                     COMPUTE_DTYPE),
+            }
+        elif cfg.family == "encdec":
+            batch = {
+                "tokens": arr((b, s), torch.int32),
+                "frames": arr((b, cfg.enc_seq, cfg.d_model), COMPUTE_DTYPE),
+            }
+        else:
+            batch = {"tokens": arr((b, s), torch.int32)}
+        if shape.kind == "train":
+            batch["labels"] = arr(
+                (b, s if cfg.family != "vlm" else s - cfg.n_vision_tokens),
+                torch.int32)
+        return batch
+    if shape.kind == "decode":
+        return {"token": arr((b, 1), torch.int32),
+                "pos": arr((b,), torch.int32)}
+    raise ValueError(shape.kind)
+
+
+def effective_cache_len(cfg: ModelConfig, shape: ShapeSpec) -> int:
+    """Rolling-buffer truncation for windowed archs."""
+    s = shape.seq_len
+    if cfg.family == "hybrid" and cfg.local_window:
+        return min(s, cfg.local_window)
+    if cfg.sliding_window:
+        return min(s, cfg.sliding_window)
+    return s
+
+
+def cache_specs(cfg: ModelConfig, shape: ShapeSpec,
+                batch_override: Optional[int] = None) -> dict:
+    """The decode cache as nested dicts of ``(shape, dtype)``, allocating
+    nothing."""
+    build(cfg)
+    b = batch_override or shape.global_batch
+    return transformer.cache_shapes(cfg, b, effective_cache_len(cfg, shape))

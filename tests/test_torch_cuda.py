@@ -542,3 +542,96 @@ def test_wrappers_equal_the_unpacked_oracles(cuda_device, shape):
             torch.testing.assert_close(
                 got, ref.ta_update_ref(row, lit[0], cout, t1, act, u, **kw),
                 rtol=0, atol=0)
+
+
+# --- the LM serving path (no kernel of its own: float32 card == CPU) --------
+
+LM_ARCHS = ("qwen3-1.7b", "granite-8b", "minitron-4b", "qwen2-72b",
+            "llava-next-mistral-7b")
+
+
+def lm_rel(got, want):
+    """max |got - want| over max |want|, on the CPU in float64."""
+    got, want = got.double().cpu(), want.double().cpu()
+    return float((got - want).abs().max() / want.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", LM_ARCHS)
+def test_lm_card_matches_cpu(cuda_device, arch, monkeypatch):
+    """Float32 (TF32 off) prefill and two decode steps of the same weights
+    on the card and on the CPU agree to 1e-4 of max|logit| (summation
+    order); the card's bf16 prefill is within 5e-2 of its float32 one."""
+    import copy
+
+    from repro_torch.configs import get_config, reduce_config
+    from repro_torch.models import transformer
+    from repro_torch.models.model import build
+
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    monkeypatch.setattr(transformer, "COMPUTE_DTYPE", torch.float32)
+    cfg = reduce_config(get_config(arch))
+    m = build(cfg)
+    host = m.init(torch.Generator().manual_seed(0))
+    card = copy.deepcopy(host).to(cuda_device)
+    rng = np.random.default_rng(0)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 8)))
+    extra, n_vis = {}, 0
+    if cfg.family == "vlm":
+        n_vis = cfg.n_vision_tokens
+        extra["vision_embeds"] = torch.from_numpy(
+            rng.normal(size=(2, n_vis, cfg.d_model)).astype(np.float32))
+    outs, fed = [], None
+    for params, dev in ((host, torch.device("cpu")), (card, cuda_device)):
+        kw = {k: v.to(dev) for k, v in extra.items()}
+        logits, cache = m.prefill(params, 16, tokens=tokens.to(dev), **kw)
+        steps = [logits]
+        fed = fed or [logits.argmax(-1)[:, None]]     # the CPU's greedy tokens
+        for i in range(2):
+            pos = torch.full((2,), n_vis + 8 + i, dtype=torch.int32, device=dev)
+            logits, cache = m.decode_step(params, fed[i].to(dev), cache, pos)
+            steps.append(logits)
+            if len(fed) < 2:
+                fed.append(logits.argmax(-1)[:, None])
+        outs.append(steps)
+    for got, want in zip(outs[1], outs[0]):
+        assert lm_rel(got, want) <= 1e-4
+    monkeypatch.setattr(transformer, "COMPUTE_DTYPE", torch.bfloat16)
+    kw = {k: v.to(cuda_device) for k, v in extra.items()}
+    l16, _ = m.prefill(card.to(torch.bfloat16), 16, tokens=tokens.to(cuda_device),
+                       **kw)
+    assert lm_rel(l16, outs[1][0]) <= 5e-2
+
+
+@pytest.mark.cuda
+def test_lm_decode_products_accumulate_in_float32(cuda_device):
+    """Two bf16 operands on the card go to bmm(out_dtype=float32): a float32
+    result equal to the upcast product up to summation order."""
+    from repro_torch.models.attention import _dot_f32
+
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    a = torch.randn(4, 8, 2, 128, generator=gen, device=cuda_device,
+                    dtype=torch.bfloat16)
+    k = torch.randn(4, 8, 4096, 128, generator=gen, device=cuda_device,
+                    dtype=torch.bfloat16)
+    got = _dot_f32(a, k.transpose(-1, -2))
+    assert got.dtype == torch.float32 and got.shape == (4, 8, 2, 4096)
+    assert lm_rel(got, torch.matmul(a.float(), k.float().transpose(-1, -2))) <= 1e-5
+    assert lm_rel(got, _dot_f32(a.cpu(), k.cpu().transpose(-1, -2))) <= 1e-5
+
+
+@pytest.mark.cuda
+def test_lm_serve_main_on_card(cuda_device):
+    from repro_torch.configs import get_config, reduce_config
+    from repro_torch.launch import serve
+    from repro_torch.models.model import build
+
+    res = serve.main(["--reduced"])
+    assert res["device"].startswith("cuda") and res["peak_bytes"] > 0
+    assert res["generations"].shape == (4, 16)
+    cfg = reduce_config(get_config("qwen3-1.7b"))
+    m = build(cfg)
+    logits, _ = m.prefill(serve.init_bf16(m, cuda_device), 48,
+                          tokens=serve.make_prompts(cfg, 4, 32, cuda_device))
+    np.testing.assert_array_equal(res["generations"][:, 0],
+                                  logits.argmax(-1).cpu().numpy())
