@@ -153,7 +153,34 @@ failure, and at once when no CUDA device is present):
    ``llava-next-mistral-7b`` (vision prefix) at ``reduce_config`` width:
    float32 on the card against the CPU, prefill then a decode step against
    a longer prefill, bf16 against float32.
-6. Print ``{"lm": {...}}`` (phase 10's numbers, each beside its bound),
+11. **LM serving, the MoE and recurrent families** (after phase 10; the
+   four kernels' counts are set to 0 just before it and must read 0 just
+   after; earlier phases may leave at most ``LM_RESIDENT_GB`` on the card).
+   Phase 10's helpers and tolerances. (a) ``qwen2-moe-a2.7b`` at full width
+   (60 experts, top-4, 4 shared; 28.6 GB in bf16), B=4, prompt 128, 32
+   generated, through ``launch.serve.main`` twice: the numbers of phase 10
+   (a), with the float32 model (57.3 GB) drawn and run first and cast in
+   place, and 32 single decode steps after a prefill of 96 tokens held
+   against the prefill; the bounds read and multiply every expert, as the
+   dropless algorithm does, and the routed-only bound is printed beside
+   them; the first layer's MoE block with the ``einsum`` dispatch against
+   the default ``sort`` one at B=4 x 128, and the ms of each. (b)
+   ``rwkv6-3b`` at full width, B=4, prompt 100 (not a multiple of
+   ``rwkv_chunk``), 32 generated, the same checks, except where its
+   full-depth logits are too ill-conditioned for them (``LM_LAYERWISE``):
+   both are held block by block on the float32 stream's input (bf16
+   against float32 from the second token on; a block's prefill then 32
+   decode steps against its prefill, in float32 at ``LM_F32_TOL`` and in
+   bf16), and the full-depth gaps are printed beside what a 1e-3
+   perturbation of the embedding does. (c)
+   ``recurrentgemma-9b`` at full width, the same as (b) (100 is not a
+   multiple of ``rnn_chunk`` either), and one row of ``LM_LONG_SEQ`` =
+   2600 tokens, past ``local_window`` over 11 RG-LRU chunks: prefill(S)
+   against prefill(S-1) and one decode step, logits and every cache
+   tensor (rolling positions exactly). (d) ``mixtral-8x7b`` at
+   ``reduce_config`` width: phase 10 (e)'s checks and the ``einsum``
+   dispatch against ``sort`` in float32.
+6. Print ``{"lm": {...}}`` (the numbers of phases 10 and 11, each beside its bound),
    ``{"kernels": [...]}`` (all four kernels; ``launches`` from
    phases 3 and 5, ``sharded_launches`` from phase 7, ``phase8_launches``
    from phase 8, ``phase9_launches`` from phase 9, and ``tm_imdb`` with the
@@ -215,6 +242,33 @@ LM_SERVE = (("qwen3-1.7b", 4, 128, 32), ("minitron-4b", 4, 32, 16))
 LM_DECODE_BATCH, LM_DECODE_STEPS = 4, 8
 LM_BLOCKWISE_SEQ = 9216
 LM_REDUCED = ("granite-8b", "qwen2-72b", "llava-next-mistral-7b")
+# phase 11: (arch, batch, prompt, gen, decode steps held against the prefill)
+# at full width; the recurrent prompts are multiples of neither rwkv_chunk
+# (32) nor rnn_chunk (256), and 32 single steps follow a prefill of the
+# rest (phase 10 takes 128 from an empty cache). One recurrentgemma row
+# past local_window (2048) over 11 RG-LRU chunks; mixtral-8x7b (93.4 GB in
+# bf16) at reduce_config width. Earlier phases may leave at most
+# LM_RESIDENT_GB on the card: the float32 qwen2-moe (57.3 GB) comes next.
+LM_FAMILIES = (("qwen2-moe-a2.7b", 4, 128, 32, 32), ("rwkv6-3b", 4, 100, 32, 32),
+               ("recurrentgemma-9b", 4, 100, 32, 32))
+LM_LONG_SEQ = 2600
+LM_FAMILIES_REDUCED = ("mixtral-8x7b",)
+# rwkv6-3b's logits at full depth are ill-conditioned under its random
+# init (the reference draws the same distributions): float32 rounding
+# differences of ~1e-6 between the chunked prefill and the step decode grow
+# layer by layer to ~1.7e-2 of max|logit|, and a relative 1e-3
+# perturbation of the embedding rows moves the logits by ~10% (both
+# measured and printed by lm_layerwise). No computation in another order
+# or precision can hold a tolerance there, so for it both checks are held
+# block by block, each block on the float32 stream's input, and the
+# full-depth gaps are printed. Within a block the first token is
+# ill-conditioned too: from a zero state each head's output is (r·u·k)·v,
+# and the per-head norm after it keeps only the sign of the scalar r·u·k,
+# which rounding can flip; so bf16 against float32 is held from the
+# second token on, and the first token's gap is printed.
+LM_LAYERWISE = ("rwkv6-3b",)
+LM_PERTURBATION = 1e-3
+LM_RESIDENT_GB = 15.0
 # Float32 against float32 (TF32 off) differs only in summation order: 1e-4
 # of max|logit|. bf16 against float32, or against bf16 summed in another
 # order, at full depth: 5e-2 of max|logit|. The CPU tests measured 0.3-0.9%
@@ -1668,7 +1722,7 @@ def phase9(cfg, state, inc, trained, gen, dev, card) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# Phase 10: LM serving (dense and vlm families)
+# Phases 10 and 11: LM serving (dense and vlm; moe, ssm and hybrid)
 # ---------------------------------------------------------------------------
 
 
@@ -1746,34 +1800,80 @@ def lm_work(cfg, params, batch: int, seq: int, cache_tokens: int) -> dict:
     """Least time (ms) of a prefill of ``batch`` x ``seq`` tokens and of one
     decode step over ``cache_tokens`` cached tokens per row: each weight
     read once (the embedding as rows gathered, unless tied, when the
-    unembedding reads it whole), each cached K/V read once; matrix-product
-    FLOPs at the bf16 tensor rate (the causal half of the attention scores
-    and values; logits at the last position only)."""
+    unembedding reads it whole), each cached K/V read once, each recurrent
+    state (RWKV's shifts and ``wkv``, Griffin's conv tail and ``h``) read
+    and written once per step; matrix-product FLOPs at the bf16 tensor rate
+    (logits at the last position only). Attention and its cache are counted
+    on the attention blocks only (none in RWKV, every third block of a
+    hybrid), over the causal pairs its window allows. A MoE's experts are
+    all read and multiplied, as the reference's dropless algorithm does (at
+    decode every expert runs its one capacity slot, at prefill each is
+    padded to T_g rows); ``routed_*`` bounds the routed experts only: top-k
+    products per token, and at most min(E, tokens·k) distinct experts
+    read per layer."""
+    from repro_torch.models import transformer
+
+    elt = next(params.parameters()).element_size()
     w_bytes = sum(p.numel() * p.element_size() for p in params.parameters())
     table = cfg.vocab * cfg.d_model
     n_params = sum(p.numel() for p in params.parameters())
     body = n_params - table * (1 if cfg.tie_embeddings else 2)
-    read = w_bytes - (0 if cfg.tie_embeddings else table * 2)
+    read = w_bytes - (0 if cfg.tie_embeddings else table * elt)
+    kinds, n_groups, tail = transformer._plan(cfg)
+    n_attn = sum(k.startswith("attn") for k in kinds * n_groups + tail)
+    window = transformer._window_for(cfg, "attn_mlp")
+    w = min(window or seq, seq)
+    pairs = w * (w + 1) / 2 + (seq - w) * w        # causal, windowed
+    kv_tokens = min(cache_tokens, window) if window else cache_tokens
     hd = cfg.head_dim_
-    attn = 2 * 2 * batch * cfg.n_heads * hd * seq * (seq + 1) / 2 * cfg.n_layers
+    attn = 2 * 2 * batch * cfg.n_heads * hd * pairs * n_attn
     prefill_flops = 2 * body * batch * seq + 2 * table * batch + attn
-    kv_bytes = 2 * batch * cfg.n_kv_heads * hd * 2 * cache_tokens * cfg.n_layers
+    kv_bytes = 2 * batch * cfg.n_kv_heads * hd * 2 * kv_tokens * n_attn
+    shapes = transformer.cache_shapes(cfg, batch, cache_tokens)
+    state_bytes = 2 * sum(
+        math.prod(shape) * torch.empty((), dtype=dt).element_size()
+        for block in list(shapes["layers"].values()) + shapes.get("tail", [])
+        for name, (shape, dt) in block.items() if name not in ("k", "v", "pos"))
     decode_flops = (2 * (body + table) * batch
-                    + 4 * batch * cfg.n_heads * hd * cache_tokens * cfg.n_layers)
-    t = lambda nbytes, flops: max(nbytes / PEAK_BYTES_PER_S,
-                                  flops / PEAK_BF16_FLOPS_PER_S) * 1e3
-    return {"prefill_bound_ms": t(read, prefill_flops),
-            "prefill_bound_by": ("bytes" if read / PEAK_BYTES_PER_S
-                                 >= prefill_flops / PEAK_BF16_FLOPS_PER_S
-                                 else "operations"),
-            "decode_bound_ms": t(read + kv_bytes, decode_flops),
-            "weight_bytes_read": read, "kv_bytes": kv_bytes}
+                    + 4 * batch * cfg.n_heads * hd * kv_tokens * n_attn)
+
+    def t(nbytes, flops):
+        return max(nbytes / PEAK_BYTES_PER_S, flops / PEAK_BF16_FLOPS_PER_S) * 1e3
+
+    def by(nbytes, flops):
+        return ("bytes" if nbytes / PEAK_BYTES_PER_S
+                >= flops / PEAK_BF16_FLOPS_PER_S else "operations")
+
+    out = {"prefill_bound_ms": t(read, prefill_flops),
+           "prefill_bound_by": by(read, prefill_flops),
+           "decode_bound_ms": t(read + kv_bytes + state_bytes, decode_flops),
+           "weight_bytes_read": read, "kv_bytes": kv_bytes,
+           "state_bytes": state_bytes}
+    if cfg.family == "moe":
+        expert = 3 * cfg.d_model * (cfg.d_ff_expert or cfg.d_ff)
+        experts = cfg.n_layers * cfg.n_experts * expert
+
+        def routed_read(tokens):
+            distinct = min(cfg.n_experts, tokens * cfg.top_k)
+            return read - (experts - cfg.n_layers * distinct * expert) * elt
+
+        routed = 2 * (experts - cfg.n_layers * cfg.top_k * expert)
+        out.update(
+            routed_prefill_bound_ms=t(routed_read(batch * seq),
+                                      prefill_flops - routed * batch * seq),
+            routed_decode_bound_ms=t(routed_read(batch) + kv_bytes,
+                                     decode_flops - routed * batch))
+    return out
 
 
-def lm_serve(arch: str, batch: int, prompt: int, gen: int, dev, card) -> dict:
-    """Phase 10 (a), (b): ``launch.serve.main`` at full width; then, on the
-    same weights and prompts, the bf16 prefill against a float32 one and
-    against ``prompt`` single decode steps from an empty cache."""
+def lm_serve(arch: str, batch: int, prompt: int, gen: int, dev, card,
+             steps=None, extra=None) -> dict:
+    """Phase 10 (a), (b) and 11 (a)-(c): ``launch.serve.main`` at full
+    width; then, on the same weights and prompts, the bf16 prefill against
+    a float32 one and against ``steps`` single decode steps (default
+    ``prompt``: from an empty cache; else after a prefill of the first
+    ``prompt - steps`` tokens). ``extra(cfg, model, params, dev, card)``
+    runs further checks on the bf16 weights; its dict joins the record."""
     from repro_torch.configs import get_config
     from repro_torch.launch import serve
     from repro_torch.models.model import build
@@ -1790,19 +1890,22 @@ def lm_serve(arch: str, batch: int, prompt: int, gen: int, dev, card) -> dict:
     m = build(cfg)
     prompts = serve.make_prompts(cfg, batch, prompt, dev)
     params = m.init(torch.Generator(device=dev).manual_seed(serve.SEED))
+    steps = prompt if steps is None else steps
+    layerwise = {}
     with lm_compute_dtype(torch.float32):
         l32, _ = m.prefill(params, prompt + gen, tokens=prompts)
+        if arch in LM_LAYERWISE:
+            layerwise = lm_layerwise(cfg, m, params, prompts, steps,
+                                     prompt + gen, l32, card)
     params = params.to(torch.bfloat16)
     l16, _ = m.prefill(params, prompt + gen, tokens=prompts)
     require(np.array_equal(l16.argmax(-1).cpu().numpy(), res["generations"][:, 0]),
             f"{arch}: the serve CLI's first token is not this prefill's")
-    rel32, rows32 = lm_compare(l16, l32, LM_BF16_TOL, f"{arch} bf16 vs float32")
-    cache = m.init_cache(batch, prompt + gen)
-    for i in range(prompt):
-        pos = torch.full((batch,), i, dtype=torch.int32, device=dev)
-        logits, cache = m.decode_step(params, prompts[:, i:i + 1], cache, pos)
-    rel_dec, rows_dec = lm_compare(logits, l16, LM_BF16_TOL,
-                                   f"{arch} {prompt} decode steps vs prefill")
+    tol = math.inf if layerwise else LM_BF16_TOL    # held block by block
+    rel32, rows32 = lm_compare(l16, l32, tol, f"{arch} bf16 vs float32")
+    del l32
+    rel_dec, rows_dec, logits, cache = decode_vs_prefill(
+        m, params, prompts, steps, prompt + gen, l16, tol, f"{arch} bf16")
     pos = torch.full((batch,), prompt, dtype=torch.int32, device=dev)
     tok = logits.argmax(-1)[:, None].to(torch.int32)
     prof = {"decode_profile": lm_profile(
@@ -1819,8 +1922,13 @@ def lm_serve(arch: str, batch: int, prompt: int, gen: int, dev, card) -> dict:
                first_prefill_ms=first["prefill_ms"],
                first_decode_ms_per_step=first["decode_ms_per_step"],
                bf16_vs_f32_rel=rel32, bf16_vs_f32_rows=rows32,
+               decode_vs_prefill_steps=steps,
                decode_vs_prefill_rel=rel_dec, decode_vs_prefill_rows=rows_dec,
-               **prof)
+               **layerwise, **prof)
+    routed = ("" if "routed_decode_bound_ms" not in out else
+              f"; routed experts only: prefill bound "
+              f"{out['routed_prefill_bound_ms']:.3f} ms, decode "
+              f"{out['routed_decode_bound_ms']:.3f} ms")
     print(f"lm serve {arch} (full width, {res['param_count']} params, "
           f"{res['param_bytes'] / 1e9:.3f} GB bf16) B={batch} prompt={prompt} "
           f"gen={gen}: prefill {res['prefill_ms']:.3f} ms ({res['prefill_tok_s']:.0f} "
@@ -1830,9 +1938,141 @@ def lm_serve(arch: str, batch: int, prompt: int, gen: int, dev, card) -> dict:
           f"{first['prefill_ms']:.3f} / {first['decode_ms_per_step']:.3f}; peak "
           f"{out['peak_gb_above_resident']:.3f} GB above resident; bf16 vs "
           f"float32 prefill {rel32:.3e} of max|logit| ({rows32} of {batch} "
-          f"argmax held), {prompt} decode steps vs prefill {rel_dec:.3e} "
-          f"({rows_dec} held), tolerance {LM_BF16_TOL} [{card}]")
+          f"argmax held), {steps} decode steps vs prefill {rel_dec:.3e} "
+          f"({rows_dec} held), tolerance "
+          f"{'(printed; held block by block)' if layerwise else LM_BF16_TOL}"
+          f"{routed} [{card}]")
+    if extra is not None:
+        out.update(extra(cfg, m, params, dev, card))
     return out
+
+
+def decode_vs_prefill(m, params, prompts, steps: int, cache_len: int, want,
+                      tol: float, what: str):
+    """``steps`` single decode steps over the end of ``prompts`` (from an
+    empty cache when ``steps`` is the whole prompt, else after a prefill of
+    the rest) against the full prefill's logits ``want``. Returns (relative
+    error, rows whose argmax was held, the last logits, the cache)."""
+    batch, prompt = prompts.shape
+    if steps == prompt:
+        cache = m.init_cache(batch, cache_len, device=prompts.device)
+    else:
+        _, cache = m.prefill(params, cache_len, tokens=prompts[:, :prompt - steps])
+    for i in range(prompt - steps, prompt):
+        pos = torch.full((batch,), i, dtype=torch.int32, device=prompts.device)
+        logits, cache = m.decode_step(params, prompts[:, i:i + 1], cache, pos)
+    rel, rows = lm_compare(logits, want, tol, f"{what} {steps} decode steps vs prefill")
+    return rel, rows, logits, cache
+
+
+def block_decode_vs_prefill(cfg, blk, kind: str, x, steps: int) -> float:
+    """One recurrent block on ``x`` (B, S, d): its prefill of the first
+    S - ``steps`` tokens then ``steps`` decode steps against its prefill of
+    all S, from a zero state in x's dtype; the relative error of the last
+    ``steps`` outputs and of the final state, whichever is larger."""
+    from repro_torch.models import rwkv6, transformer
+
+    batch, seq = x.shape[:2]
+    require(kind == "rwkv", f"no block-level decode check for {kind}")
+
+    def zero():
+        return rwkv6.init_rwkv_state(batch, cfg.d_model, cfg.rwkv_heads,
+                                     cfg.rwkv_head_dim, x.dtype, x.device)
+
+    positions = torch.arange(seq, device=x.device)[None]
+    want, want_state, _ = transformer._apply_block(blk, cfg, kind, x, positions,
+                                                   zero(), False)
+    _, state, _ = transformer._apply_block(
+        blk, cfg, kind, x[:, :seq - steps], positions[:, :seq - steps], zero(),
+        False)
+    ys = []
+    for i in range(seq - steps, seq):
+        y, state, _ = transformer._apply_block(blk, cfg, kind, x[:, i:i + 1],
+                                               positions[:, i:i + 1], state, True)
+        ys.append(y)
+    pairs = [(torch.cat(ys, 1), want[:, seq - steps:])]
+    pairs += [(state[name], want_state[name]) for name in want_state]
+    return max(float((g.float() - w.float()).abs().max() / w.float().abs().max())
+               for g, w in pairs)
+
+
+@torch.no_grad()
+def lm_layerwise(cfg, m, params, prompts, steps: int, cache_len: int, l32,
+                 card) -> dict:
+    """Phase 11 (b), on the float32 weights under float32 compute. Printed,
+    at full depth: how far a relative ``LM_PERTURBATION`` of the embedding
+    rows moves the prefill's logits ``l32``, and ``steps`` float32 decode
+    steps against the prefill. Held, block by block on the float32 stream's
+    input: the block in bf16 against float32 from the second token on
+    (LM_BF16_TOL of its output; the first token's gap printed), and its
+    prefill then ``steps`` decode steps against its prefill, in float32
+    (LM_F32_TOL) and in bf16 (LM_BF16_TOL)."""
+    from repro_torch.models import transformer
+
+    rel_dec, _, _, cache = decode_vs_prefill(
+        m, params, prompts, steps, cache_len, l32, math.inf, f"{cfg.name} float32")
+    _, want = m.prefill(params, cache_len, tokens=prompts)
+    n_groups = len(params.layers)
+    growth = {j: max(float((t[j] - want["layers"][key][name][j]).abs().max()
+                           / want["layers"][key][name][j].abs().max())
+                     for key, block in cache["layers"].items()
+                     for name, t in block.items())
+              for j in sorted({*range(0, n_groups, 8), n_groups - 1})}
+    del cache, want
+    table = params.embed.tokens
+    kept = table.clone()
+    gen = torch.Generator(device=table.device).manual_seed(SEED + 3)
+    table.mul_(1 + LM_PERTURBATION * torch.randn(
+        table.shape, generator=gen, device=table.device))
+    moved, _ = m.prefill(params, cache_len, tokens=prompts)
+    table.copy_(kept)
+    del kept
+    sens = float((moved.double() - l32.double()).abs().max() / l32.double().abs().max())
+    kinds, _, tail = transformer._plan(cfg)
+    blocks = [(g[f"b{i}_{k}"], k) for g in params.layers
+              for i, k in enumerate(kinds)] + list(zip(params.tail, tail))
+    x = transformer.embed(params.embed, prompts, torch.float32)
+    positions = torch.arange(x.shape[1], device=x.device)[None]
+    worst = {"bf16_vs_f32": 0.0, "bf16_vs_f32_first_token": 0.0,
+             "f32_decode": 0.0, "bf16_decode": 0.0}
+    for blk, kind in blocks:
+        y32, _, _ = transformer._apply_block(blk, cfg, kind, x, positions, None,
+                                             False)
+        b16 = copy.deepcopy(blk).to(torch.bfloat16)
+        x16 = x.to(torch.bfloat16)
+        y16, _, _ = transformer._apply_block(b16, cfg, kind, x16, positions, None,
+                                             False)
+        err = (y16.float() - y32).abs() / y32.abs().max()
+        got = {"bf16_vs_f32": float(err[:, 1:].max()),
+               "bf16_vs_f32_first_token": float(err[:, 0].max()),
+               "f32_decode": block_decode_vs_prefill(cfg, blk, kind, x, steps),
+               "bf16_decode": block_decode_vs_prefill(cfg, b16, kind, x16, steps)}
+        worst = {k: max(v, got[k]) for k, v in worst.items()}
+        x = y32
+        del b16, x16, y16
+    require(worst["bf16_vs_f32"] <= LM_BF16_TOL and worst["bf16_decode"] <= LM_BF16_TOL
+            and worst["f32_decode"] <= LM_F32_TOL,
+            f"{cfg.name} block by block: {worst}")
+    print(f"lm {cfg.name} conditioning (float32, full depth): a {LM_PERTURBATION} "
+          f"relative perturbation of the embedding rows moves the logits by "
+          f"{sens:.3e} of max|logit|; {steps} float32 decode steps vs prefill "
+          f"{rel_dec:.3e}, their states' gap by layer "
+          + ", ".join(f"{j}: {g:.2e}" for j, g in growth.items())
+          + f" (printed). Held block by block ({len(blocks)} blocks, "
+          f"each on the float32 stream's input): bf16 vs float32 worst "
+          f"{worst['bf16_vs_f32']:.3e} of max|out| from the second token on "
+          f"(the first token: {worst['bf16_vs_f32_first_token']:.3e}, printed) "
+          f"and bf16 prefill + {steps} "
+          f"decode steps vs prefill {worst['bf16_decode']:.3e} (tolerance "
+          f"{LM_BF16_TOL}); float32 prefill + {steps} decode steps vs prefill "
+          f"{worst['f32_decode']:.3e} (tolerance {LM_F32_TOL}) [{card}]")
+    return {"perturbation_moves_logits_rel": sens,
+            "full_depth_f32_decode_vs_prefill_rel": rel_dec,
+            "full_depth_f32_state_gap_by_layer": growth,
+            "blockwise_bf16_vs_f32_rel": worst["bf16_vs_f32"],
+            "blockwise_bf16_vs_f32_first_token_rel": worst["bf16_vs_f32_first_token"],
+            "blockwise_bf16_decode_vs_prefill_rel": worst["bf16_decode"],
+            "blockwise_f32_decode_vs_prefill_rel": worst["f32_decode"]}
 
 
 def lm_decode_32k(dev, card) -> dict:
@@ -1951,16 +2191,17 @@ def lm_blockwise(dev, card) -> dict:
     return out
 
 
-def lm_reduced(dev, card) -> dict:
-    """Phase 10 (e): the other dense and vlm configs at reduce_config width:
-    float32 on the card against float32 on the CPU (same weights), prefill
-    then one decode step against a longer prefill, and bf16 on the card
-    against float32."""
+def lm_reduced(dev, card, archs=LM_REDUCED) -> dict:
+    """Phase 10 (e) and 11 (d): configs at reduce_config width: float32 on
+    the card against float32 on the CPU (same weights), prefill then one
+    decode step against a longer prefill, and bf16 on the card against
+    float32; a MoE's prefill with the ``einsum`` dispatch against its
+    default ``sort`` one (float32)."""
     from repro_torch.configs import get_config, reduce_config
     from repro_torch.models.model import build
 
     out = {}
-    for arch in LM_REDUCED:
+    for arch in archs:
         cfg = reduce_config(get_config(arch))
         m = build(cfg)
         cpu_params = m.init(torch.Generator().manual_seed(SEED))
@@ -1980,6 +2221,9 @@ def lm_reduced(dev, card) -> dict:
                                     **card_extra)
             pos = torch.full((2,), n_vis + 8, dtype=torch.int32, device=dev)
             step, _ = m.decode_step(params, tokens[:, 8:].to(dev), cache, pos)
+            if cfg.family == "moe":
+                me = build(dataclasses.replace(cfg, moe_dispatch="einsum"))
+                le, _ = me.prefill(params, 16, tokens=tokens.to(dev))
         r_host, _ = lm_compare(full.cpu(), host, LM_F32_TOL, f"{arch} card vs CPU")
         r_step, _ = lm_compare(step, full, LM_F32_TOL, f"{arch} prefill+decode")
         l16, _ = m.prefill(params.to(torch.bfloat16), 16, tokens=tokens.to(dev),
@@ -1987,11 +2231,127 @@ def lm_reduced(dev, card) -> dict:
         r16, _ = lm_compare(l16, full, LM_BF16_TOL, f"{arch} bf16 vs float32")
         out[arch] = {"card_vs_cpu_f32_rel": r_host, "decode_vs_prefill_f32_rel":
                      r_step, "bf16_vs_f32_rel": r16}
+        moe = ""
+        if cfg.family == "moe":
+            r_moe, _ = lm_compare(le, full, LM_F32_TOL, f"{arch} einsum vs sort")
+            out[arch]["einsum_vs_sort_f32_rel"] = r_moe
+            moe = f"; einsum vs sort dispatch float32 {r_moe:.3e}"
         print(f"lm {arch} (reduced{', vision prefix' if n_vis else ''}): card "
               f"vs CPU float32 {r_host:.3e}, prefill+decode vs prefill "
               f"{r_step:.3e} (tolerance {LM_F32_TOL}); bf16 vs float32 "
-              f"{r16:.3e} (tolerance {LM_BF16_TOL}) [{card}]")
+              f"{r16:.3e} (tolerance {LM_BF16_TOL}){moe} [{card}]")
     return out
+
+
+def lm_moe_dispatch(cfg, m, params, dev, card) -> dict:
+    """Phase 11 (a): the first layer's MoE block at full width, dropless
+    (as served), on a B x S input from the generator: ``einsum`` against
+    the default ``sort`` dispatch, and the ms of each (median of 5)."""
+    from repro_torch.models.moe import moe_block
+
+    batch, seq = LM_FAMILIES[0][1:3]
+    p = params.layers[0]["b0_attn_moe"].moe
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    h = torch.randn(batch, seq, cfg.d_model, generator=gen, device=dev,
+                    dtype=torch.bfloat16)
+    res = {}
+    for dispatch in ("sort", "einsum"):
+        def run():
+            return moe_block(p, h, top_k=cfg.top_k,
+                             capacity_factor=cfg.capacity_factor, act=cfg.act,
+                             dispatch=dispatch, normalize=cfg.normalize_topk,
+                             dropless=True)
+        with torch.no_grad():
+            res[dispatch] = run()[0]
+            res[dispatch + "_ms"] = float(np.median([synced_ms(run)[1]
+                                                     for _ in range(5)]))
+    rel = float((res["einsum"].float() - res["sort"].float()).abs().max()
+                / res["sort"].float().abs().max())
+    require(bool(torch.isfinite(res["sort"]).all()) and rel <= LM_BF16_TOL,
+            f"{cfg.name} layer 0 MoE: einsum vs sort {rel:.3e}")
+    print(f"lm {cfg.name} layer 0 MoE block, dropless B={batch} S={seq} (E="
+          f"{cfg.n_experts}, k={cfg.top_k}, capacity {seq}): einsum vs sort "
+          f"dispatch {rel:.3e} of max|out| (tolerance {LM_BF16_TOL}); sort "
+          f"{res['sort_ms']:.3f} ms, einsum {res['einsum_ms']:.3f} ms [{card}]")
+    return {"moe_einsum_vs_sort_rel": rel, "moe_sort_ms": res["sort_ms"],
+            "moe_einsum_ms": res["einsum_ms"]}
+
+
+def lm_long_row(cfg, m, params, dev, card) -> dict:
+    """Phase 11 (c): one row of LM_LONG_SEQ tokens, past the hybrid's local
+    window and over several RG-LRU chunks: prefill(S) against prefill(S-1)
+    and one decode step, logits and every cache tensor (the rolling
+    buffers' positions exactly)."""
+    seq = LM_LONG_SEQ
+    require(seq > cfg.local_window and seq > 2 * cfg.rnn_chunk,
+            "the long row does not pass the window and two chunks")
+    tokens = torch.from_numpy(np.random.default_rng(SEED + 2).integers(
+        0, cfg.vocab, (1, seq))).to(dev)
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()
+    (full, cache_full), ms = synced_ms(lambda: m.prefill(params, seq,
+                                                         tokens=tokens))
+    peak = (torch.cuda.max_memory_allocated() - resident) / 1e9
+    _, cache = m.prefill(params, seq, tokens=tokens[:, :-1])
+    pos = torch.full((1,), seq - 1, dtype=torch.int32, device=dev)
+    step, cache = m.decode_step(params, tokens[:, -1:], cache, pos)
+    rel, rows = lm_compare(step, full, LM_BF16_TOL,
+                           f"{cfg.name} prefill({seq - 1}) + decode vs prefill({seq})")
+    blocks = [(f"layers/{key}", block, cache_full["layers"][key])
+              for key, block in cache["layers"].items()]
+    blocks += [(f"tail/{i}", block, cache_full["tail"][i])
+               for i, block in enumerate(cache.get("tail", []))]
+    rel_cache = 0.0
+    for where, block, want in blocks:
+        for name, got in block.items():
+            if name == "pos":
+                require(torch.equal(got, want[name]),
+                        f"{cfg.name} long row: {where} positions differ")
+            else:
+                w = want[name].float()
+                rel_cache = max(rel_cache, float((got.float() - w).abs().max()
+                                                 / w.abs().max()))
+    require(rel_cache <= LM_BF16_TOL, f"{cfg.name} long row caches: {rel_cache:.3e}")
+    work = lm_work(cfg, params, 1, seq, seq)
+    print(f"lm {cfg.name} long row B=1 S={seq} (local window "
+          f"{cfg.local_window}, {-(-seq // cfg.rnn_chunk)} RG-LRU chunks): "
+          f"prefill {ms:.3f} ms (bound {work['prefill_bound_ms']:.3f} ms, "
+          f"{work['prefill_bound_by']}; peak {peak:.3f} GB above resident); "
+          f"prefill({seq - 1}) + 1 decode step vs prefill({seq}): logits "
+          f"{rel:.3e} of max|logit| ({rows} argmax held), caches {rel_cache:.3e}, "
+          f"positions equal, tolerance {LM_BF16_TOL} [{card}]")
+    return {"long_seq": seq, "long_prefill_ms": ms, "long_peak_gb": peak,
+            "long_prefill_bound_ms": work["prefill_bound_ms"],
+            "long_prefill_bound_by": work["prefill_bound_by"],
+            "long_step_vs_prefill_rel": rel, "long_cache_rel": rel_cache}
+
+
+def phase11(dev, card) -> dict:
+    """Phase 11: LM serving for the MoE and recurrent families. Returns its
+    part of the ``lm`` record."""
+    torch.cuda.empty_cache()
+    resident = torch.cuda.memory_allocated() / 1e9
+    require(resident <= LM_RESIDENT_GB,
+            f"earlier phases leave {resident:.3f} GB on the card")
+    counts = Counts()
+    counts.reset()
+    from repro_torch.configs import get_config
+
+    extras = {"moe": lm_moe_dispatch, "hybrid": lm_long_row}
+    lm = {}
+    for arch, batch, prompt, gen, steps in LM_FAMILIES:
+        lm[arch] = lm_serve(arch, batch, prompt, gen, dev, card, steps=steps,
+                            extra=extras.get(get_config(arch).family))
+        torch.cuda.empty_cache()
+    lm["reduced_families"] = lm_reduced(dev, card, LM_FAMILIES_REDUCED)
+    launched = counts.read()
+    require(not any(launched.values()),
+            f"the LM path launched a TM kernel: {launched}")
+    lm["phase11_tm_kernel_launches"] = launched
+    print(f"phase 11 launches: {launched} (the MoE, RWKV and Griffin paths "
+          f"reach no Pallas kernel of the reference, so none of the four; "
+          f"{resident:.3f} GB resident before it)")
+    return lm
 
 
 def phase10(dev, card) -> dict:
@@ -2160,6 +2520,11 @@ def main() -> int:
     t0 = time.perf_counter()
     lm = phase10(dev, card)
     print(f"phase 10: {time.perf_counter() - t0:.1f} s wall")
+
+    # -- 11. LM serving: the MoE and recurrent families -------------------------
+    t0 = time.perf_counter()
+    lm.update(phase11(dev, card))
+    print(f"phase 11: {time.perf_counter() - t0:.1f} s wall")
 
     # -- 6. report ----------------------------------------------------------
     top = BATCHES[-1]

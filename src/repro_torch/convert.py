@@ -85,24 +85,30 @@ def draws_from_reference(neg_raw, target_gate, target_type_i, other_gate,
                             t(other_type_i, torch.float32)))
 
 
-def _lm_leaves(tree: dict, prefix: tuple = ()):
-    """(path, array) for every leaf of a nested dict."""
-    for key, val in tree.items():
-        if isinstance(val, dict):
-            yield from _lm_leaves(val, prefix + (key,))
+def _lm_leaves(tree, prefix: tuple = ()):
+    """(path, array) for every leaf of nested dicts and lists (a list index
+    becomes its decimal string, as in the port's module names)."""
+    items = tree.items() if isinstance(tree, dict) else enumerate(tree)
+    for key, val in items:
+        if isinstance(val, (dict, list)):
+            yield from _lm_leaves(val, prefix + (str(key),))
         else:
-            yield prefix + (key,), val
+            yield prefix + (str(key),), val
 
 
-def _lm_target(path: tuple) -> tuple[str, bool]:
-    """The port's parameter name for a reference leaf path (layer index
-    excluded) and whether its 2-D array is transposed: the reference keeps
-    a dense layer as ``(in, out)``, ``nn.Linear`` as ``(out, in)``."""
+def _lm_target(path: tuple, names) -> tuple[str, bool]:
+    """The port's parameter name for a reference leaf path (with the layer
+    index in place) and whether the array is transposed: a dense layer the
+    port holds as an ``nn.Linear`` is ``(in, out)`` in the reference and
+    ``(out, in)`` in the port; every other leaf (norm scales, the MoE's
+    router and stacked experts, RWKV's mixes and LoRA factors, …) keeps the
+    reference's layout."""
     *head, last = path
     if last.endswith("_bias"):                   # attn wq_bias → attn.wq.bias
         return ".".join((*head, last[:-len("_bias")], "bias")), False
-    if last.startswith("w") or last == "lm_head":  # wq, w_up, lm_head
-        return ".".join((*head, last, "weight")), True
+    linear = ".".join((*path, "weight"))
+    if linear in names:                          # wq, w_up, lm_head, …
+        return linear, True
     return ".".join(path), False
 
 
@@ -111,26 +117,26 @@ def lm_params_from_reference(cfg, params_np: dict, device) -> LM:
     """The port's float32 ``LM`` on ``device`` holding the reference's
     weights (``cfg`` is the port's ``ModelConfig``).
 
-    ``params_np`` is the reference's tree as nested dicts of arrays: layers
-    stacked ``(L, …)`` under ``layers/b0_attn_mlp``, ``embed/tokens``,
-    ``final_norm`` and, untied, ``lm_head``. Any float dtype is taken
-    through float32 (exact for bf16); cast the result with ``.to`` for
-    bf16 serving. Every leaf lands in exactly one parameter and every
-    parameter is filled, or this raises ``ValueError``.
+    ``params_np`` is the reference's tree as nested dicts (and, for a
+    hybrid's ``tail``, a list) of arrays: layers stacked ``(L, …)`` under
+    ``layers/b{i}_{kind}``, ``embed/tokens``, ``final_norm``, ``tail/{i}``
+    and, untied, ``lm_head``. Any float dtype is taken through float32
+    (exact for bf16); cast the result with ``.to`` for bf16 serving. Every
+    leaf lands in exactly one parameter and every parameter is filled, or
+    this raises ``ValueError``.
     """
     dev = resolve_device(device)
     params = LM(cfg, dev)
     left = dict(params.named_parameters())
+    names = set(left)
     for path, arr in _lm_leaves(params_np):
         arr = np.array(arr, dtype=np.float32)    # a writable copy
         if path[0] == "layers":                  # ("layers", key, …) stacked
-            name, transpose = _lm_target(path[2:])
-            targets = [(f"layers.{j}.{path[1]}.{name}", arr[j])
+            targets = [(_lm_target(("layers", str(j)) + path[1:], names), arr[j])
                        for j in range(arr.shape[0])]
         else:
-            name, transpose = _lm_target(path)
-            targets = [(name, arr)]
-        for name, a in targets:
+            targets = [(_lm_target(path, names), arr)]
+        for (name, transpose), a in targets:
             if name not in left:
                 raise ValueError(f"reference leaf {'/'.join(path)} has no "
                                  f"port parameter {name!r} (or fills it twice)")

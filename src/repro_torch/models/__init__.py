@@ -1,1 +1,2 @@
-"""LM model zoo of the port: the dense and VLM decoder families so far."""
+"""LM model zoo of the port: the dense, MoE, VLM, RWKV-6 (ssm) and Griffin
+(hybrid) decoder families; the encoder-decoder family is not ported yet."""

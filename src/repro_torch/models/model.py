@@ -5,8 +5,9 @@
   input_specs(cfg, shape, …) → zero tensors of a shape cell's inputs
   cache_specs(cfg, shape, …) → the decode cache's shapes and dtypes
 
-The port runs the dense and vlm families. ``build`` raises
-``NotImplementedError`` for the others, naming the slice that brings them.
+The port runs the dense, moe, vlm, ssm and hybrid families. ``build``
+raises ``NotImplementedError`` for the encoder-decoder family, naming the
+slice that brings it.
 """
 from __future__ import annotations
 
@@ -122,8 +123,9 @@ def effective_cache_len(cfg: ModelConfig, shape: ShapeSpec) -> int:
 
 def cache_specs(cfg: ModelConfig, shape: ShapeSpec,
                 batch_override: Optional[int] = None) -> dict:
-    """The decode cache as nested dicts of ``(shape, dtype)``, allocating
-    nothing."""
+    """The decode cache as nested dicts of ``(shape, dtype)`` (the
+    reference's ``eval_shape`` of ``init_cache``: bf16 K/V and token
+    shifts, float32 recurrent states), allocating nothing."""
     build(cfg)
     b = batch_override or shape.global_batch
     return transformer.cache_shapes(cfg, b, effective_cache_len(cfg, shape))

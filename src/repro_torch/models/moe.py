@@ -1,0 +1,193 @@
+"""Mixture-of-Experts: grouped top-k routing, shared experts, two dispatch
+engines (the port's ``repro.models.moe`` on one device).
+
+Grouping (GShard/Switch semantics): tokens are reshaped (B, S, d) →
+(G, T_g, d) with G = batch size, and all routing state (ranks, capacity,
+dispatch tables) is per group.
+
+Dispatch engines (identical outputs, drops included):
+  * ``einsum`` — GShard one-hot dispatch/combine einsums (O(T_g·E·C) extra
+    work);
+  * ``sort``   — capacity-slot scatter/gather (O(T_g·k·d) data movement).
+
+Capacity: C = max(1, int(cf·T_g·k/E)) per group; ``dropless`` sets C = T_g,
+which is what inference uses. Expert weights stay stacked ``(E, d, f)`` /
+``(E, f, d)`` parameters and the products are ``torch.einsum`` (batched
+GEMMs over the expert axis). The reference's shard_map path and sharding
+constraints belong to the sharded LM path and are not here.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from repro_torch.models.common import (
+    activation,
+    init_linear_,
+    truncated_normal_,
+)
+from repro_torch.models.mlp import MLP, mlp
+
+
+class MoE(nn.Module):
+    """``router`` (d, E) and the stacked experts ``w_gate`` / ``w_up``
+    (E, d, f) and ``w_down`` (E, f, d), in the reference's layout; with
+    shared experts also ``shared`` (a gated ``MLP``) and ``shared_gate``
+    (d, 1)."""
+
+    def __init__(self, d_model: int, d_ff_expert: int, n_experts: int, *,
+                 n_shared: int = 0, d_ff_shared=None, device=None):
+        super().__init__()
+
+        def empty(*shape):
+            return nn.Parameter(torch.empty(shape, device=device))
+
+        self.router = empty(d_model, n_experts)
+        self.w_gate = empty(n_experts, d_model, d_ff_expert)
+        self.w_up = empty(n_experts, d_model, d_ff_expert)
+        self.w_down = empty(n_experts, d_ff_expert, d_model)
+        self.shared = self.shared_gate = None
+        if n_shared:
+            d_sh = d_ff_shared or n_shared * d_ff_expert
+            self.shared = MLP(d_model, d_sh, gated=True, device=device)
+            self.shared_gate = empty(d_model, 1)
+
+
+@torch.no_grad()
+def init_moe(gen: torch.Generator, d_model: int, d_ff_expert: int,
+             n_experts: int, *, n_shared: int = 0, d_ff_shared=None) -> MoE:
+    """A ``MoE`` on the generator's device with the reference's
+    distributions: fan-in scaled truncated normals, where the stacked
+    experts' fan-in is ``E·d`` (gate, up) and ``E·f`` (down), as the
+    reference draws them flat and reshapes."""
+    p = MoE(d_model, d_ff_expert, n_experts, n_shared=n_shared,
+            d_ff_shared=d_ff_shared, device=gen.device)
+    truncated_normal_(p.router, gen, d_model ** -0.5)
+    truncated_normal_(p.w_gate, gen, (n_experts * d_model) ** -0.5)
+    truncated_normal_(p.w_up, gen, (n_experts * d_model) ** -0.5)
+    truncated_normal_(p.w_down, gen, (n_experts * d_ff_expert) ** -0.5)
+    if n_shared:
+        for lin in (p.shared.w_up, p.shared.w_down, p.shared.w_gate):
+            init_linear_(gen, lin)
+        truncated_normal_(p.shared_gate, gen, d_model ** -0.5)
+    return p
+
+
+def _route(p: MoE, x, top_k, *, normalize=True):
+    """x: (G, T, d) → (gates (G,T,k), experts (G,T,k), (me, ce)).
+
+    The router product is float32 whatever the weights' dtype (the
+    reference's ``x.astype(float32) @ router`` promotes a bf16 router)."""
+    logits = x.float() @ p.router.float()
+    probs = torch.softmax(logits, dim=-1)                 # (G, T, E)
+    gates, experts = torch.topk(probs, top_k, dim=-1)
+    if normalize:
+        gates = gates / gates.sum(-1, keepdim=True).clamp_min(1e-9)
+    e = probs.shape[-1]
+    me = probs.mean((0, 1))
+    ce = F.one_hot(experts[..., 0], e).float().mean((0, 1))
+    # Switch aux loss factors, reduced to a scalar by the caller
+    return gates, experts, (me, ce)
+
+
+def _slots(experts, top_k, e, capacity):
+    """Per-group rank of each (token, k) within its expert.
+
+    experts: (G, T, k) → (slot (G,T,k) int64, keep (G,T,k)). A stable sort
+    by expert id ranks tokens in token order, so the same tokens are
+    dropped as in the reference."""
+    g, t, k = experts.shape
+    tk = t * k
+    exp_f = experts.reshape(g, tk)
+    order = torch.argsort(exp_f, dim=1, stable=True)      # (G, TK)
+    sorted_exp = torch.gather(exp_f, 1, order)
+    counts = torch.zeros((g, e), dtype=torch.int64, device=experts.device)
+    counts.scatter_add_(1, exp_f, torch.ones_like(exp_f))
+    starts = counts.cumsum(1) - counts                    # exclusive
+    rank_sorted = (torch.arange(tk, device=experts.device)[None]
+                   - torch.gather(starts, 1, sorted_exp))
+    slot = torch.zeros_like(exp_f).scatter_(1, order, rank_sorted)
+    slot = slot.reshape(g, t, k)
+    return slot, slot < capacity
+
+
+def _expert_ffn(p: MoE, h, act_fn):
+    """h: (G, E, C, d) → (G, E, C, d) through each expert's SwiGLU."""
+    gate = torch.einsum("gecd,edf->gecf", h, p.w_gate.to(h.dtype))
+    up = torch.einsum("gecd,edf->gecf", h, p.w_up.to(h.dtype))
+    return torch.einsum("gecf,efd->gecd", act_fn(gate) * up,
+                        p.w_down.to(h.dtype))
+
+
+def moe_einsum(p: MoE, x, *, top_k, capacity, act="silu", normalize=True):
+    """GShard one-hot dispatch. x: (G, T, d) → (out (G,T,d), (me, ce))."""
+    e = p.router.shape[-1]
+    gates, experts, aux = _route(p, x, top_k, normalize=normalize)
+    slot, keep = _slots(experts, top_k, e, capacity)
+    oh_e = F.one_hot(experts, e).to(x.dtype)              # (G,T,k,E)
+    # a dropped (token, k) takes class ``capacity``, sliced off: a zero row
+    oh_c = F.one_hot(torch.where(keep, slot, capacity),
+                     capacity + 1)[..., :capacity].to(x.dtype)  # (G,T,k,C)
+    disp = torch.einsum("gtke,gtkc->gtec", oh_e, oh_c)    # (G,T,E,C)
+    h = torch.einsum("gtec,gtd->gecd", disp, x)
+    out_e = _expert_ffn(p, h, activation(act))
+    comb = torch.einsum("gtke,gtkc,gtk->gtec", oh_e, oh_c, gates.to(x.dtype))
+    return torch.einsum("gtec,gecd->gtd", comb, out_e), aux
+
+
+def moe_sort(p: MoE, x, *, top_k, capacity, act="silu", normalize=True):
+    """Capacity-slot scatter dispatch (no O(T·E·C) einsum). x: (G, T, d)."""
+    g, t, d = x.shape
+    e = p.router.shape[-1]
+    gates, experts, aux = _route(p, x, top_k, normalize=normalize)
+    slot, keep = _slots(experts, top_k, e, capacity)
+    dev = x.device
+    gi = torch.arange(g, device=dev)[:, None]
+
+    exp_f = experts.reshape(g, t * top_k)
+    slot_f = torch.where(keep, slot, capacity).reshape(g, t * top_k)
+    tok_f = torch.arange(t, device=dev).repeat_interleave(top_k)[None]
+    # token ids into per-group (E, C+1) slot tables; every dropped token
+    # writes column ``capacity``, which is sliced off, so only the kept
+    # (unique) slots matter
+    table = torch.full((g, e, capacity + 1), t, dtype=torch.int64, device=dev)
+    table[gi, exp_f, slot_f] = tok_f.expand(g, -1)
+    table = table[..., :capacity]                         # (G, E, C)
+    x_pad = torch.cat([x, x.new_zeros(g, 1, d)], dim=1)   # row t is zeros
+    h = x_pad[gi, table.reshape(g, e * capacity)].reshape(g, e, capacity, d)
+    out_e = _expert_ffn(p, h, activation(act))
+    out_pad = torch.cat([out_e.reshape(g, e * capacity, d),
+                         out_e.new_zeros(g, 1, d)], dim=1)
+    lin = torch.where(keep, experts * capacity + slot,
+                      e * capacity).reshape(g, t * top_k)
+    per_k = out_pad[gi, lin].reshape(g, t, top_k, d)
+    return torch.einsum("gtkd,gtk->gtd", per_k, gates.to(x.dtype)), aux
+
+
+def moe_block(p: MoE, x, *, top_k, capacity_factor, act="silu",
+              dispatch="sort", normalize=True, num_groups=None,
+              dropless=False):
+    """x: (B, S, d) → (out, aux). Groups are batch rows (GShard); shared
+    experts, if any, are always active.
+
+    ``dropless=True`` sizes capacity to the per-group token count, so no
+    token overflows its expert. Inference runs dropless (a prefill that
+    drops tokens could never agree with step-by-step decode, where each
+    single-token group fits); training keeps the capacity drops.
+    """
+    b, s, d = x.shape
+    g = num_groups or b
+    tg = (b * s) // g
+    e = p.router.shape[-1]
+    capacity = tg if dropless else max(1, int(capacity_factor * tg * top_k / e))
+    fn = {"einsum": moe_einsum, "sort": moe_sort}[dispatch]
+    out, (me, ce) = fn(p, x.reshape(g, tg, d), top_k=top_k, capacity=capacity,
+                       act=act, normalize=normalize)
+    aux = e * torch.sum(me * ce)                  # Switch load-balance loss
+    out = out.reshape(b, s, d)
+    if p.shared is not None:
+        sh = mlp(p.shared, x, act=act)
+        sg = torch.sigmoid(x @ p.shared_gate.to(x.dtype))
+        out = out + sg * sh
+    return out, aux

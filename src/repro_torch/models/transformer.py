@@ -1,14 +1,21 @@
-"""Decoder-only LM assembly for the dense and VLM families (the port's
-``repro.models.transformer``).
+"""Decoder-only LM assembly: the dense, moe, vlm, ssm and hybrid families
+(the port's ``repro.models.transformer``).
 
 The layer stack is an ``nn.ModuleList`` of groups walked in Python; each
 group is an ``nn.ModuleDict`` keyed ``b{i}_{kind}`` as the reference's
 stacked params are, so ``layers[j]["b0_attn_mlp"]`` is layer ``j`` of a
-dense model. Caches keep the reference's stacked layout,
+dense model. A hybrid depth that the pattern does not divide ends in
+``tail``, unrolled blocks (recurrentgemma-9b: 12 groups of (rec, rec,
+attn) and 2 trailing rec blocks). Caches keep the reference's layout,
 ``{"layers": {"b0_attn_mlp": {"k": (L, B, Hkv, S, Dh), "v": …, "pos":
-(L, B, S)}}}``; prefill fills a fresh one and ``decode_step`` updates the
-cache it is given in place (each layer writes through a view of its slice)
-and returns it.
+(L, B, S)}, …}, "tail": [{…}, …]}`` (``tail`` only where the plan has
+one); prefill fills a fresh one and ``decode_step`` updates the cache it
+is given in place (each layer writes through a view of its slice) and
+returns it.
+
+Block kinds: ``attn_mlp`` and ``attn_moe`` (attention with an MLP or a
+MoE mixer), ``rwkv`` (RWKV-6), ``rec_mlp`` (a Griffin recurrent block
+and an MLP).
 
 API (functions of the config and an ``LM`` module):
   init_params(gen, cfg)                       → LM
@@ -16,10 +23,6 @@ API (functions of the config and an ``LM`` module):
   prefill(cfg, params, tokens, cache_len, …)  → (logits_last, cache)
   decode_step(cfg, params, token, cache, pos) → (logits, cache)
   init_cache(cfg, batch, cache_len, …)        → cache
-
-The MoE (``attn_moe``), RWKV (``rwkv``) and Griffin (``rec_mlp``) blocks
-come with later slices; ``_plan`` and ``_init_block`` raise
-``NotImplementedError`` for them.
 """
 from __future__ import annotations
 
@@ -31,6 +34,8 @@ from torch import nn
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.types import resolve_device
 from repro_torch.models import attention as attn_mod
+from repro_torch.models import griffin as griffin_mod
+from repro_torch.models import rwkv6 as rwkv_mod
 from repro_torch.models.common import (
     Embed,
     LayerNorm,
@@ -44,23 +49,20 @@ from repro_torch.models.common import (
     unembed,
 )
 from repro_torch.models.mlp import MLP, init_mlp, mlp
+from repro_torch.models.moe import MoE, init_moe, moe_block
 
 COMPUTE_DTYPE = torch.bfloat16
 
-_LATER = {
-    "moe": "the MoE slice (models/moe.py)",
-    "ssm": "the recurrent slice (models/recurrence.py, models/rwkv6.py)",
-    "hybrid": "the recurrent slice (models/recurrence.py, models/griffin.py)",
-    "encdec": "the encoder-decoder slice (models/whisper.py)",
-}
-_KIND_FAMILY = {"attn_moe": "moe", "rwkv": "ssm", "rec_mlp": "hybrid"}
+
+_LATER = {"encdec": "the encoder-decoder slice (models/whisper.py)"}
 
 
 def not_ported(family: str) -> NotImplementedError:
     """The error for a family whose layers a later slice of the port brings."""
     return NotImplementedError(
         f"the {family!r} family is not ported yet: it comes with "
-        f"{_LATER[family]}; the port runs the dense and vlm families")
+        f"{_LATER[family]}; the port runs the dense, moe, vlm, ssm and "
+        "hybrid families")
 
 
 def _norm_fns(cfg):
@@ -75,41 +77,99 @@ def _norm_fns(cfg):
 
 
 class AttnBlock(nn.Module):
-    """Pre-norm attention + MLP block (``attn_mlp``): ``norm1``, ``attn``,
-    ``norm2``, ``mlp``; the norms start at ones (and zeros)."""
+    """Pre-norm attention block: ``norm1``, ``attn``, ``norm2`` and its
+    mixer, ``mlp`` (``attn_mlp``) or ``moe`` (``attn_moe``); the norms
+    start at ones (and zeros)."""
 
-    def __init__(self, cfg: ModelConfig, attn: attn_mod.Attention, mlp_: MLP):
+    def __init__(self, cfg: ModelConfig, attn: attn_mod.Attention,
+                 mixer: nn.Module):
         super().__init__()
         norm_cls, _ = _norm_fns(cfg)
         device = attn.wq.weight.device
         self.norm1 = norm_cls(cfg.d_model, device)
         self.norm2 = norm_cls(cfg.d_model, device)
         self.attn = attn
+        if isinstance(mixer, MoE):
+            self.moe = mixer
+        else:
+            self.mlp = mixer
+
+
+class RecBlock(nn.Module):
+    """Griffin's ``rec_mlp``: ``norm1``, ``rec`` (a ``RecurrentBlock``),
+    ``norm2``, ``mlp`` (gated)."""
+
+    def __init__(self, cfg: ModelConfig, rec: griffin_mod.RecurrentBlock,
+                 mlp_: MLP):
+        super().__init__()
+        norm_cls, _ = _norm_fns(cfg)
+        device = rec.w_y.weight.device
+        self.norm1 = norm_cls(cfg.d_model, device)
+        self.norm2 = norm_cls(cfg.d_model, device)
+        self.rec = rec
         self.mlp = mlp_
 
 
-def _empty_attn_block(cfg: ModelConfig, device) -> AttnBlock:
-    return AttnBlock(cfg, attn_mod.Attention(
-        cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_,
-        qkv_bias=cfg.qkv_bias, qk_norm=cfg.qk_norm, device=device),
-        MLP(cfg.d_model, cfg.d_ff, gated=(cfg.act == "silu"), device=device))
+def _moe_args(cfg: ModelConfig):
+    return (cfg.d_model, cfg.d_ff_expert or cfg.d_ff, cfg.n_experts)
+
+
+def _empty_block(cfg: ModelConfig, kind: str, device) -> nn.Module:
+    """A block of ``kind`` with uninitialised weights."""
+    if kind in ("attn_mlp", "attn_moe"):
+        attn = attn_mod.Attention(
+            cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_,
+            qkv_bias=cfg.qkv_bias, qk_norm=cfg.qk_norm, device=device)
+        if kind == "attn_moe":
+            return AttnBlock(cfg, attn, MoE(
+                *_moe_args(cfg), n_shared=cfg.n_shared_experts,
+                d_ff_shared=cfg.d_ff_shared, device=device))
+        return AttnBlock(cfg, attn, MLP(cfg.d_model, cfg.d_ff,
+                                        gated=(cfg.act == "silu"),
+                                        device=device))
+    if kind == "rwkv":
+        return rwkv_mod.RWKVBlock(cfg.d_model, cfg.d_ff, cfg.rwkv_heads,
+                                  cfg.rwkv_head_dim, device)
+    if kind == "rec_mlp":
+        return RecBlock(cfg, griffin_mod.RecurrentBlock(
+            cfg.d_model, cfg.d_rnn or cfg.d_model, device),
+            MLP(cfg.d_model, cfg.d_ff, gated=True, device=device))
+    raise ValueError(kind)
 
 
 def _init_attn_block(gen: torch.Generator, cfg: ModelConfig, *,
                      mixer: str) -> AttnBlock:
-    """mixer: 'mlp' (the 'moe' mixer comes with the MoE slice)."""
-    if mixer != "mlp":
-        raise not_ported("moe")
-    return AttnBlock(cfg, attn_mod.init_attention(
+    """mixer: 'mlp' or 'moe'."""
+    attn = attn_mod.init_attention(
         gen, cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_,
-        qkv_bias=cfg.qkv_bias, qk_norm=cfg.qk_norm),
-        init_mlp(gen, cfg.d_model, cfg.d_ff, gated=(cfg.act == "silu")))
+        qkv_bias=cfg.qkv_bias, qk_norm=cfg.qk_norm)
+    if mixer == "moe":
+        return AttnBlock(cfg, attn, init_moe(
+            gen, *_moe_args(cfg), n_shared=cfg.n_shared_experts,
+            d_ff_shared=cfg.d_ff_shared))
+    return AttnBlock(cfg, attn, init_mlp(gen, cfg.d_model, cfg.d_ff,
+                                         gated=(cfg.act == "silu")))
+
+
+def _init_block(gen, cfg, kind):
+    if kind == "attn_mlp":
+        return _init_attn_block(gen, cfg, mixer="mlp")
+    if kind == "attn_moe":
+        return _init_attn_block(gen, cfg, mixer="moe")
+    if kind == "rwkv":
+        return rwkv_mod.init_rwkv_block(gen, cfg.d_model, cfg.d_ff,
+                                        cfg.rwkv_heads, cfg.rwkv_head_dim)
+    if kind == "rec_mlp":
+        return RecBlock(cfg, griffin_mod.init_recurrent_block(
+            gen, cfg.d_model, cfg.d_rnn or cfg.d_model),
+            init_mlp(gen, cfg.d_model, cfg.d_ff, gated=True))
+    raise ValueError(kind)
 
 
 def _attn_block_seq(p: AttnBlock, cfg, x, positions, cache, *, window,
                     decode=False):
-    """Returns (x, cache). ``cache`` is None in training; in prefill the
-    returned cache is a new one built from this pass's K/V."""
+    """Returns (x, cache, aux). ``cache`` is None in training; in prefill
+    the returned cache is a new one built from this pass's K/V."""
     _, norm = _norm_fns(cfg)
     h = norm(p.norm1, x)
     if decode:
@@ -128,7 +188,31 @@ def _attn_block_seq(p: AttnBlock, cfg, x, positions, cache, *, window,
                                                 cache["k"].shape[2])
     x = x + o
     h = norm(p.norm2, x)
-    return x + mlp(p.mlp, h, act=cfg.act), cache
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if hasattr(p, "moe"):
+        # inference (prefill and decode) is dropless, so both cache paths
+        # route alike; training keeps the capacity drops
+        o, aux = moe_block(
+            p.moe, h, top_k=cfg.top_k, capacity_factor=cfg.capacity_factor,
+            act=cfg.act, dispatch=cfg.moe_dispatch,
+            normalize=cfg.normalize_topk,
+            dropless=decode or cache is not None)
+    else:
+        o = mlp(p.mlp, h, act=cfg.act)
+    return x + o, cache, aux
+
+
+def _rec_block_seq(p: RecBlock, cfg, x, state, *, decode=False):
+    _, norm = _norm_fns(cfg)
+    h = norm(p.norm1, x)
+    if decode:
+        o, state = griffin_mod.recurrent_block_step(p.rec, h[:, 0], state)
+        o = o[:, None]
+    else:
+        o, state = griffin_mod.recurrent_block_seq(p.rec, h, state,
+                                                   chunk=cfg.rnn_chunk)
+    x = x + o
+    return x + mlp(p.mlp, norm(p.norm2, x), act=cfg.act), state
 
 
 # ---------------------------------------------------------------------------
@@ -138,40 +222,51 @@ def _attn_block_seq(p: AttnBlock, cfg, x, positions, cache, *, window,
 
 def _plan(cfg: ModelConfig):
     """(group_kinds, n_groups, tail_kinds): the block kinds of one group, how
-    many times the group repeats, and unrolled trailing blocks (none for
-    the dense and vlm families)."""
+    many times the group repeats, and unrolled trailing blocks (a hybrid
+    depth the pattern does not divide)."""
     if cfg.family in ("dense", "vlm"):
         return ("attn_mlp",), cfg.n_layers, ()
+    if cfg.family == "moe":
+        return ("attn_moe",), cfg.n_layers, ()
+    if cfg.family == "ssm":
+        return ("rwkv",), cfg.n_layers, ()
+    if cfg.family == "hybrid":
+        pat = cfg.pattern or ("rec", "rec", "attn")
+        kinds = tuple("attn_mlp" if k == "attn" else "rec_mlp" for k in pat)
+        n = cfg.n_layers // len(pat)
+        return kinds, n, kinds[:cfg.n_layers - n * len(pat)]
     if cfg.family in _LATER:
         raise not_ported(cfg.family)
     raise ValueError(cfg.family)
 
 
-def _init_block(gen, cfg, kind):
-    if kind == "attn_mlp":
-        return _init_attn_block(gen, cfg, mixer="mlp")
-    if kind in _KIND_FAMILY:
-        raise not_ported(_KIND_FAMILY[kind])
-    raise ValueError(kind)
+def _window_for(cfg: ModelConfig, kind: str):
+    """The attention window: hybrids use ``local_window``, the others
+    ``sliding_window`` (None for full attention)."""
+    if cfg.family == "hybrid":
+        return cfg.local_window
+    return cfg.sliding_window
 
 
 class LM(nn.Module):
-    """``embed``, ``layers`` (groups of blocks), ``final_norm`` and, unless
-    the embeddings are tied, ``lm_head`` (``nn.Linear``, weight (V, d)).
-    Built with uninitialised weights (``convert.lm_params_from_reference``
-    copies them in) unless ``make_block(kind)`` supplies the blocks, as
+    """``embed``, ``layers`` (groups of blocks), ``tail`` (trailing blocks,
+    empty unless the plan has some), ``final_norm`` and, unless the
+    embeddings are tied, ``lm_head`` (``nn.Linear``, weight (V, d)). Built
+    with uninitialised weights (``convert.lm_params_from_reference`` copies
+    them in) unless ``make_block(kind)`` supplies the blocks, as
     ``init_params`` does."""
 
     def __init__(self, cfg: ModelConfig, device=None, make_block=None):
         super().__init__()
-        kinds, n_groups, _ = _plan(cfg)
-        make_block = make_block or (lambda kind: _empty_attn_block(cfg, device))
+        kinds, n_groups, tail = _plan(cfg)
+        make_block = make_block or (lambda kind: _empty_block(cfg, kind, device))
         norm_cls, _ = _norm_fns(cfg)
         self.embed = Embed(cfg.vocab, cfg.d_model, device)
         self.layers = nn.ModuleList(
             nn.ModuleDict({f"b{i}_{kind}": make_block(kind)
                            for i, kind in enumerate(kinds)})
             for _ in range(n_groups))
+        self.tail = nn.ModuleList(make_block(kind) for kind in tail)
         self.final_norm = norm_cls(cfg.d_model, device)
         self.lm_head = (None if cfg.tie_embeddings else
                         empty_linear(cfg.d_model, cfg.vocab, device=device))
@@ -190,35 +285,65 @@ def init_params(gen: torch.Generator, cfg: ModelConfig) -> LM:
 
 
 # ---------------------------------------------------------------------------
-# Caches
+# Caches and recurrent state
 # ---------------------------------------------------------------------------
+
+
+def _block_cache_shapes(cfg: ModelConfig, kind: str, batch: int,
+                        cache_len: int, dtype) -> dict:
+    """One block's cache as ``{name: (shape, dtype)}``. ``dtype`` is that
+    of the K/V cache and of RWKV's token shifts; RWKV's ``wkv`` and
+    Griffin's state are float32."""
+    if kind in ("attn_mlp", "attn_moe"):
+        window = _window_for(cfg, kind)
+        clen = min(cache_len, window) if window else cache_len
+        kv = (batch, cfg.n_kv_heads, clen, cfg.head_dim_)
+        return {"k": (kv, dtype), "v": (kv, dtype),
+                "pos": ((batch, clen), torch.int32)}
+    if kind == "rwkv":
+        return rwkv_mod.rwkv_state_shapes(batch, cfg.d_model, cfg.rwkv_heads,
+                                          cfg.rwkv_head_dim, dtype)
+    if kind == "rec_mlp":
+        return griffin_mod.griffin_state_shapes(batch, cfg.d_rnn or cfg.d_model)
+    raise ValueError(kind)
 
 
 def cache_shapes(cfg: ModelConfig, batch: int, cache_len: int,
                  dtype=torch.bfloat16) -> dict:
-    """The stacked cache's ``(shape, dtype)`` per tensor, allocating nothing."""
-    kinds, n_groups, _ = _plan(cfg)
-    out = {}
-    window = cfg.sliding_window       # hybrid's local window: recurrent slice
-    clen = min(cache_len, window) if window else cache_len
-    for i, kind in enumerate(kinds):
-        kv = (n_groups, batch, cfg.n_kv_heads, clen, cfg.head_dim_)
-        out[f"b{i}_{kind}"] = {"k": (kv, dtype), "v": (kv, dtype),
-                               "pos": ((n_groups, batch, clen), torch.int32)}
-    return {"layers": out}
+    """The cache's ``(shape, dtype)`` per tensor, allocating nothing: the
+    groups' blocks stacked ``(n_groups, …)`` under ``layers``, the tail's
+    unstacked under ``tail``. With the default bf16 it is the reference's
+    ``init_cache``."""
+    kinds, n_groups, tail = _plan(cfg)
+    out = {"layers": {
+        f"b{i}_{kind}": {name: ((n_groups,) + shape, dt) for name, (shape, dt)
+                         in _block_cache_shapes(cfg, kind, batch, cache_len,
+                                                dtype).items()}
+        for i, kind in enumerate(kinds)}}
+    if tail:
+        out["tail"] = [_block_cache_shapes(cfg, kind, batch, cache_len, dtype)
+                       for kind in tail]
+    return out
+
+
+def _alloc(block: dict, dev) -> dict:
+    """Tensors for one block's ``{name: (shape, dtype)}``: zeros, ``pos``
+    -1 (empty slots)."""
+    return {name: (torch.full(shape, -1, dtype=dt, device=dev) if name == "pos"
+                   else torch.zeros(shape, dtype=dt, device=dev))
+            for name, (shape, dt) in block.items()}
 
 
 def init_cache(cfg: ModelConfig, batch: int, cache_len: int,
                dtype=torch.bfloat16, device="cuda") -> dict:
-    """An empty stacked cache (K/V zeros, ``pos`` -1) on ``device``."""
+    """An empty cache on ``device`` (see ``cache_shapes`` for the dtypes)."""
     dev = resolve_device(device)
-    return {"layers": {
-        key: {name: (torch.full(shape, -1, dtype=dt, device=dev)
-                     if name == "pos" else
-                     torch.zeros(shape, dtype=dt, device=dev))
-              for name, (shape, dt) in block.items()}
-        for key, block in cache_shapes(cfg, batch, cache_len,
-                                       dtype)["layers"].items()}}
+    shapes = cache_shapes(cfg, batch, cache_len, dtype)
+    out = {"layers": {key: _alloc(block, dev)
+                      for key, block in shapes["layers"].items()}}
+    if "tail" in shapes:
+        out["tail"] = [_alloc(block, dev) for block in shapes["tail"]]
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -226,24 +351,66 @@ def init_cache(cfg: ModelConfig, batch: int, cache_len: int,
 # ---------------------------------------------------------------------------
 
 
+def _apply_block(p, cfg, kind, x, positions, cache, decode):
+    """One block; returns (x, new_cache, aux). A recurrent block in
+    training (``cache`` None) starts from a zero state."""
+    if kind in ("attn_mlp", "attn_moe"):
+        return _attn_block_seq(p, cfg, x, positions, cache,
+                               window=_window_for(cfg, kind), decode=decode)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if kind == "rwkv":
+        if cache is None:
+            cache = rwkv_mod.init_rwkv_state(
+                x.shape[0], cfg.d_model, cfg.rwkv_heads, cfg.rwkv_head_dim,
+                device=x.device)
+        kw = dict(n_heads=cfg.rwkv_heads, head_dim=cfg.rwkv_head_dim)
+        if decode:
+            x, state = rwkv_mod.rwkv_block_step(p, x[:, 0], cache, **kw)
+            return x[:, None], state, aux
+        x, state = rwkv_mod.rwkv_block_seq(p, x, cache, chunk=cfg.rwkv_chunk,
+                                           **kw)
+        return x, state, aux
+    if kind == "rec_mlp":
+        if cache is None:
+            cache = griffin_mod.init_griffin_state(
+                x.shape[0], cfg.d_rnn or cfg.d_model, device=x.device)
+        x, state = _rec_block_seq(p, cfg, x, cache, decode=decode)
+        return x, state, aux
+    raise ValueError(kind)
+
+
+def _store(cache: dict, new: dict) -> None:
+    """Write a block's new cache into its slot, in place, cast to the
+    slot's dtypes (the reference's ``n.astype(c.dtype)``)."""
+    if new is not cache:
+        for name, t in cache.items():
+            t.copy_(new[name])
+
+
 def _run_stack(cfg, params: LM, x, positions, caches, decode):
-    """Walk the layer stack; returns (x, caches, aux). With ``caches``, each
-    layer reads and writes its slice of the stacked tensors in place."""
-    kinds, _, _ = _plan(cfg)
+    """Walk the layer stack and the tail; returns (x, caches, aux summed
+    over the blocks). With ``caches``, each block reads and writes its
+    slice of the cache in place."""
+    kinds, _, tail = _plan(cfg)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for j, group in enumerate(params.layers):
         for i, kind in enumerate(kinds):
             key = f"b{i}_{kind}"
-            layer_cache = None
+            cache = None
             if caches is not None:
-                layer_cache = {name: t[j]
-                               for name, t in caches["layers"][key].items()}
-            x, new_cache = _attn_block_seq(
-                group[key], cfg, x, positions, layer_cache,
-                window=cfg.sliding_window, decode=decode)
-            if layer_cache is not None and new_cache is not layer_cache:
-                for name, t in layer_cache.items():
-                    t.copy_(new_cache[name])
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+                cache = {name: t[j] for name, t in caches["layers"][key].items()}
+            x, new, a = _apply_block(group[key], cfg, kind, x, positions,
+                                     cache, decode)
+            if cache is not None:
+                _store(cache, new)
+            aux = aux + a
+    for i, kind in enumerate(tail):
+        cache = None if caches is None else caches["tail"][i]
+        x, new, a = _apply_block(params.tail[i], cfg, kind, x, positions,
+                                 cache, decode)
+        if cache is not None:
+            _store(cache, new)
+        aux = aux + a
     return x, caches, aux
 
 
@@ -260,8 +427,9 @@ def _logits(cfg, params: LM, x):
 
 
 def apply_train(cfg: ModelConfig, params: LM, tokens, vision_embeds=None):
-    """tokens: (B, S_text) int → (logits (B, S, V) float32, aux). A forward
-    pass with autograd on (the training slice builds on it)."""
+    """tokens: (B, S_text) int → (logits (B, S, V) float32, aux), aux the
+    Switch load-balance loss summed over the MoE blocks (0 without). A
+    forward pass with autograd on (the training slice builds on it)."""
     x = _embed_inputs(cfg, params, tokens, vision_embeds)
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
     x, _, aux = _run_stack(cfg, params, x, positions, None, decode=False)
@@ -271,8 +439,9 @@ def apply_train(cfg: ModelConfig, params: LM, tokens, vision_embeds=None):
 @torch.no_grad()
 def prefill(cfg: ModelConfig, params: LM, tokens, cache_len,
             vision_embeds=None):
-    """Full-sequence inference producing the KV cache (in the compute
-    dtype, as the reference's prefill returns it).
+    """Full-sequence inference producing the cache (K/V and token shifts in
+    the compute dtype, as the reference's prefill returns them; recurrent
+    states float32).
 
     Returns (last-position logits (B, V) float32, caches)."""
     x = _embed_inputs(cfg, params, tokens, vision_embeds)

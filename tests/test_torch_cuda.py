@@ -547,7 +547,8 @@ def test_wrappers_equal_the_unpacked_oracles(cuda_device, shape):
 # --- the LM serving path (no kernel of its own: float32 card == CPU) --------
 
 LM_ARCHS = ("qwen3-1.7b", "granite-8b", "minitron-4b", "qwen2-72b",
-            "llava-next-mistral-7b")
+            "llava-next-mistral-7b", "mixtral-8x7b", "qwen2-moe-a2.7b",
+            "rwkv6-3b", "recurrentgemma-9b")
 
 
 def lm_rel(got, want):
@@ -635,3 +636,58 @@ def test_lm_serve_main_on_card(cuda_device):
                           tokens=serve.make_prompts(cfg, 4, 32, cuda_device))
     np.testing.assert_array_equal(res["generations"][:, 0],
                                   logits.argmax(-1).cpu().numpy())
+
+
+@pytest.mark.cuda
+def test_moe_sort_equals_einsum_on_card(cuda_device, monkeypatch):
+    """The two MoE dispatches agree on the card (float32 to 1e-5, bf16 to
+    2e-2 of max|out|), with capacity drops and dropless, and the card's
+    float32 sort output equals the CPU's to 1e-5."""
+    import copy
+
+    from repro_torch.models.moe import init_moe, moe_block
+
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    p = init_moe(torch.Generator(device=cuda_device).manual_seed(0), 256, 512,
+                 8, n_shared=2, d_ff_shared=384)
+    x = torch.randn(4, 64, 256, generator=torch.Generator(
+        device=cuda_device).manual_seed(1), device=cuda_device)
+    host = copy.deepcopy(p).cpu()
+    for dropless in (False, True):
+        kw = dict(top_k=2, capacity_factor=1.0, dropless=dropless)
+        for dtype, tol in ((torch.float32, 1e-5), (torch.bfloat16, 2e-2)):
+            q = copy.deepcopy(p).to(dtype)
+            a, aux_a = moe_block(q, x.to(dtype), dispatch="sort", **kw)
+            b, aux_b = moe_block(q, x.to(dtype), dispatch="einsum", **kw)
+            assert lm_rel(a, b) <= tol, (dropless, dtype)
+            assert lm_rel(aux_a.detach(), aux_b.detach()) <= 1e-6
+        a, _ = moe_block(p, x, dispatch="sort", **kw)
+        c, _ = moe_block(host, x.cpu(), dispatch="sort", **kw)
+        assert lm_rel(a.detach(), c.detach()) <= 1e-5, dropless
+
+
+@pytest.mark.cuda
+def test_recurrences_on_card_match_cpu(cuda_device, monkeypatch):
+    """Both chunked recurrences on the card against the CPU (float32, 1e-5
+    of max|ref|) at a reduced width: RG-LRU's diagonal form over a padded
+    second chunk of 256, RWKV's matrix form over four chunks of 32."""
+    from repro_torch.models import recurrence
+
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    gen = torch.Generator().manual_seed(0)
+    a = torch.rand(300, 2, 512, generator=gen) * 0.1 + 0.9
+    b = torch.randn(300, 2, 512, generator=gen)
+    h0 = torch.randn(2, 512, generator=gen)
+    r, k, w_raw = (torch.randn(100, 2, 4, 64, generator=gen) for _ in range(3))
+    v = torch.randn(100, 2, 4, 64, generator=gen)
+    w = torch.exp(-torch.exp(w_raw - 1.0))
+    u = torch.rand(4, 64, generator=gen) * 0.5
+    s0 = torch.randn(2, 4, 64, 64, generator=gen)
+    host = (recurrence.chunked_diag_recurrence(a, b, h0, chunk=256)
+            + recurrence.chunked_matrix_recurrence(r, k, v, w, u, s0, chunk=32))
+    card = (recurrence.chunked_diag_recurrence(
+                *(x.to(cuda_device) for x in (a, b, h0)), chunk=256)
+            + recurrence.chunked_matrix_recurrence(
+                *(x.to(cuda_device) for x in (r, k, v, w, u, s0)), chunk=32))
+    for got, want in zip(card, host):
+        assert got.is_cuda and lm_rel(got, want) <= 1e-5

@@ -5,7 +5,8 @@
 caches and reads its metrics through the engine the reference's task
 would; ``TMBatcher(shard_index=, shard_count=)`` shards concatenate to the
 reference's global batch bit for bit; ``examples/torch_quickstart.py`` and
-``examples/torch_tm_mnist.py`` run on ``--device cpu`` at small sizes; and a
+``examples/torch_tm_mnist.py`` run on ``--device cpu`` at small sizes, and
+``examples/torch_serve_lm.py`` at ``reduce_config`` width; and a
 checkpoint that ``torch_tm_mnist`` writes loads in the reference's
 ``TsetlinMachine.load`` and predicts the same classes (the checkpoint format
 is shared).
@@ -188,3 +189,29 @@ def test_tm_mnist_checkpoint_loads_in_the_reference(tmp_path):
         want = np.asarray(theirs.predict(jnp.asarray(x), engine=engine))
         np.testing.assert_array_equal(got, want)
     assert len(np.unique(got)) > 1
+
+
+@pytest.mark.parametrize("arch", ["mixtral-8x7b", "recurrentgemma-9b"])
+def test_serve_lm_runs_on_the_cpu(arch, capsys):
+    """The documented architecture (MoE routing, a sliding-window rolling
+    cache: 32 + 16 tokens past the reduced window of 8) and a hybrid with
+    a trailing recurrent block; the first token is the prefill's argmax."""
+    import torch
+
+    from repro_torch.configs import get_config, reduce_config
+    from repro_torch.launch import serve
+    from repro_torch.models.model import build
+
+    res = load_example("torch_serve_lm").main(
+        ["--arch", arch, "--device", "cpu", "--reduced"])
+    out = capsys.readouterr().out
+    assert f"arch={arch} (reduced) batch=4 device=cpu" in out
+    assert "prefill:" in out and "decode:" in out
+    assert res["generations"].shape == (4, 16)
+    assert np.isfinite(res["decode_tok_s"]) and res["decode_tok_s"] > 0
+    cfg = reduce_config(get_config(arch))
+    m = build(cfg)
+    logits, _ = m.prefill(serve.init_bf16(m, torch.device("cpu")), 48,
+                          tokens=serve.make_prompts(cfg, 4, 32, "cpu"))
+    np.testing.assert_array_equal(res["generations"][:, 0],
+                                  logits.argmax(-1).numpy())

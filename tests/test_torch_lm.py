@@ -1,5 +1,9 @@
 """The port's LM serving path (``repro_torch.configs``, ``repro_torch.models``,
-``repro_torch.launch.serve``) against the reference package, on the CPU.
+``repro_torch.launch.serve``) against the reference package, on the CPU:
+the dense, vlm, moe (mixtral-8x7b, qwen2-moe-a2.7b), ssm (rwkv6-3b) and
+hybrid (recurrentgemma-9b) families at ``reduce_config`` width, every cache
+tensor compared in shape and dtype; the modules of the last three are
+tested one by one in ``tests/test_torch_lm_families.py``.
 
 Inputs and the perturbations of the reference's constant leaves come from
 seeded numpy; weights come from the reference's ``model.init(key(2))`` and
@@ -11,7 +15,7 @@ the largest magnitude of the reference's output (``max|ref|``):
   observed gap is under 5e-7.
 * bf16 (weights cast to bf16 in both, as the serve CLIs do): ``BF16_TOL`` =
   2e-2. XLA and PyTorch round bf16 at other places (XLA keeps fused
-  elementwise chains in float32); the observed gap is 0.3–0.9%, a bf16
+  elementwise chains in float32); the observed gap is 0.3–1.0%, a bf16
   ulp at the logit scale is 0.4%.
 * Greedy tokens must be equal wherever the reference's top-2 margin
   exceeds twice the bf16 tolerance.
@@ -43,14 +47,29 @@ POLICY = Policy.none()
 F32_TOL = 1e-5
 BF16_TOL = 2e-2
 SERVED = ("qwen3-1.7b", "granite-8b", "minitron-4b", "qwen2-72b",
-          "llava-next-mistral-7b")
-UNPORTED = ("mixtral-8x7b", "qwen2-moe-a2.7b", "rwkv6-3b",
-            "recurrentgemma-9b", "whisper-medium")
+          "llava-next-mistral-7b", "mixtral-8x7b", "qwen2-moe-a2.7b",
+          "rwkv6-3b", "recurrentgemma-9b")
+UNPORTED = ("whisper-medium",)
+# leaves the reference initialises to a constant (zeros, or a linspace the
+# same in every layer): perturbed, like the norm scales and biases, so the
+# tests see them and each lands in exactly one port parameter
+CONSTANT_AT_INIT = ("mu_x", "mu", "mu_k", "mu_r", "w0", "b_a", "b_i", "conv_b")
 B, S, CACHE_LEN, DECODE_STEPS = 2, 8, 16, 4
 
 
 def t(a):
     return torch.from_numpy(np.ascontiguousarray(a))
+
+
+def flat(tree, prefix=()):
+    """(path, leaf) for every leaf of nested dicts and lists (a cache of
+    either package, or ``cache_specs``), list indices as strings."""
+    items = tree.items() if isinstance(tree, dict) else enumerate(tree)
+    for key, val in items:
+        if isinstance(val, (dict, list)):
+            yield from flat(val, prefix + (str(key),))
+        else:
+            yield prefix + (str(key),), val
 
 
 def f64(a):
@@ -360,7 +379,7 @@ def reference_params(arch):
 
     def perturb(path, leaf):
         name = jax.tree_util.keystr(path)
-        if "scale" in name:
+        if "scale" in name or path[-1].key in CONSTANT_AT_INIT:
             return leaf + 0.1 * rng.normal(size=leaf.shape).astype(np.float32)
         if "bias" in name:
             return 0.1 * rng.normal(size=leaf.shape).astype(np.float32)
@@ -398,15 +417,17 @@ def float32_compute(monkeypatch):
 
 
 def check_caches(cache, jcache, tol, what):
-    for name in ("k", "v", "pos"):
-        got = cache["layers"]["b0_attn_mlp"][name]
-        want = jcache["layers"]["b0_attn_mlp"][name]
-        if name == "pos":
-            np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    """Every tensor of the cache (stacked layers and tail): the same keys,
+    shapes and dtypes; positions equal, the rest within ``tol``."""
+    got, want = dict(flat(cache)), dict(flat(jcache))
+    assert sorted(got) == sorted(want), what
+    for key, w in want.items():
+        g, name = got[key], "/".join(key)
+        assert str(g.dtype).split(".")[-1] == str(w.dtype), (name, g.dtype)
+        if g.dtype == torch.int32:
+            np.testing.assert_array_equal(g.numpy(), np.asarray(w), err_msg=name)
         else:
-            assert got.dtype == {jnp.float32: torch.float32,
-                                 jnp.bfloat16: torch.bfloat16}[want.dtype.type]
-            close(got.float(), f64(want), tol, f"{what} cache {name}")
+            close(g.float(), f64(w), tol, f"{what} cache {name}")
 
 
 @pytest.mark.parametrize("arch", SERVED)
@@ -424,7 +445,8 @@ def test_model_float32_matches_reference(arch, float32_compute):
     train_logits, aux = m.apply_train(params, tokens=t(tokens), **extra)
     jtrain, jaux = jax.jit(lambda p, tk: jm.apply_train(
         POLICY, p, tokens=tk, **jextra))(jp, jnp.asarray(tokens))
-    assert train_logits.dtype == torch.float32 and float(aux) == float(jaux)
+    assert train_logits.dtype == torch.float32
+    close(aux, jaux, F32_TOL, f"{arch} aux")      # exactly 0 without MoE
     close(train_logits, jtrain, F32_TOL, f"{arch} apply_train")
 
 
@@ -488,9 +510,14 @@ def test_prefill_decode_consistency(arch, float32_compute):
         logits, cache = m.decode_step(params, tokens[:, i:i + 1], cache,
                                       torch.full((B,), i, dtype=torch.int32))
     close(logits, full, 1e-4, f"{arch} decode steps vs prefill")
-    np.testing.assert_array_equal(
-        cache["layers"]["b0_attn_mlp"]["pos"][:, :, :S + 1].numpy(),
-        np.broadcast_to(np.arange(S + 1), (cfg.n_layers, B, S + 1)))
+    for key, block in cache["layers"].items():
+        if "pos" in block:          # position p in slot p % cache length
+            want = np.full(block["pos"].shape[-1], -1)
+            for p in range(S + 1):
+                want[p % want.size] = p
+            np.testing.assert_array_equal(
+                block["pos"].numpy(), np.broadcast_to(want, block["pos"].shape),
+                err_msg=key)
 
 
 @pytest.mark.parametrize("arch", SERVED)
@@ -503,8 +530,8 @@ def test_lm_params_from_reference_round_trip(arch):
     named = {name: p.detach().numpy() for name, p in
              lm_params_from_reference(cfg, jp, "cpu").named_parameters()}
     owner = {}
-    for path, leaf in jax.tree_util.tree_flatten_with_path(jp)[0]:
-        keys = "/".join(k.key for k in path)
+    for path, leaf in flat(jp):
+        keys = "/".join(path)
         for a in (leaf if keys.startswith("layers/") else [leaf]):
             # an nn.Linear ``weight`` holds the reference's (in, out) as (out, in)
             hits = [name for name, p in named.items()
@@ -533,11 +560,12 @@ def test_input_and_cache_specs_match_reference(arch):
         jshape = jconfigs.get_shape(shape.name)
         assert (model.effective_cache_len(cfg, shape)
                 == jmodel.effective_cache_len(jcfg, jshape))
-        got = model.cache_specs(cfg, shape)["layers"]["b0_attn_mlp"]
-        want = jmodel.cache_specs(jcfg, jshape)["layers"]["b0_attn_mlp"]
-        for name in ("k", "v", "pos"):
-            assert got[name][0] == want[name].shape, name
-            assert str(got[name][1]).split(".")[-1] == str(want[name].dtype)
+        got = dict(flat(model.cache_specs(cfg, shape)))
+        want = dict(flat(jmodel.cache_specs(jcfg, jshape)))
+        assert sorted(got) == sorted(want)
+        for key, w in want.items():
+            assert got[key][0] == w.shape, key
+            assert str(got[key][1]).split(".")[-1] == str(w.dtype), key
     small = configs.reduce_config(cfg)
     jsmall = jconfigs.reduce_config(jcfg)
     for shape in configs.LM_SHAPES:
@@ -581,17 +609,10 @@ def test_serve_main_on_cpu(capsys):
 @pytest.mark.parametrize("arch", UNPORTED)
 def test_unported_families_raise(arch):
     cfg = configs.reduce_config(configs.get_config(arch))
-    slice_name = {"moe": "MoE slice", "ssm": "recurrent slice",
-                  "hybrid": "recurrent slice",
-                  "encdec": "encoder-decoder slice"}[cfg.family]
-    with pytest.raises(NotImplementedError, match=slice_name):
+    with pytest.raises(NotImplementedError, match="encoder-decoder slice"):
         model.build(cfg)
-    with pytest.raises(NotImplementedError, match=slice_name):
+    with pytest.raises(NotImplementedError, match="encoder-decoder slice"):
         transformer.LM(cfg)
-    gen = torch.Generator().manual_seed(0)
-    for kind in ("attn_moe", "rwkv", "rec_mlp"):
-        with pytest.raises(NotImplementedError):
-            transformer._init_block(gen, cfg, kind)
 
 
 def test_cuda_device_raises_without_a_card():
