@@ -180,7 +180,34 @@ failure, and at once when no CUDA device is present):
    tensor (rolling positions exactly). (d) ``mixtral-8x7b`` at
    ``reduce_config`` width: phase 10 (e)'s checks and the ``einsum``
    dispatch against ``sort`` in float32.
-6. Print ``{"lm": {...}}`` (the numbers of phases 10 and 11, each beside its bound),
+12. **Whisper and LM training** (after phase 11; the four kernels' counts
+   are set to 0 just before it and must read 0 just after; at most
+   ``LM_RESIDENT_GB`` resident before it). (a) ``whisper-medium`` at full
+   width through the ``Model`` facade (the serve CLI refuses encdec, as
+   the reference's does): B=4, frames (4, 1500, 1024) =
+   ``default_rng(0).normal x 0.02`` in bf16, prompt 32, 16 generated,
+   cache length 48, twice (the second reported): prefill and decode ms
+   and tok/s beside ``whisper_work``'s bounds (the encoder's FLOPs and
+   the cross K/V bytes counted), peak memory, the pad columns at
+   ``-2**30``, bf16 against float32 and a prefill of the first token plus
+   31 decode steps against the prefill (over the real vocabulary, at
+   ``LM_BF16_TOL``), a profile of a decode step. (b) Whisper at
+   ``reduce_config`` width: phase 10 (e)'s checks. (c) ``qwen3-1.7b``
+   training through ``steps.make_train_step`` at full width: B=8 x 512,
+   M=2, remat on, no compression, peak lr 1e-3 after 5 warmup steps, 20
+   steps: step ms and tok/s beside ``train_work``'s bound, peak memory,
+   the train state's checkpoint size, finite metrics, the NLL of the last
+   step at least 0.1 below the first's, a profile of one step. (d)
+   ``train_4k``'s sequence (4096) with its **global batch cut from 256 to
+   2**, M=2, 2 steps. (e) ``whisper-medium`` training, B=2 x 64, M=1, 2
+   steps: finite loss, ``grad_norm`` > 0, peak. (f) At ``reduce_config``
+   width in float32: qwen3 and qwen2-moe M=1 against M=4 NLL (1e-5
+   relative), one step's gradients on the card against the CPU (1e-4 of
+   max|g|); ``launch.train.main(["--reduced", …])`` for 20 steps against
+   10 steps plus a second ``main`` that resumes from the checkpoint, with
+   default and with deterministic algorithms: bit-equal, or the differing
+   tensors printed and held at ``TRAIN_RESTART_TOL``.
+6. Print ``{"lm": {...}}`` (the numbers of phases 10–12, each beside its bound),
    ``{"kernels": [...]}`` (all four kernels; ``launches`` from
    phases 3 and 5, ``sharded_launches`` from phase 7, ``phase8_launches``
    from phase 8, ``phase9_launches`` from phase 9, and ``tm_imdb`` with the
@@ -204,6 +231,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
 from pathlib import Path
 
 import numpy as np
@@ -269,6 +297,22 @@ LM_FAMILIES_REDUCED = ("mixtral-8x7b",)
 LM_LAYERWISE = ("rwkv6-3b",)
 LM_PERTURBATION = 1e-3
 LM_RESIDENT_GB = 15.0
+# phase 12: whisper-medium served at full width, (batch, prompt, generated,
+# cache length), frames (B, 1500, 1024); training rows (key, arch, global
+# batch, seq, microbatches, steps, cell): qwen3-1.7b at B=8 x 512 for 20
+# steps, train_4k's sequence with its global batch cut from 256 to 2, and
+# whisper-medium at B=2 x 64; qwen3 and one MoE at reduce_config width for
+# the float32 checks; the train CLI's restart at reduced width
+WHISPER_SERVE = (4, 32, 16, 48)
+TRAIN_ROWS = (("train_qwen3", "qwen3-1.7b", 8, 512, 2, 20, "B8xS512"),
+              ("train_4k", "qwen3-1.7b", 2, 4096, 2, 2, "train_4k cut to B=2"),
+              ("train_whisper", "whisper-medium", 2, 64, 1, 2, "B2xS64"))
+TRAIN_REDUCED = ("qwen3-1.7b", "qwen2-moe-a2.7b")
+TRAIN_RESTART_STEPS = 20
+# a resumed run on the card may differ from the uninterrupted one where an
+# op accumulates in an order of its own (atomics); it is held at this
+# relative tolerance and the differing tensors are printed
+TRAIN_RESTART_TOL = 1e-3
 # Float32 against float32 (TF32 off) differs only in summation order: 1e-4
 # of max|logit|. bf16 against float32, or against bf16 summed in another
 # order, at full depth: 5e-2 of max|logit|. The CPU tests measured 0.3-0.9%
@@ -1728,14 +1772,20 @@ def phase9(cfg, state, inc, trained, gen, dev, card) -> dict:
 
 @contextlib.contextmanager
 def lm_compute_dtype(dtype):
-    """Run the port's LM in ``dtype`` (the module constant both packages'
-    tests patch), restoring bf16 after."""
-    from repro_torch.models import transformer
-    old, transformer.COMPUTE_DTYPE = transformer.COMPUTE_DTYPE, dtype
+    """Run the port's LM in ``dtype`` (the module constants both packages'
+    tests patch: the decoder stack's, whisper's and the train step's),
+    restoring bf16 after."""
+    from repro_torch import steps
+    from repro_torch.models import transformer, whisper
+    mods = (transformer, whisper, steps)
+    old = [m.COMPUTE_DTYPE for m in mods]
+    for m in mods:
+        m.COMPUTE_DTYPE = dtype
     try:
         yield
     finally:
-        transformer.COMPUTE_DTYPE = old
+        for m, o in zip(mods, old):
+            m.COMPUTE_DTYPE = o
 
 
 def lm_compare(got, want, tol: float, what: str) -> tuple[float, int]:
@@ -2192,11 +2242,11 @@ def lm_blockwise(dev, card) -> dict:
 
 
 def lm_reduced(dev, card, archs=LM_REDUCED) -> dict:
-    """Phase 10 (e) and 11 (d): configs at reduce_config width: float32 on
-    the card against float32 on the CPU (same weights), prefill then one
-    decode step against a longer prefill, and bf16 on the card against
-    float32; a MoE's prefill with the ``einsum`` dispatch against its
-    default ``sort`` one (float32)."""
+    """Phase 10 (e), 11 (d) and 12 (b): configs at reduce_config width:
+    float32 on the card against float32 on the CPU (same weights), prefill
+    then one decode step against a longer prefill, and bf16 on the card
+    against float32; a MoE's prefill with the ``einsum`` dispatch against
+    its default ``sort`` one (float32)."""
     from repro_torch.configs import get_config, reduce_config
     from repro_torch.models.model import build
 
@@ -2213,6 +2263,9 @@ def lm_reduced(dev, card, archs=LM_REDUCED) -> dict:
             n_vis = cfg.n_vision_tokens
             extra["vision_embeds"] = torch.from_numpy(
                 rng.normal(size=(2, n_vis, cfg.d_model)).astype(np.float32))
+        if cfg.family == "encdec":
+            extra["frames"] = torch.from_numpy(
+                rng.normal(size=(2, cfg.enc_seq, cfg.d_model)).astype(np.float32))
         card_extra = {k: v.to(dev) for k, v in extra.items()}
         with lm_compute_dtype(torch.float32):
             host, _ = m.prefill(cpu_params, 16, tokens=tokens, **extra)
@@ -2236,7 +2289,8 @@ def lm_reduced(dev, card, archs=LM_REDUCED) -> dict:
             r_moe, _ = lm_compare(le, full, LM_F32_TOL, f"{arch} einsum vs sort")
             out[arch]["einsum_vs_sort_f32_rel"] = r_moe
             moe = f"; einsum vs sort dispatch float32 {r_moe:.3e}"
-        print(f"lm {arch} (reduced{', vision prefix' if n_vis else ''}): card "
+        what = {"vlm": ", vision prefix", "encdec": ", frames"}.get(cfg.family, "")
+        print(f"lm {arch} (reduced{what}): card "
               f"vs CPU float32 {r_host:.3e}, prefill+decode vs prefill "
               f"{r_step:.3e} (tolerance {LM_F32_TOL}); bf16 vs float32 "
               f"{r16:.3e} (tolerance {LM_BF16_TOL}){moe} [{card}]")
@@ -2350,6 +2404,414 @@ def phase11(dev, card) -> dict:
     lm["phase11_tm_kernel_launches"] = launched
     print(f"phase 11 launches: {launched} (the MoE, RWKV and Griffin paths "
           f"reach no Pallas kernel of the reference, so none of the four; "
+          f"{resident:.3f} GB resident before it)")
+    return lm
+
+
+# ---------------------------------------------------------------------------
+# Phase 12: the encoder-decoder family and LM training
+# ---------------------------------------------------------------------------
+
+
+def whisper_work(cfg, params, batch: int, prompt: int, cache_tokens: int) -> dict:
+    """Least time (ms) of whisper's prefill of ``batch`` x ``prompt``
+    decoder tokens over ``cfg.enc_seq`` frames, and of one decode step
+    over ``cache_tokens`` cached tokens per row. Prefill: every weight
+    read once, the frames read and the cross K/V written; FLOPs of the
+    encoder (products and full attention), the cross K/V projections, the
+    decoder (products, causal and cross attention) and the logits at the
+    last position. Decode: the decoder's weights but the cross-attention's
+    ``wk`` / ``wv``, the tied table whole (the unembedding), the cross K/V
+    and the self-attention cache read; FLOPs of the products and both
+    attentions. bf16 weights and activations."""
+    elt = next(params.parameters()).element_size()
+    d, h, hd, s_enc = cfg.d_model, cfg.n_heads, cfg.head_dim_, cfg.enc_seq
+    n_enc, n_dec = cfg.n_enc_layers, cfg.n_layers
+
+    def count(prefix):
+        return sum(p.numel() for n, p in params.named_parameters()
+                   if n.startswith(prefix))
+
+    enc, dec = count("enc_layers."), count("layers.")
+    table = params.embed.tokens.numel()
+    xkv = n_dec * 2 * d * h * hd                  # cross wk, wv
+    cross_bytes = n_dec * 2 * batch * s_enc * h * hd * elt
+    pairs = prompt * (prompt + 1) / 2
+    enc_flops = 2 * enc * batch * s_enc + 4 * batch * h * hd * s_enc ** 2 * n_enc
+    prefill_flops = (enc_flops + 2 * xkv * batch * s_enc
+                     + 2 * (dec - xkv) * batch * prompt
+                     + 4 * batch * h * hd * (pairs + prompt * s_enc) * n_dec
+                     + 2 * table * batch)
+    w_bytes = sum(p.numel() * p.element_size() for p in params.parameters())
+    prefill_bytes = w_bytes + batch * s_enc * d * elt + cross_bytes
+    kv_bytes = n_dec * 2 * batch * cfg.n_kv_heads * hd * cache_tokens * elt
+    decode_bytes = (dec - xkv + table) * elt + cross_bytes + kv_bytes
+    decode_flops = (2 * (dec - xkv + table) * batch
+                    + 4 * batch * h * hd * (cache_tokens + s_enc) * n_dec)
+
+    def t(nbytes, flops):
+        return max(nbytes / PEAK_BYTES_PER_S, flops / PEAK_BF16_FLOPS_PER_S) * 1e3
+
+    def by(nbytes, flops):
+        return ("bytes" if nbytes / PEAK_BYTES_PER_S
+                >= flops / PEAK_BF16_FLOPS_PER_S else "operations")
+
+    return {"prefill_bound_ms": t(prefill_bytes, prefill_flops),
+            "prefill_bound_by": by(prefill_bytes, prefill_flops),
+            "decode_bound_ms": t(decode_bytes, decode_flops),
+            "decode_bound_by": by(decode_bytes, decode_flops),
+            "encoder_flops": enc_flops, "cross_kv_bytes": cross_bytes,
+            "weight_bytes_read": w_bytes, "kv_bytes": kv_bytes}
+
+
+def train_work(cfg, params, batch: int, seq: int) -> dict:
+    """Least time (ms) of one training step of ``batch`` x ``seq`` tokens:
+    6 FLOPs per matrix parameter per token it sees (a table's gather is no
+    product), 2 more per block parameter per token for the recomputed
+    forward with ``cfg.remat``, and attention (forward 4·B·H·Dh per pair
+    per layer, backward twice that, the recomputation once more) over the
+    bf16 rate; against the optimizer's float32 traffic (parameters,
+    gradients and both moments read; the parameters and moments written)
+    over the memory rate; the larger. An LM's blocks and unembedding see
+    the ``batch·seq`` tokens over causal pairs. Whisper's encoder blocks
+    see ``batch·enc_seq`` frames over full pairs, as do the cross K/V
+    projections (outside the recomputed block); the rest of the decoder
+    and the tied unembedding see the tokens, over causal and cross pairs."""
+    names = dict(params.named_parameters())
+    n_all = sum(p.numel() for p in names.values())
+    table = names["embed.tokens"].numel()
+
+    def count(*prefixes, has=""):
+        return sum(p.numel() for n, p in names.items()
+                   if n.startswith(prefixes) and has in n)
+
+    tokens = batch * seq
+    pairs = seq * (seq + 1) / 2
+    per_pair = 4 * batch * cfg.n_heads * cfg.head_dim_
+    if cfg.family == "encdec":
+        frames = batch * cfg.enc_seq
+        enc = count("enc_layers.")
+        xkv = count("layers.", has=".xattn.wk.") + count("layers.",
+                                                         has=".xattn.wv.")
+        dec = count("layers.") - xkv
+        products = enc * frames + xkv * frames + (dec + table) * tokens
+        recomputed = enc * frames + dec * tokens
+        attn_fwd = per_pair * (cfg.enc_seq ** 2 * cfg.n_enc_layers
+                               + (pairs + seq * cfg.enc_seq) * cfg.n_layers)
+    else:
+        blocks = count("layers.", "tail.")
+        head = table if cfg.tie_embeddings else names["lm_head.weight"].numel()
+        products = (blocks + head) * tokens
+        recomputed = blocks * tokens
+        attn_fwd = per_pair * pairs * cfg.n_layers
+    flops = (6 * products + 3 * attn_fwd
+             + ((2 * recomputed + attn_fwd) if cfg.remat else 0))
+    nbytes = 7 * 4 * n_all
+    t_ops = flops / PEAK_BF16_FLOPS_PER_S * 1e3
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    return {"step_bound_ms": max(t_ops, t_bytes),
+            "step_bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "step_flops": flops, "optimizer_bytes": nbytes}
+
+
+def whisper_frames(cfg, batch: int, dev) -> torch.Tensor:
+    """Stub frame embeddings: ``default_rng(0).normal x 0.02`` in bf16."""
+    rng = np.random.default_rng(SEED)
+    return torch.from_numpy((rng.normal(size=(batch, cfg.enc_seq, cfg.d_model))
+                             * 0.02).astype(np.float32)).to(
+        device=dev, dtype=torch.bfloat16)
+
+
+def whisper_serve(dev, card) -> dict:
+    """Phase 12 (a): whisper-medium at full width through the ``Model``
+    facade (the serve CLI refuses encdec, as the reference's does): prefill
+    of ``WHISPER_SERVE`` prompts over the frames and greedy decode, twice
+    (the second reported, both must generate the same tokens); the bf16
+    prefill against a float32 one, and a prefill of the first token plus
+    the remaining prompt tokens as decode steps against the full prefill;
+    logits compared over the real vocabulary (the pad columns read
+    -2**30)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models.model import build
+
+    batch, prompt, gen, cache_len = WHISPER_SERVE
+    cfg = get_config("whisper-medium")
+    m = build(cfg)
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated()
+    params = m.init(torch.Generator(device=dev).manual_seed(serve.SEED))
+    n_params = sum(p.numel() for p in params.parameters())
+    frames = whisper_frames(cfg, batch, dev)
+    prompts = serve.make_prompts(cfg, batch, prompt, dev)
+    with lm_compute_dtype(torch.float32):
+        l32, _ = m.prefill(params, cache_len, tokens=prompts, frames=frames)
+    params = params.to(torch.bfloat16)
+    torch.cuda.reset_peak_memory_stats()
+
+    def serve_once():
+        (logits, cache), t_pre = synced_ms(lambda: m.prefill(
+            params, cache_len, tokens=prompts, frames=frames))
+        tok = logits.argmax(-1)[:, None].to(torch.int32)
+        out = [tok]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(gen - 1):
+            pos = torch.full((batch,), prompt + i, dtype=torch.int32, device=dev)
+            logits, cache = m.decode_step(params, tok, cache, pos)
+            tok = logits.argmax(-1)[:, None].to(torch.int32)
+            out.append(tok)
+        torch.cuda.synchronize()
+        t_dec = (time.perf_counter() - t0) * 1e3 / (gen - 1)
+        return torch.cat(out, 1).cpu().numpy(), t_pre, t_dec, logits, cache
+
+    first = serve_once()[:3]
+    gens, t_pre, t_dec, logits, cache = serve_once()
+    peak = (torch.cuda.max_memory_allocated() - resident) / 1e9
+    require(np.array_equal(first[0], gens), "whisper: two runs generated "
+            "different tokens")
+    require(bool((logits[:, cfg.vocab:] == -2.0 ** 30).all()),
+            "whisper: pad columns are not masked")
+    v = cfg.vocab
+    l16, _ = m.prefill(params, cache_len, tokens=prompts, frames=frames)
+    require(np.array_equal(l16.argmax(-1).cpu().numpy(), gens[:, 0]),
+            "whisper: the first token is not the prefill's argmax")
+    rel32, rows32 = lm_compare(l16[:, :v], l32[:, :v], LM_BF16_TOL,
+                               "whisper-medium bf16 vs float32")
+    del l32
+    step, dcache = m.prefill(params, cache_len, tokens=prompts[:, :1],
+                             frames=frames)
+    for i in range(1, prompt):
+        pos = torch.full((batch,), i, dtype=torch.int32, device=dev)
+        step, dcache = m.decode_step(params, prompts[:, i:i + 1], dcache, pos)
+    rel_dec, rows_dec = lm_compare(step[:, :v], l16[:, :v], LM_BF16_TOL,
+                                   f"whisper-medium prefill(1) + {prompt - 1} "
+                                   "decode steps vs prefill")
+    shapes = {part: {k: (tuple(x.shape), str(x.dtype)) for k, x in block.items()}
+              for part, block in cache.items()}
+    require(shapes["cross"]["k"][0] == (cfg.n_layers, batch, cfg.enc_seq,
+                                        cfg.n_heads, cfg.head_dim_),
+            f"whisper cross cache {shapes['cross']}")
+    tok = logits.argmax(-1)[:, None].to(torch.int32)
+    pos = torch.full((batch,), prompt + gen - 1, dtype=torch.int32, device=dev)
+    prof = lm_profile(lambda: m.decode_step(params, tok, cache, pos),
+                      f"whisper-medium decode step B={batch}", card)
+    work = whisper_work(cfg, params, batch, prompt, prompt + gen // 2)
+    out = {"param_count": n_params, "param_bytes": 2 * n_params,
+           "batch": batch, "prompt_len": prompt, "gen": gen,
+           "cache_len": cache_len, "cache": shapes,
+           "prefill_ms": t_pre, "prefill_tok_s": batch * prompt / t_pre * 1e3,
+           "decode_ms_per_step": t_dec, "decode_tok_s": batch / t_dec * 1e3,
+           "first_prefill_ms": first[1], "first_decode_ms_per_step": first[2],
+           "peak_gb_above_resident": peak, "bf16_vs_f32_rel": rel32,
+           "bf16_vs_f32_rows": rows32, "decode_vs_prefill_rel": rel_dec,
+           "decode_vs_prefill_rows": rows_dec, "decode_profile": prof, **work}
+    print(f"lm whisper-medium (full width, {n_params} params, "
+          f"{2 * n_params / 1e9:.3f} GB bf16; cross K/V "
+          f"{work['cross_kv_bytes'] / 1e9:.3f} GB) B={batch} frames="
+          f"{cfg.enc_seq} prompt={prompt} gen={gen}: prefill {t_pre:.3f} ms "
+          f"({out['prefill_tok_s']:.0f} tok/s; bound "
+          f"{work['prefill_bound_ms']:.3f} ms, {work['prefill_bound_by']}), "
+          f"decode {t_dec:.3f} ms/step ({out['decode_tok_s']:.0f} tok/s; bound "
+          f"{work['decode_bound_ms']:.3f} ms, {work['decode_bound_by']}); first "
+          f"run {first[1]:.3f} / {first[2]:.3f}; peak {peak:.3f} GB above "
+          f"resident; bf16 vs float32 prefill {rel32:.3e} of max|logit| "
+          f"({rows32} of {batch} argmax held), prefill(1) + {prompt - 1} decode "
+          f"steps vs prefill {rel_dec:.3e} ({rows_dec} held), tolerance "
+          f"{LM_BF16_TOL} [{card}]")
+    return out
+
+
+def train_batches(cfg, batch: int, seq: int, steps: int, dev, frames=None):
+    """``TokenBatcher(seed=0)`` batches 0 … steps-1 on the card (made
+    before the timed steps), with ``frames`` for encdec."""
+    from repro_torch.data.pipeline import TokenBatcher
+
+    batcher = TokenBatcher(cfg.vocab, batch, seq, seed=SEED)
+    out = []
+    for i in range(steps):
+        b = {k: torch.from_numpy(v).to(dev) for k, v in batcher(i).items()}
+        if frames is not None:
+            b["frames"] = frames
+        out.append(b)
+    return out
+
+
+def lm_train_row(arch: str, batch: int, seq: int, micro: int, steps: int, dev,
+                 card, what: str, profile: bool = False) -> dict:
+    """Phase 12 (c)-(e): ``steps`` steps of ``make_train_step`` at full
+    width (``cfg.remat`` as published: on), ``compress="none"``, peak lr
+    1e-3 after 5 warmup steps: step ms (each step ends in a device sync;
+    the median of the steps after the first two, or the last one), tok/s,
+    peak memory above what was resident, the metrics of every step."""
+    from repro_torch import steps as steps_mod
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.models.model import build
+
+    cfg = get_config(arch)
+    require(cfg.remat, f"{arch}: remat is off in the published config")
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    step = steps_mod.make_train_step(
+        cfg, ShapeSpec(what, "train", seq, batch), microbatches=micro,
+        compress="none", peak_lr=1e-3, warmup_steps=5, total_steps=1000)
+    params = steps_mod._init_for(build(cfg), cfg, torch.Generator(
+        device=dev).manual_seed(SEED))
+    n_params = sum(p.numel() for p in params.parameters())
+    state = steps_mod.init_train_state(params)
+    frames = whisper_frames(cfg, batch, dev) if cfg.family == "encdec" else None
+    batches = train_batches(cfg, batch, seq, steps, dev, frames)
+    log, ms = [], []
+    for i, b in enumerate(batches):
+        (state, met), t = synced_ms(lambda: step.fn(state, b))
+        log.append({k: float(v) for k, v in met.items()})
+        ms.append(t)
+        require(all(math.isfinite(x) for x in log[-1].values()),
+                f"{arch} {what} step {i}: non-finite metrics {log[-1]}")
+    peak = (torch.cuda.max_memory_allocated() - resident) / 1e9
+    step_ms = float(np.median(ms[2:])) if len(ms) > 2 else ms[-1]
+    ckpt_gb = sum(t.numel() * t.element_size() for t in
+                  steps_mod.train_state_to_ckpt(state).values()) / 1e9
+    out = {"arch": arch, "batch": batch, "seq": seq, "microbatches": micro,
+           "steps": steps, "param_count": n_params, "remat": cfg.remat,
+           "step_ms": step_ms, "step_ms_all": ms,
+           "tok_s": batch * seq / step_ms * 1e3, "peak_gb_above_resident": peak,
+           "train_state_ckpt_gb": ckpt_gb, "metrics": log}
+    out.update(train_work(cfg, params, batch, seq))
+    if profile:
+        b = batches[-1]
+        out["step_profile"] = lm_profile(lambda: step.fn(state, b),
+                                         f"{arch} train step B={batch} S={seq} "
+                                         f"M={micro}", card)
+    bound = f" (bound {out['step_bound_ms']:.3f} ms, {out['step_bound_by']})"
+    print(f"lm train {arch} {what} (full width, {n_params} params, remat on) "
+          f"B={batch} S={seq} M={micro}, {steps} steps: step {step_ms:.3f} ms"
+          f"{bound}, {out['tok_s']:.0f} tok/s, first step {ms[0]:.3f} ms; peak "
+          f"{peak:.3f} GB above resident; train-state checkpoint {ckpt_gb:.3f} "
+          f"GB; nll {log[0]['nll']:.4f} -> {log[-1]['nll']:.4f}, loss "
+          f"{log[-1]['loss']:.4f}, grad_norm {log[-1]['grad_norm']:.4f}, lr "
+          f"{log[-1]['lr']:.2e} [{card}]")
+    del state, params
+    torch.cuda.empty_cache()
+    return out
+
+
+def reduced_train_checks(dev, card) -> dict:
+    """Phase 12 (f): at ``reduce_config`` width in float32 (TF32 off): M=1
+    against M=4 NLL; one step on the card against the CPU (``peak_lr=0``,
+    so the first moment holds the clipped gradients); and
+    ``launch.train.main(["--reduced", …])`` uninterrupted against a run of
+    half the steps resumed from its checkpoint by a second ``main``, on the
+    card, with and without ``torch.use_deterministic_algorithms``."""
+    from repro_torch import steps as steps_mod
+    from repro_torch.configs import get_config, reduce_config
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.launch import train
+    from repro_torch.models.model import build
+
+    out = {}
+    shape = ShapeSpec("reduced", "train", 32, 8)
+    with lm_compute_dtype(torch.float32):
+        for arch in TRAIN_REDUCED:
+            cfg = reduce_config(get_config(arch))
+            host = steps_mod.init_train_state(
+                build(cfg).init(torch.Generator().manual_seed(SEED)))
+            b_host = train_batches(cfg, 8, 32, 1, torch.device("cpu"))[0]
+            b_card = {k: v.to(dev) for k, v in b_host.items()}
+            nll = {}
+            for micro in (1, 4):
+                card_state = steps_mod.init_train_state(
+                    copy.deepcopy(host["params"]).to(dev))
+                st = steps_mod.make_train_step(cfg, shape, microbatches=micro,
+                                               peak_lr=0.0, warmup_steps=0)
+                card_state, met = st.fn(card_state, dict(b_card))
+                nll[micro] = float(met["nll"])
+            rel_m = abs(nll[1] - nll[4]) / abs(nll[1])
+            require(rel_m <= 1e-5, f"{arch}: M=1 vs M=4 nll {nll}")
+            host, met_h = st.fn(host, dict(b_host))        # M=4 on the CPU
+            scale = max(float(t.abs().max()) for t in host["opt"].mu.values())
+            err = max(float((card_state["opt"].mu[n].cpu() - t).abs().max())
+                      for n, t in host["opt"].mu.items())
+            require(err <= 1e-4 * scale, f"{arch}: card vs CPU gradients "
+                    f"{err:.3e} of {scale:.3e}")
+            out[arch] = {"micro_1_vs_4_nll_rel": rel_m,
+                         "card_vs_cpu_grad_rel": err / scale}
+            print(f"lm train {arch} (reduced, float32): M=1 vs M=4 nll "
+                  f"{rel_m:.3e} (tolerance 1e-5); one step card vs CPU gradients "
+                  f"{err / scale:.3e} of max|g| (tolerance 1e-4) [{card}]")
+    argv = ["--reduced", "--steps", str(TRAIN_RESTART_STEPS), "--batch", "8",
+            "--seq", "64"]
+    half = argv[:2] + [str(TRAIN_RESTART_STEPS // 2)] + argv[3:]
+    for deterministic in (False, True):
+        # warn_only: an op with no deterministic form warns (named below)
+        # instead of raising, and the run goes on
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.use_deterministic_algorithms(deterministic, warn_only=True)
+            try:
+                with tempfile.TemporaryDirectory() as tmp:
+                    whole = train.main(argv + ["--ckpt-dir", f"{tmp}/whole"])
+                    train.main(half + ["--ckpt-dir", f"{tmp}/resumed"])
+                    resumed = train.main(argv + ["--ckpt-dir", f"{tmp}/resumed"])
+            finally:
+                torch.use_deterministic_algorithms(False)
+        notes = sorted({str(w.message).splitlines()[0][:200] for w in caught
+                        if "determinis" in str(w.message)})
+        want = steps_mod.train_state_to_ckpt(whole["state"])
+        got = steps_mod.train_state_to_ckpt(resumed["state"])
+        differ = sorted(k for k in want if not torch.equal(got[k], want[k]))
+        rel = max((float((got[k].float() - want[k].float()).abs().max()
+                         / want[k].float().abs().max().clamp(min=1e-30))
+                   for k in differ), default=0.0)
+        key = "deterministic" if deterministic else "default"
+        out[f"restart_{key}"] = {"bit_equal": not differ, "tensors_differ":
+                                 len(differ), "first_differ": differ[:3],
+                                 "max_rel": rel, "warnings": notes,
+                                 "end_step": resumed["end_step"]}
+        require(resumed["end_step"] == TRAIN_RESTART_STEPS,
+                f"restart ended at {resumed['end_step']}")
+        require(rel <= TRAIN_RESTART_TOL, f"restart ({key}): resumed train "
+                f"state {rel:.3e} from the uninterrupted one")
+        print(f"lm train CLI qwen3-1.7b (reduced) {TRAIN_RESTART_STEPS} steps "
+              f"against {TRAIN_RESTART_STEPS // 2} + a restart from the "
+              f"checkpoint ({key} algorithms): "
+              + ("bit-equal" if not differ else
+                 f"{len(differ)} of {len(want)} tensors differ (first "
+                 f"{differ[:3]}), max {rel:.3e} relative, tolerance "
+                 f"{TRAIN_RESTART_TOL}") + f"; warnings: {notes or 'none'} [{card}]")
+    return out
+
+
+def phase12(dev, card) -> dict:
+    """Phase 12: whisper serving and LM training. Returns its part of the
+    ``lm`` record."""
+    torch.cuda.empty_cache()
+    resident = torch.cuda.memory_allocated() / 1e9
+    require(resident <= LM_RESIDENT_GB,
+            f"earlier phases leave {resident:.3f} GB on the card")
+    counts = Counts()
+    counts.reset()
+    lm = {"whisper-medium": whisper_serve(dev, card)}
+    torch.cuda.empty_cache()
+    lm["whisper_reduced"] = lm_reduced(dev, card, ("whisper-medium",))
+    for key, arch, batch, seq, micro, n, what in TRAIN_ROWS:
+        lm[key] = lm_train_row(arch, batch, seq, micro, n, dev, card, what,
+                               profile=key == "train_qwen3")
+    first, last = (lm["train_qwen3"]["metrics"][i]["nll"] for i in (0, -1))
+    require(last <= first - 0.1, f"qwen3 training: nll {first} -> {last}")
+    whisper_train = lm["train_whisper"]["metrics"]
+    require(all(m["grad_norm"] > 0 for m in whisper_train),
+            f"whisper training: zero gradient {whisper_train}")
+    lm["reduced_train"] = reduced_train_checks(dev, card)
+    launched = counts.read()
+    require(not any(launched.values()),
+            f"the LM path launched a TM kernel: {launched}")
+    lm["phase12_tm_kernel_launches"] = launched
+    print(f"phase 12 launches: {launched} (whisper and LM training reach no "
+          f"Pallas kernel of the reference, so none of the four; "
           f"{resident:.3f} GB resident before it)")
     return lm
 
@@ -2525,6 +2987,11 @@ def main() -> int:
     t0 = time.perf_counter()
     lm.update(phase11(dev, card))
     print(f"phase 11: {time.perf_counter() - t0:.1f} s wall")
+
+    # -- 12. whisper serving and LM training --------------------------------------
+    t0 = time.perf_counter()
+    lm.update(phase12(dev, card))
+    print(f"phase 12: {time.perf_counter() - t0:.1f} s wall")
 
     # -- 6. report ----------------------------------------------------------
     top = BATCHES[-1]

@@ -48,9 +48,13 @@ def _flatten(tree, prefix=()) -> dict:
 
 
 def _to_numpy(leaf) -> np.ndarray:
+    """A host copy of ``leaf`` that later in-place updates cannot reach:
+    ``.cpu()`` copies a device tensor, and a host tensor or array is
+    cloned, since the writer thread serialises it after ``save`` returns."""
     if isinstance(leaf, torch.Tensor):
-        return leaf.detach().cpu().numpy()
-    return np.asarray(leaf)
+        t = leaf.detach()
+        return (t.cpu() if t.device.type != "cpu" else t.clone()).numpy()
+    return np.array(leaf, copy=True)
 
 
 class Checkpointer:

@@ -1,9 +1,8 @@
 """Config registry: the assigned LM architectures (the port's own copy of
 ``repro.configs``) and, in ``configs/tm.py``, the paper's TM configurations.
 
-Every architecture's config is data and is registered here, including the
-families whose layers the port does not run yet (MoE, recurrent,
-encoder–decoder): ``SKIPPED_CELLS`` reads every config.
+Every architecture's config is data and is registered here;
+``SKIPPED_CELLS`` reads every config.
 """
 from __future__ import annotations
 

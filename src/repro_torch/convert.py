@@ -14,7 +14,7 @@ identical uniforms.
 
 LM weights cross with :func:`lm_params_from_reference`: the reference's
 param pytree, as nested dicts of numpy arrays, becomes the port's ``LM``
-module::
+module (``Whisper`` for the encoder-decoder family)::
 
     params_np = jax.tree.map(np.asarray, jax_model.init(jax.random.key(0)))
     params = lm_params_from_reference(cfg, params_np, "cuda")
@@ -29,6 +29,7 @@ import torch
 from repro_torch.core.tm import FeedbackRands, SampleDraws
 from repro_torch.core.types import TMConfig, TMState, resolve_device
 from repro_torch.models.transformer import LM
+from repro_torch.models.whisper import Whisper
 
 
 def config_from_reference(jax_cfg_fields: dict) -> TMConfig:
@@ -112,27 +113,37 @@ def _lm_target(path: tuple, names) -> tuple[str, bool]:
     return ".".join(path), False
 
 
+_STACKED = ("layers", "enc_layers")
+
+
 @torch.no_grad()
-def lm_params_from_reference(cfg, params_np: dict, device) -> LM:
-    """The port's float32 ``LM`` on ``device`` holding the reference's
-    weights (``cfg`` is the port's ``ModelConfig``).
+def lm_params_from_reference(cfg, params_np: dict, device) -> LM | Whisper:
+    """The port's float32 ``LM`` (``Whisper`` for encdec) on ``device``
+    holding the reference's weights (``cfg`` is the port's ``ModelConfig``).
 
     ``params_np`` is the reference's tree as nested dicts (and, for a
     hybrid's ``tail``, a list) of arrays: layers stacked ``(L, …)`` under
     ``layers/b{i}_{kind}``, ``embed/tokens``, ``final_norm``, ``tail/{i}``
-    and, untied, ``lm_head``. Any float dtype is taken through float32
-    (exact for bf16); cast the result with ``.to`` for bf16 serving. Every
-    leaf lands in exactly one parameter and every parameter is filled, or
-    this raises ``ValueError``.
+    and, untied, ``lm_head``; whisper's under ``enc_layers/…`` and
+    ``layers/…`` (stacked), ``enc_norm``, ``pos_embed`` (its rows set the
+    module's ``max_dec_positions``) and the padded ``embed/tokens``. Any
+    float dtype is taken through float32 (exact for bf16); cast the result
+    with ``.to`` for bf16 serving. Every leaf lands in exactly one
+    parameter and every parameter is filled, or this raises ``ValueError``.
     """
     dev = resolve_device(device)
-    params = LM(cfg, dev)
+    if cfg.family == "encdec":
+        pos = params_np.get("pos_embed")
+        params = Whisper(cfg, dev, max_dec_positions=(
+            4096 if pos is None else np.shape(pos)[0]))
+    else:
+        params = LM(cfg, dev)
     left = dict(params.named_parameters())
     names = set(left)
     for path, arr in _lm_leaves(params_np):
         arr = np.array(arr, dtype=np.float32)    # a writable copy
-        if path[0] == "layers":                  # ("layers", key, …) stacked
-            targets = [(_lm_target(("layers", str(j)) + path[1:], names), arr[j])
+        if path[0] in _STACKED:                  # ("layers", key, …) stacked
+            targets = [(_lm_target((path[0], str(j)) + path[1:], names), arr[j])
                        for j in range(arr.shape[0])]
         else:
             targets = [(_lm_target(path, names), arr)]

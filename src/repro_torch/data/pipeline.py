@@ -1,9 +1,9 @@
-"""Deterministic TM batch stream and background prefetch (the port's own
-copies of ``repro.data.pipeline.TMBatcher`` and ``Prefetcher``): a batch
-is a pure function of (seed, step), so a restarted run replays the exact
-batch sequence from its checkpointed step, and both packages see the same
-batches; ``Prefetcher`` prepares the next batches on a host thread while
-the device works on the current step.
+"""Deterministic batch streams and background prefetch (the port's own
+copies of ``repro.data.pipeline``'s ``TokenBatcher``, ``TMBatcher`` and
+``Prefetcher``): a batch is a pure function of (seed, step), so a
+restarted run replays the exact batch sequence from its checkpointed step,
+and both packages see the same batches; ``Prefetcher`` prepares the next
+batches on a host thread while the device works on the current step.
 """
 from __future__ import annotations
 
@@ -13,7 +13,34 @@ from typing import Callable, Iterator
 
 import numpy as np
 
-from repro_torch.data.synthetic import templated_images
+from repro_torch.data.synthetic import templated_images, token_stream
+
+
+class TokenBatcher:
+    """Deterministic (seed, step) → LM batch {"tokens", "labels"}, each
+    (B, S) int32 numpy, labels the tokens shifted by one. ``shard_index`` /
+    ``shard_count`` give this shard's ``B / shard_count`` rows, drawn from
+    a stream of its own (the reference's folding of (seed, step, shard)
+    into the stream's seed)."""
+
+    def __init__(self, vocab: int, batch: int, seq: int, *, seed: int = 0,
+                 shard_index: int = 0, shard_count: int = 1):
+        if shard_count < 1 or batch % shard_count:
+            raise ValueError(f"batch={batch} must be a multiple of "
+                             f"shard_count={shard_count} (>= 1)")
+        self.vocab, self.batch, self.seq = vocab, batch, seq
+        self.seed = seed
+        self.shard_index, self.shard_count = shard_index, shard_count
+        self.local_batch = batch // shard_count
+
+    def __call__(self, step: int) -> dict:
+        n = self.local_batch * (self.seq + 1)
+        toks = token_stream(
+            n, self.vocab,
+            seed=(self.seed * 1_000_003 + step * 613 + self.shard_index))
+        toks = toks.reshape(self.local_batch, self.seq + 1)
+        return {"tokens": toks[:, :-1].astype(np.int32),
+                "labels": toks[:, 1:].astype(np.int32)}
 
 
 class TMBatcher:

@@ -1,9 +1,10 @@
-"""Synthetic TM data (the port's own copy of the TM generators in
+"""Synthetic data (the port's own copy of the generators in
 ``repro.data.synthetic``): distribution-matched stand-ins for the paper's
-datasets — binarized MNIST/F-MNIST images (class templates with ~20-40%
+TM datasets — binarized MNIST/F-MNIST images (class templates with ~20-40%
 active bits and per-pixel flip noise) and IMDb bags of words (~1% active
-terms, the sparsity behind the paper's 0.006 work ratio). Seeded numpy, so
-both packages see the same data.
+terms, the sparsity behind the paper's 0.006 work ratio) — and the LM
+scaffold's Zipfian token stream. Seeded numpy, so both packages see the
+same data.
 """
 from __future__ import annotations
 
@@ -40,3 +41,20 @@ def bow_documents(n, o, n_classes=2, *, active_frac=0.01, signal=40, seed=0):
         take = rng.integers(0, signal, max(2, signal // 4))
         x[i, sig[y[i], take]] = 1
     return x, y
+
+
+def token_stream(n_tokens, vocab, *, seed=0, ngram=8, n_patterns=512):
+    """Zipfian tokens (int32) with injected repeated n-grams: the learnable
+    signal of the LM training examples."""
+    rng = np.random.default_rng(seed)
+    ranks = np.arange(1, vocab + 1, dtype=np.float64)
+    probs = 1.0 / ranks
+    probs /= probs.sum()
+    toks = rng.choice(vocab, size=n_tokens, p=probs).astype(np.int32)
+    patterns = rng.choice(vocab, size=(n_patterns, ngram), p=probs)
+    n_inject = n_tokens // (ngram * 4)
+    pos = rng.integers(0, max(1, n_tokens - ngram), n_inject)
+    pat = rng.integers(0, n_patterns, n_inject)
+    for p, q in zip(pos, pat):
+        toks[p:p + ngram] = patterns[q]
+    return toks

@@ -1,2 +1,2 @@
 """LM model zoo of the port: the dense, MoE, VLM, RWKV-6 (ssm) and Griffin
-(hybrid) decoder families; the encoder-decoder family is not ported yet."""
+(hybrid) decoder families and the whisper encoder-decoder family."""

@@ -274,3 +274,31 @@ def decode_attend(p: Attention, x, cache, pos, *, n_heads, n_kv_heads,
     out = acc / torch.clamp(l, min=1e-30)[..., None]
     out = out.reshape(b, 1, n_heads * head_dim).to(x.dtype)
     return F.linear(out, p.wo.weight.to(x.dtype)), cache
+
+
+# ---------------------------------------------------------------------------
+# Cross-attention (the encoder-decoder family)
+# ---------------------------------------------------------------------------
+
+
+def cross_attend(p: Attention, x, enc_kv, *, n_heads, n_kv_heads, head_dim):
+    """Cross-attention of x (B, S, D) to precomputed encoder K/V, each
+    (B, S_enc, Hkv, Dh): dense ``_sdpa`` with every encoder position
+    allowed, no rope (whisper's decoder). ``n_kv_heads`` is the K/V's head
+    count (the reference's signature; the tensors carry it too)."""
+    b, s, _ = x.shape
+    q = F.linear(x, p.wq.weight.to(x.dtype)).reshape(b, s, n_heads, head_dim)
+    k, v = enc_kv
+    mask = torch.ones((b, s, k.shape[1]), dtype=torch.bool, device=x.device)
+    out = _sdpa(q, k, v, mask, head_dim ** -0.5).reshape(b, s, n_heads * head_dim)
+    return F.linear(out, p.wo.weight.to(x.dtype))
+
+
+def encoder_kv(p: Attention, enc_out, *, n_kv_heads, head_dim):
+    """The encoder output (B, S_enc, D) projected by ``wk`` / ``wv`` into
+    the cross-attention's K and V, each (B, S_enc, Hkv, Dh)."""
+    b, s, _ = enc_out.shape
+    k = F.linear(enc_out, p.wk.weight.to(enc_out.dtype))
+    v = F.linear(enc_out, p.wv.weight.to(enc_out.dtype))
+    return (k.reshape(b, s, n_kv_heads, head_dim),
+            v.reshape(b, s, n_kv_heads, head_dim))

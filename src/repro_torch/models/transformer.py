@@ -1,5 +1,6 @@
 """Decoder-only LM assembly: the dense, moe, vlm, ssm and hybrid families
-(the port's ``repro.models.transformer``).
+(the port's ``repro.models.transformer``; the encoder-decoder family is
+``models/whisper.py``).
 
 The layer stack is an ``nn.ModuleList`` of groups walked in Python; each
 group is an ``nn.ModuleDict`` keyed ``b{i}_{kind}`` as the reference's
@@ -30,6 +31,7 @@ import functools
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.types import resolve_device
@@ -52,17 +54,6 @@ from repro_torch.models.mlp import MLP, init_mlp, mlp
 from repro_torch.models.moe import MoE, init_moe, moe_block
 
 COMPUTE_DTYPE = torch.bfloat16
-
-
-_LATER = {"encdec": "the encoder-decoder slice (models/whisper.py)"}
-
-
-def not_ported(family: str) -> NotImplementedError:
-    """The error for a family whose layers a later slice of the port brings."""
-    return NotImplementedError(
-        f"the {family!r} family is not ported yet: it comes with "
-        f"{_LATER[family]}; the port runs the dense, moe, vlm, ssm and "
-        "hybrid families")
 
 
 def _norm_fns(cfg):
@@ -235,9 +226,8 @@ def _plan(cfg: ModelConfig):
         kinds = tuple("attn_mlp" if k == "attn" else "rec_mlp" for k in pat)
         n = cfg.n_layers // len(pat)
         return kinds, n, kinds[:cfg.n_layers - n * len(pat)]
-    if cfg.family in _LATER:
-        raise not_ported(cfg.family)
-    raise ValueError(cfg.family)
+    raise ValueError(f"{cfg.family!r}: not a decoder-only family (the "
+                     "encoder-decoder family is models/whisper.py)")
 
 
 def _window_for(cfg: ModelConfig, kind: str):
@@ -387,23 +377,46 @@ def _store(cache: dict, new: dict) -> None:
             t.copy_(new[name])
 
 
+def _train_group(group, cfg, kinds, x, positions):
+    """One group of blocks without caches; returns (x, aux of the group)."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i, kind in enumerate(kinds):
+        x, _, a = _apply_block(group[f"b{i}_{kind}"], cfg, kind, x, positions,
+                               None, False)
+        aux = aux + a
+    return x, aux
+
+
+def maybe_checkpoint(fn, cfg, *args):
+    """``fn(*args)``, recomputed in the backward pass
+    (``torch.utils.checkpoint``, the reference's ``jax.checkpoint``) when
+    ``cfg.remat`` is set and autograd is on; a plain call otherwise."""
+    if cfg.remat and torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
+
+
 def _run_stack(cfg, params: LM, x, positions, caches, decode):
     """Walk the layer stack and the tail; returns (x, caches, aux summed
     over the blocks). With ``caches``, each block reads and writes its
-    slice of the cache in place."""
+    slice of the cache in place. In training (no caches) each group goes
+    through ``maybe_checkpoint``; the tail is not recomputed."""
     kinds, _, tail = _plan(cfg)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for j, group in enumerate(params.layers):
-        for i, kind in enumerate(kinds):
-            key = f"b{i}_{kind}"
-            cache = None
-            if caches is not None:
-                cache = {name: t[j] for name, t in caches["layers"][key].items()}
-            x, new, a = _apply_block(group[key], cfg, kind, x, positions,
-                                     cache, decode)
-            if cache is not None:
-                _store(cache, new)
+    if caches is None:
+        for group in params.layers:
+            x, a = maybe_checkpoint(_train_group, cfg, group, cfg, kinds, x,
+                                    positions)
             aux = aux + a
+    else:
+        for j, group in enumerate(params.layers):
+            for i, kind in enumerate(kinds):
+                key = f"b{i}_{kind}"
+                cache = {name: t[j] for name, t in caches["layers"][key].items()}
+                x, new, a = _apply_block(group[key], cfg, kind, x, positions,
+                                         cache, decode)
+                _store(cache, new)
+                aux = aux + a
     for i, kind in enumerate(tail):
         cache = None if caches is None else caches["tail"][i]
         x, new, a = _apply_block(params.tail[i], cfg, kind, x, positions,

@@ -1,0 +1,325 @@
+"""Whisper-medium backbone (arXiv:2212.04356): the encoder-decoder family
+(the port's ``repro.models.whisper``).
+
+As in the reference, the conv/audio frontend is a stub: the model takes
+precomputed frame embeddings ``frames`` (B, enc_seq, d). The encoder adds
+sinusoidal positions and runs full (bidirectional) attention; the decoder
+is a causal transformer with learned positions and cross-attention to the
+encoder output. Pre-LayerNorm, non-gated GELU MLPs, no rope, and the
+unembedding tied to a token table padded to a multiple of 128 rows (the
+pad columns' logits are masked to ``-2**30``).
+
+Caches keep the reference's layout: ``{"layers": {"k": (L, B, Hkv, S, Dh),
+"v": …, "pos": (L, B, S)}, "cross": {"k": (L, B, S_enc, H, Dh), "v": …}}``.
+Prefill fills the self-attention part from the prompt and the cross part
+from one encoder pass; ``decode_step`` writes each token into the
+self-attention cache in place and reads the cross K/V unchanged.
+
+API (functions of the config and a ``Whisper`` module):
+  init_params(gen, cfg, max_dec_positions)       → Whisper
+  encode(cfg, params, frames)                    → encoder states
+  apply_train(cfg, params, tokens, frames)       → (logits, aux=0)
+  prefill(cfg, params, tokens, frames, cache_len) → (logits_last, cache)
+  decode_step(cfg, params, token, cache, pos)    → (logits, cache)
+  init_dec_cache(cfg, batch, cache_len, enc_seq) → cache
+"""
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core.types import resolve_device
+from repro_torch.models import attention as attn_mod
+from repro_torch.models import transformer
+from repro_torch.models.common import (
+    Embed,
+    LayerNorm,
+    embed,
+    layernorm,
+    sinusoidal_positions,
+    truncated_normal_,
+    unembed,
+)
+from repro_torch.models.mlp import MLP, init_mlp, mlp
+
+COMPUTE_DTYPE = torch.bfloat16
+
+
+class EncBlock(nn.Module):
+    """``norm1``, ``attn``, ``norm2``, ``mlp`` (non-gated)."""
+
+    def __init__(self, cfg: ModelConfig, attn: attn_mod.Attention, mlp_: MLP):
+        super().__init__()
+        device = attn.wq.weight.device
+        self.norm1 = LayerNorm(cfg.d_model, device)
+        self.norm2 = LayerNorm(cfg.d_model, device)
+        self.attn = attn
+        self.mlp = mlp_
+
+
+class DecBlock(nn.Module):
+    """``norm1``, ``attn`` (causal self-attention), ``norm_x``, ``xattn``
+    (cross-attention, kv heads = ``n_heads``), ``norm2``, ``mlp``."""
+
+    def __init__(self, cfg: ModelConfig, attn: attn_mod.Attention,
+                 xattn: attn_mod.Attention, mlp_: MLP):
+        super().__init__()
+        device = attn.wq.weight.device
+        self.norm1 = LayerNorm(cfg.d_model, device)
+        self.norm_x = LayerNorm(cfg.d_model, device)
+        self.norm2 = LayerNorm(cfg.d_model, device)
+        self.attn = attn
+        self.xattn = xattn
+        self.mlp = mlp_
+
+
+def _attention(cfg: ModelConfig, n_kv_heads: int, device=None, gen=None):
+    if gen is not None:
+        return attn_mod.init_attention(gen, cfg.d_model, cfg.n_heads,
+                                       n_kv_heads, cfg.head_dim_)
+    return attn_mod.Attention(cfg.d_model, cfg.n_heads, n_kv_heads,
+                              cfg.head_dim_, device=device)
+
+
+def _mlp(cfg: ModelConfig, device=None, gen=None):
+    if gen is not None:
+        return init_mlp(gen, cfg.d_model, cfg.d_ff, gated=False)
+    return MLP(cfg.d_model, cfg.d_ff, gated=False, device=device)
+
+
+def _init_enc_layer(cfg, device=None, gen=None) -> EncBlock:
+    """An encoder block, drawn from ``gen`` or left uninitialised."""
+    return EncBlock(cfg, _attention(cfg, cfg.n_kv_heads, device, gen),
+                    _mlp(cfg, device, gen))
+
+
+def _init_dec_layer(cfg, device=None, gen=None) -> DecBlock:
+    """A decoder block, drawn from ``gen`` or left uninitialised."""
+    attn = _attention(cfg, cfg.n_kv_heads, device, gen)
+    xattn = _attention(cfg, cfg.n_heads, device, gen)
+    return DecBlock(cfg, attn, xattn, _mlp(cfg, device, gen))
+
+
+def _padded_vocab(cfg: ModelConfig) -> int:
+    """Vocab padded to a multiple of 128 (whisper's 51865 → 51968); the
+    padded logit columns are masked before softmax and argmax."""
+    return ((cfg.vocab + 127) // 128) * 128
+
+
+def _mask_pad_logits(cfg: ModelConfig, logits):
+    """The pad columns set to ``-2**30`` in the logits' dtype."""
+    v_pad = logits.shape[-1]
+    if v_pad == cfg.vocab:
+        return logits
+    ok = torch.arange(v_pad, device=logits.device) < cfg.vocab
+    return torch.where(ok, logits, torch.tensor(-2.0 ** 30, dtype=logits.dtype,
+                                                device=logits.device))
+
+
+class Whisper(nn.Module):
+    """``embed`` (the padded table, tied to the unembedding), ``pos_embed``
+    (max_dec_positions, d), ``enc_layers``, ``enc_norm``, ``layers`` (the
+    decoder) and ``final_norm``. Built with uninitialised weights
+    (``convert.lm_params_from_reference`` copies them in) unless ``gen`` is
+    given, as ``init_params`` does."""
+
+    def __init__(self, cfg: ModelConfig, device=None,
+                 max_dec_positions: int = 4096, gen=None):
+        super().__init__()
+        if gen is not None:
+            device = gen.device
+        self.embed = Embed(_padded_vocab(cfg), cfg.d_model, device)
+        self.pos_embed = nn.Parameter(torch.empty(max_dec_positions,
+                                                  cfg.d_model, device=device))
+        self.enc_layers = nn.ModuleList(_init_enc_layer(cfg, device, gen)
+                                        for _ in range(cfg.n_enc_layers))
+        self.enc_norm = LayerNorm(cfg.d_model, device)
+        self.layers = nn.ModuleList(_init_dec_layer(cfg, device, gen)
+                                    for _ in range(cfg.n_layers))
+        self.final_norm = LayerNorm(cfg.d_model, device)
+
+
+@torch.no_grad()
+def init_params(gen: torch.Generator, cfg: ModelConfig,
+                max_dec_positions: int = 4096) -> Whisper:
+    """Random float32 weights on ``gen.device``, drawn from ``gen`` in place:
+    ``dense_init`` products, unit LayerNorms, a truncated-normal table and
+    ``0.01·normal`` learned positions."""
+    params = Whisper(cfg, max_dec_positions=max_dec_positions, gen=gen)
+    truncated_normal_(params.embed.tokens, gen, 1.0)
+    params.pos_embed.normal_(generator=gen).mul_(0.01)
+    return params
+
+
+# ---------------------------------------------------------------------------
+# Encoder
+# ---------------------------------------------------------------------------
+
+
+def _enc_body(p: EncBlock, cfg: ModelConfig, x, positions):
+    h = layernorm(p.norm1, x)
+    o, _ = attn_mod.attend(
+        p.attn, h, positions, n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
+        head_dim=cfg.head_dim_, rope_theta=cfg.rope_theta, kind="full",
+        use_rope=False, dense_max_seq=cfg.dense_attn_max)
+    x = x + o
+    return x + mlp(p.mlp, layernorm(p.norm2, x), act="gelu")
+
+
+def encode(cfg: ModelConfig, params: Whisper, frames):
+    """frames: (B, enc_seq, d) stub embeddings → encoder states (B, enc_seq,
+    d) in the compute dtype."""
+    s = frames.shape[1]
+    x = frames.to(COMPUTE_DTYPE) + sinusoidal_positions(
+        s, cfg.d_model, frames.device).to(COMPUTE_DTYPE)[None]
+    positions = torch.arange(s, device=frames.device)[None, :]
+    for p in params.enc_layers:
+        x = transformer.maybe_checkpoint(_enc_body, cfg, p, cfg, x, positions)
+    return layernorm(params.enc_norm, x)
+
+
+# ---------------------------------------------------------------------------
+# Decoder
+# ---------------------------------------------------------------------------
+
+
+def _dec_block(p: DecBlock, cfg: ModelConfig, x, positions, enc_kv, cache,
+               decode):
+    """One decoder block; returns (x, cache). ``cache`` is None in training;
+    in prefill the returned cache is a new one built from this pass's K/V;
+    in decode the token is written into ``cache`` in place."""
+    h = layernorm(p.norm1, x)
+    if decode:
+        o, cache = attn_mod.decode_attend(
+            p.attn, h, cache, positions, n_heads=cfg.n_heads,
+            n_kv_heads=cfg.n_kv_heads, head_dim=cfg.head_dim_,
+            rope_theta=cfg.rope_theta, window=None, use_rope=False)
+    else:
+        o, (k, v) = attn_mod.attend(
+            p.attn, h, positions, n_heads=cfg.n_heads,
+            n_kv_heads=cfg.n_kv_heads, head_dim=cfg.head_dim_,
+            rope_theta=cfg.rope_theta, kind="causal", use_rope=False,
+            dense_max_seq=cfg.dense_attn_max, kv_block=cfg.kv_block)
+        if cache is not None:
+            cache = attn_mod.cache_from_prefill(k, v, positions,
+                                                cache["k"].shape[2])
+    x = x + o
+    h = layernorm(p.norm_x, x)
+    x = x + attn_mod.cross_attend(
+        p.xattn, h, enc_kv, n_heads=cfg.n_heads, n_kv_heads=cfg.n_heads,
+        head_dim=cfg.head_dim_)
+    x = x + mlp(p.mlp, layernorm(p.norm2, x), act="gelu")
+    return x, cache
+
+
+def _train_dec_body(p, cfg, x, positions, k, v):
+    return _dec_block(p, cfg, x, positions, (k, v), None, False)[0]
+
+
+def _cross_kv(cfg: ModelConfig, params: Whisper, enc_out):
+    """Every decoder layer's cross-attention K and V from the encoder
+    output, stacked: two (L, B, S_enc, H, Dh) tensors."""
+    kvs = [attn_mod.encoder_kv(p.xattn, enc_out, n_kv_heads=cfg.n_heads,
+                               head_dim=cfg.head_dim_) for p in params.layers]
+    return (torch.stack([k for k, _ in kvs]), torch.stack([v for _, v in kvs]))
+
+
+def _decoder(cfg: ModelConfig, params: Whisper, x, positions, cross_kv,
+             caches, decode):
+    """Walk the decoder layers; with ``caches`` each layer reads and writes
+    its slice of ``caches["layers"]`` in place. Returns (x, caches)."""
+    for i, p in enumerate(params.layers):
+        k, v = cross_kv[0][i], cross_kv[1][i]
+        if caches is None:
+            x = transformer.maybe_checkpoint(_train_dec_body, cfg, p, cfg, x,
+                                             positions, k, v)
+            continue
+        cache = {name: t[i] for name, t in caches["layers"].items()}
+        x, new = _dec_block(p, cfg, x, positions, (k, v), cache, decode)
+        transformer._store(cache, new)
+    return x, caches
+
+
+def _embed_dec(cfg: ModelConfig, params: Whisper, tokens, pos0: int = 0):
+    """Token rows plus the learned positions ``pos0 … pos0 + S - 1``."""
+    x = embed(params.embed, tokens, COMPUTE_DTYPE)
+    s = tokens.shape[1]
+    return x + params.pos_embed[pos0:pos0 + s].to(COMPUTE_DTYPE)
+
+
+def _logits(cfg: ModelConfig, params: Whisper, x):
+    """Tied unembedding over the padded table, pad columns masked, float32."""
+    x = layernorm(params.final_norm, x)
+    return _mask_pad_logits(cfg, unembed(params.embed, None, x)).float()
+
+
+def apply_train(cfg: ModelConfig, params: Whisper, tokens, frames):
+    """(tokens (B, S), frames (B, enc_seq, d)) → (logits (B, S, V_pad)
+    float32, aux = 0). A forward pass with autograd on."""
+    enc_out = encode(cfg, params, frames)
+    cross_kv = _cross_kv(cfg, params, enc_out)
+    x = _embed_dec(cfg, params, tokens)
+    positions = torch.arange(tokens.shape[1], device=x.device)[None, :]
+    x, _ = _decoder(cfg, params, x, positions, cross_kv, None, False)
+    return _logits(cfg, params, x), torch.zeros((), dtype=torch.float32,
+                                                device=x.device)
+
+
+# ---------------------------------------------------------------------------
+# Caches, prefill and decode
+# ---------------------------------------------------------------------------
+
+
+def cache_shapes(cfg: ModelConfig, batch: int, cache_len: int, enc_seq: int,
+                 dtype=torch.bfloat16) -> dict:
+    """The cache's ``(shape, dtype)`` per tensor, allocating nothing: the
+    self-attention K/V in ``dtype`` (bf16 in the reference's
+    ``init_dec_cache``) and the cross K/V in ``COMPUTE_DTYPE``."""
+    n = cfg.n_layers
+    kv = (n, batch, cfg.n_kv_heads, cache_len, cfg.head_dim_)
+    cross = (n, batch, enc_seq, cfg.n_heads, cfg.head_dim_)
+    return {"layers": {"k": (kv, dtype), "v": (kv, dtype),
+                       "pos": ((n, batch, cache_len), torch.int32)},
+            "cross": {"k": (cross, COMPUTE_DTYPE), "v": (cross, COMPUTE_DTYPE)}}
+
+
+def init_dec_cache(cfg: ModelConfig, batch: int, cache_len: int, enc_seq: int,
+                   dtype=torch.bfloat16, device="cuda") -> dict:
+    """An empty cache on ``device``: zeros, ``pos`` -1 (empty slots)."""
+    dev = resolve_device(device)
+    return {part: transformer._alloc(block, dev) for part, block in
+            cache_shapes(cfg, batch, cache_len, enc_seq, dtype).items()}
+
+
+@torch.no_grad()
+def prefill(cfg: ModelConfig, params: Whisper, tokens, frames, cache_len):
+    """One encoder pass and the decoder over the prompt. The cache holds
+    the prompt's self-attention K/V and every layer's cross K/V, both in
+    the compute dtype (as the reference's prefill returns them).
+
+    Returns (last-position logits (B, V_pad) float32, caches)."""
+    enc_out = encode(cfg, params, frames)
+    k, v = _cross_kv(cfg, params, enc_out)
+    del enc_out
+    x = _embed_dec(cfg, params, tokens)
+    b, s = tokens.shape
+    caches = {"layers": transformer._alloc(cache_shapes(
+        cfg, b, cache_len, frames.shape[1], x.dtype)["layers"], x.device)}
+    positions = torch.arange(s, device=x.device)[None, :]
+    x, caches = _decoder(cfg, params, x, positions, (k, v), caches, False)
+    caches["cross"] = {"k": k.to(COMPUTE_DTYPE), "v": v.to(COMPUTE_DTYPE)}
+    return _logits(cfg, params, x[:, -1:])[:, 0], caches
+
+
+@torch.no_grad()
+def decode_step(cfg: ModelConfig, params: Whisper, token, caches, pos):
+    """token: (B, 1) int; pos: (B,) absolute positions. Updates the
+    self-attention part of ``caches`` in place and reads the cross part.
+    Returns (logits (B, V_pad) float32, caches)."""
+    x = embed(params.embed, token, COMPUTE_DTYPE)
+    x = x + params.pos_embed[pos.long()][:, None].to(COMPUTE_DTYPE)
+    cross = (caches["cross"]["k"], caches["cross"]["v"])
+    x, _ = _decoder(cfg, params, x, pos[:, None], cross,
+                    {"layers": caches["layers"]}, True)
+    return _logits(cfg, params, x)[:, 0], caches

@@ -11,6 +11,8 @@ scores on the card equal the same session's on the CPU (the compact engine
 too); and one training step on the card equals the same step on the CPU
 under the same draws, state and caches alike; and the TM-native wrappers
 of ``kernels/ops.py`` equal the unpacked oracles of ``kernels/ref.py``.
+The LM path (no kernel of its own): float32 card = CPU for every family,
+whisper included; one train step's gradients card = CPU; remat on = off.
 Imports no JAX, so it runs where JAX is not installed.
 """
 import numpy as np
@@ -548,7 +550,7 @@ def test_wrappers_equal_the_unpacked_oracles(cuda_device, shape):
 
 LM_ARCHS = ("qwen3-1.7b", "granite-8b", "minitron-4b", "qwen2-72b",
             "llava-next-mistral-7b", "mixtral-8x7b", "qwen2-moe-a2.7b",
-            "rwkv6-3b", "recurrentgemma-9b")
+            "rwkv6-3b", "recurrentgemma-9b", "whisper-medium")
 
 
 def lm_rel(got, want):
@@ -562,15 +564,17 @@ def lm_rel(got, want):
 def test_lm_card_matches_cpu(cuda_device, arch, monkeypatch):
     """Float32 (TF32 off) prefill and two decode steps of the same weights
     on the card and on the CPU agree to 1e-4 of max|logit| (summation
-    order); the card's bf16 prefill is within 5e-2 of its float32 one."""
+    order); the card's bf16 prefill is within 5e-2 of its float32 one.
+    Whisper takes frames and decodes from its prefill's cross K/V."""
     import copy
 
     from repro_torch.configs import get_config, reduce_config
-    from repro_torch.models import transformer
+    from repro_torch.models import transformer, whisper
     from repro_torch.models.model import build
 
     monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
-    monkeypatch.setattr(transformer, "COMPUTE_DTYPE", torch.float32)
+    for mod in (transformer, whisper):
+        monkeypatch.setattr(mod, "COMPUTE_DTYPE", torch.float32)
     cfg = reduce_config(get_config(arch))
     m = build(cfg)
     host = m.init(torch.Generator().manual_seed(0))
@@ -582,6 +586,9 @@ def test_lm_card_matches_cpu(cuda_device, arch, monkeypatch):
         n_vis = cfg.n_vision_tokens
         extra["vision_embeds"] = torch.from_numpy(
             rng.normal(size=(2, n_vis, cfg.d_model)).astype(np.float32))
+    if cfg.family == "encdec":
+        extra["frames"] = torch.from_numpy(
+            rng.normal(size=(2, cfg.enc_seq, cfg.d_model)).astype(np.float32))
     outs, fed = [], None
     for params, dev in ((host, torch.device("cpu")), (card, cuda_device)):
         kw = {k: v.to(dev) for k, v in extra.items()}
@@ -597,7 +604,8 @@ def test_lm_card_matches_cpu(cuda_device, arch, monkeypatch):
         outs.append(steps)
     for got, want in zip(outs[1], outs[0]):
         assert lm_rel(got, want) <= 1e-4
-    monkeypatch.setattr(transformer, "COMPUTE_DTYPE", torch.bfloat16)
+    for mod in (transformer, whisper):
+        monkeypatch.setattr(mod, "COMPUTE_DTYPE", torch.bfloat16)
     kw = {k: v.to(cuda_device) for k, v in extra.items()}
     l16, _ = m.prefill(card.to(torch.bfloat16), 16, tokens=tokens.to(cuda_device),
                        **kw)
@@ -691,3 +699,95 @@ def test_recurrences_on_card_match_cpu(cuda_device, monkeypatch):
                 *(x.to(cuda_device) for x in (r, k, v, w, u, s0)), chunk=32))
     for got, want in zip(card, host):
         assert got.is_cuda and lm_rel(got, want) <= 1e-5
+
+
+# --- LM training (no kernel of its own: float32 card == CPU) ---------------
+
+TRAIN_ARCHS = ("qwen3-1.7b", "qwen2-moe-a2.7b", "rwkv6-3b", "recurrentgemma-9b",
+               "whisper-medium")
+
+
+def train_case(arch, remat=False):
+    """(cfg, a float32 train state on the CPU, a seeded batch)."""
+    import dataclasses
+
+    from repro_torch import steps
+    from repro_torch.configs import get_config, reduce_config
+    from repro_torch.models.model import build
+
+    cfg = dataclasses.replace(reduce_config(get_config(arch)), remat=remat)
+    params = steps._init_for(build(cfg), cfg, torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(1)
+    batch = {k: torch.from_numpy(rng.integers(0, cfg.vocab, (4, 8)).astype(
+        np.int32)) for k in ("tokens", "labels")}
+    if cfg.family == "encdec":
+        batch["frames"] = torch.from_numpy(rng.normal(
+            size=(4, cfg.enc_seq, cfg.d_model)).astype(np.float32))
+    return cfg, steps.init_train_state(params), batch
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", TRAIN_ARCHS)
+def test_train_step_card_matches_cpu(cuda_device, arch, monkeypatch):
+    """One float32 ``make_train_step`` step (M=2, ``peak_lr=0``, TF32 off)
+    on the card and on the CPU: loss and nll to 1e-5, the gradients (the
+    first moment) to 1e-4 of their largest magnitude."""
+    import copy
+
+    from repro_torch import steps
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.models import transformer, whisper
+
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    for mod in (transformer, whisper, steps):
+        monkeypatch.setattr(mod, "COMPUTE_DTYPE", torch.float32)
+    cfg, host, batch = train_case(arch)
+    card = steps.init_train_state(copy.deepcopy(host["params"]).to(cuda_device))
+    step = steps.make_train_step(cfg, ShapeSpec("t", "train", 8, 4),
+                                 microbatches=2, peak_lr=0.0, warmup_steps=0)
+    host, mh = step.fn(host, dict(batch))
+    card, mc = step.fn(card, {k: v.to(cuda_device) for k, v in batch.items()})
+    for key in ("loss", "nll"):
+        assert lm_rel(mc[key], mh[key]) <= 1e-5, key
+    scale = max(float(t.abs().max()) for t in host["opt"].mu.values())
+    for n, t in host["opt"].mu.items():
+        assert card["opt"].mu[n].is_cuda
+        assert float((card["opt"].mu[n].cpu() - t).abs().max()) <= 1e-4 * scale, n
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["qwen3-1.7b", "whisper-medium"])
+def test_remat_on_card_gives_the_same_gradients(cuda_device, arch):
+    """bf16 training on the card: the gradients with ``cfg.remat`` (each
+    block recomputed in the backward) equal those without, to 1e-6 of
+    max|g| (the same kernels run twice)."""
+    import copy
+
+    from repro_torch import steps
+    from repro_torch.models.model import build
+
+    grads = []
+    for remat in (False, True):
+        cfg, state, batch = train_case(arch, remat)
+        params = copy.deepcopy(state["params"]).to(cuda_device)
+        batch = {k: v.to(cuda_device) for k, v in batch.items()}
+        labels = batch.pop("labels")
+        with torch.enable_grad():
+            logits, aux = build(cfg).apply_train(
+                steps._cast_view(params, torch.bfloat16), **batch)
+            loss = steps._xent(logits, labels)[0] + 0.01 * aux
+            grads.append(torch.autograd.grad(loss, list(params.parameters())))
+    scale = max(float(g.abs().max()) for g in grads[0])
+    for g0, g1 in zip(*grads):
+        assert float((g1 - g0).abs().max()) <= 1e-6 * scale
+
+
+@pytest.mark.cuda
+def test_train_main_on_card(cuda_device, tmp_path):
+    from repro_torch.launch import train
+
+    res = train.main(["--reduced", "--steps", "5", "--batch", "4", "--seq",
+                      "16", "--ckpt-dir", str(tmp_path)])
+    assert res["device"].startswith("cuda") and res["end_step"] == 5
+    assert all(np.isfinite(m["loss"]) for _, m in res["metrics_log"])
+    assert next(iter(res["state"]["opt"].mu.values())).is_cuda

@@ -5,8 +5,9 @@
 caches and reads its metrics through the engine the reference's task
 would; ``TMBatcher(shard_index=, shard_count=)`` shards concatenate to the
 reference's global batch bit for bit; ``examples/torch_quickstart.py`` and
-``examples/torch_tm_mnist.py`` run on ``--device cpu`` at small sizes, and
-``examples/torch_serve_lm.py`` at ``reduce_config`` width; and a
+``examples/torch_tm_mnist.py`` run on ``--device cpu`` at small sizes,
+``examples/torch_serve_lm.py`` at ``reduce_config`` width and
+``examples/torch_train_lm.py`` for a few steps; and a
 checkpoint that ``torch_tm_mnist`` writes loads in the reference's
 ``TsetlinMachine.load`` and predicts the same classes (the checkpoint format
 is shared).
@@ -215,3 +216,17 @@ def test_serve_lm_runs_on_the_cpu(arch, capsys):
                           tokens=serve.make_prompts(cfg, 4, 32, "cpu"))
     np.testing.assert_array_equal(res["generations"][:, 0],
                                   logits.argmax(-1).numpy())
+
+
+def test_train_lm_runs_on_the_cpu(tmp_path, capsys):
+    """A few steps of the ~20M-parameter example at a small batch: the NLL
+    falls, and the step-100 checkpoint path is not reached (no files)."""
+    res = load_example("torch_train_lm").main(
+        ["--device", "cpu", "--steps", "6", "--batch", "2", "--seq", "16",
+         "--ckpt-dir", str(tmp_path)])
+    out = capsys.readouterr().out
+    assert "params ≈ 16.8M" in out and "step    5  nll" in out
+    assert "improved ✓" in out
+    assert np.isfinite(res["last_nll"]) and res["last_nll"] < res["first_nll"]
+    assert res["param_count"] > 16_000_000
+    assert not list(tmp_path.glob("step_*"))

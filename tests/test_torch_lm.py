@@ -1,9 +1,11 @@
 """The port's LM serving path (``repro_torch.configs``, ``repro_torch.models``,
 ``repro_torch.launch.serve``) against the reference package, on the CPU:
-the dense, vlm, moe (mixtral-8x7b, qwen2-moe-a2.7b), ssm (rwkv6-3b) and
-hybrid (recurrentgemma-9b) families at ``reduce_config`` width, every cache
-tensor compared in shape and dtype; the modules of the last three are
-tested one by one in ``tests/test_torch_lm_families.py``.
+the dense, vlm, moe (mixtral-8x7b, qwen2-moe-a2.7b), ssm (rwkv6-3b), hybrid
+(recurrentgemma-9b) and encdec (whisper-medium, with ``frames``) families
+at ``reduce_config`` width, every cache tensor compared in shape and dtype;
+the modules of the moe, ssm and hybrid families are tested one by one in
+``tests/test_torch_lm_families.py``, whisper's in
+``tests/test_torch_whisper.py``.
 
 Inputs and the perturbations of the reference's constant leaves come from
 seeded numpy; weights come from the reference's ``model.init(key(2))`` and
@@ -36,20 +38,21 @@ from repro.models import common as jcommon  # noqa: E402
 from repro.models import mlp as jmlp  # noqa: E402
 from repro.models import model as jmodel  # noqa: E402
 from repro.models import transformer as jtransformer  # noqa: E402
+from repro.models import whisper as jwhisper  # noqa: E402
 from repro.sharding import Policy  # noqa: E402
 
 from repro_torch import configs  # noqa: E402
 from repro_torch.convert import lm_params_from_reference  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
-from repro_torch.models import attention, common, mlp, model, transformer  # noqa: E402
+from repro_torch.models import (  # noqa: E402
+    attention, common, mlp, model, transformer, whisper)
 
 POLICY = Policy.none()
 F32_TOL = 1e-5
 BF16_TOL = 2e-2
 SERVED = ("qwen3-1.7b", "granite-8b", "minitron-4b", "qwen2-72b",
           "llava-next-mistral-7b", "mixtral-8x7b", "qwen2-moe-a2.7b",
-          "rwkv6-3b", "recurrentgemma-9b")
-UNPORTED = ("whisper-medium",)
+          "rwkv6-3b", "recurrentgemma-9b", "whisper-medium")
 # leaves the reference initialises to a constant (zeros, or a linspace the
 # same in every layer): perturbed, like the norm scales and biases, so the
 # tests see them and each lands in exactly one port parameter
@@ -389,13 +392,22 @@ def reference_params(arch):
 
 
 def model_inputs(cfg, seed=3):
+    """(tokens, extra): extra is the vlm's ``vision_embeds`` or encdec's
+    ``frames`` (float32 numpy), else None."""
     rng = np.random.default_rng(seed)
     tokens = rng.integers(0, cfg.vocab, (B, S))
-    vision = None
+    extra = None
     if cfg.family == "vlm":
-        vision = (rng.normal(size=(B, cfg.n_vision_tokens, cfg.d_model))
-                  * 0.5).astype(np.float32)
-    return tokens, vision
+        extra = (rng.normal(size=(B, cfg.n_vision_tokens, cfg.d_model))
+                 * 0.5).astype(np.float32)
+    if cfg.family == "encdec":
+        extra = (rng.normal(size=(B, cfg.enc_seq, cfg.d_model))
+                 * 0.5).astype(np.float32)
+    return tokens, extra
+
+
+def extra_name(cfg) -> str:
+    return "frames" if cfg.family == "encdec" else "vision_embeds"
 
 
 def both(arch, dtype):
@@ -412,8 +424,10 @@ def both(arch, dtype):
 
 @pytest.fixture
 def float32_compute(monkeypatch):
-    monkeypatch.setattr(transformer, "COMPUTE_DTYPE", torch.float32)
-    monkeypatch.setattr(jtransformer, "COMPUTE_DTYPE", jnp.float32)
+    for mod in (transformer, whisper):
+        monkeypatch.setattr(mod, "COMPUTE_DTYPE", torch.float32)
+    for mod in (jtransformer, jwhisper):
+        monkeypatch.setattr(mod, "COMPUTE_DTYPE", jnp.float32)
 
 
 def check_caches(cache, jcache, tol, what):
@@ -435,8 +449,9 @@ def test_model_float32_matches_reference(arch, float32_compute):
     cfg, params, jcfg, jp = both(arch, "f32")
     m, jm = model.build(cfg), jmodel.build(jcfg)
     tokens, vision = model_inputs(cfg)
-    extra = {} if vision is None else {"vision_embeds": t(vision)}
-    jextra = {} if vision is None else {"vision_embeds": jnp.asarray(vision)}
+    name = extra_name(cfg)
+    extra = {} if vision is None else {name: t(vision)}
+    jextra = {} if vision is None else {name: jnp.asarray(vision)}
     logits, cache = m.prefill(params, CACHE_LEN, tokens=t(tokens), **extra)
     jlogits, jcache = jax.jit(lambda p, tk: jm.prefill(
         POLICY, p, CACHE_LEN, tokens=tk, **jextra))(jp, jnp.asarray(tokens))
@@ -457,10 +472,9 @@ def test_model_bf16_prefill_and_decode_match_reference(arch):
     cfg, params, jcfg, jp = both(arch, "bf16")
     m, jm = model.build(cfg), jmodel.build(jcfg)
     tokens, vision = model_inputs(cfg)
-    extra = {} if vision is None else {
-        "vision_embeds": t(vision).to(torch.bfloat16)}
-    jextra = {} if vision is None else {
-        "vision_embeds": jnp.asarray(vision, jnp.bfloat16)}
+    name = extra_name(cfg)
+    extra = {} if vision is None else {name: t(vision).to(torch.bfloat16)}
+    jextra = {} if vision is None else {name: jnp.asarray(vision, jnp.bfloat16)}
     logits, cache = m.prefill(params, CACHE_LEN, tokens=t(tokens), **extra)
     jlogits, jcache = jax.jit(lambda p, tk: jm.prefill(
         POLICY, p, CACHE_LEN, tokens=tk, **jextra))(jp, jnp.asarray(tokens))
@@ -486,7 +500,9 @@ def test_model_bf16_prefill_and_decode_match_reference(arch):
 def test_prefill_decode_consistency(arch, float32_compute):
     """The port against itself, in float32: prefill(S) then one decode step
     equals prefill(S + 1); without a vision prefix, S decode steps from an
-    empty cache equal prefill(S)."""
+    empty cache equal prefill(S) (whisper's from the prefill of the first
+    token, whose one encoder pass fills the cross K/V, as the reference's
+    smoke test does)."""
     cfg = configs.reduce_config(configs.get_config(arch))
     m = model.build(cfg)
     params = m.init(torch.Generator().manual_seed(4))
@@ -497,6 +513,9 @@ def test_prefill_decode_consistency(arch, float32_compute):
         n_vis = cfg.n_vision_tokens
         extra["vision_embeds"] = t(rng.normal(
             size=(B, n_vis, cfg.d_model)).astype(np.float32))
+    if cfg.family == "encdec":
+        extra["frames"] = t(rng.normal(
+            size=(B, cfg.enc_seq, cfg.d_model)).astype(np.float32))
     full, _ = m.prefill(params, CACHE_LEN, tokens=tokens, **extra)
     part, cache = m.prefill(params, CACHE_LEN, tokens=tokens[:, :S], **extra)
     pos = torch.full((B,), n_vis + S, dtype=torch.int32)
@@ -504,13 +523,18 @@ def test_prefill_decode_consistency(arch, float32_compute):
     close(step, full, 1e-4, f"{arch} prefill+decode vs prefill")
     if n_vis:
         return
-    cache = transformer.init_cache(cfg, B, CACHE_LEN, dtype=torch.float32,
-                                   device="cpu")
-    for i in range(S + 1):
+    if cfg.family == "encdec":
+        _, cache = m.prefill(params, CACHE_LEN, tokens=tokens[:, :1], **extra)
+        first, blocks = 1, {"layers": cache["layers"]}
+    else:
+        cache = transformer.init_cache(cfg, B, CACHE_LEN, dtype=torch.float32,
+                                       device="cpu")
+        first, blocks = 0, cache["layers"]
+    for i in range(first, S + 1):
         logits, cache = m.decode_step(params, tokens[:, i:i + 1], cache,
                                       torch.full((B,), i, dtype=torch.int32))
     close(logits, full, 1e-4, f"{arch} decode steps vs prefill")
-    for key, block in cache["layers"].items():
+    for key, block in blocks.items():
         if "pos" in block:          # position p in slot p % cache length
             want = np.full(block["pos"].shape[-1], -1)
             for p in range(S + 1):
@@ -532,7 +556,8 @@ def test_lm_params_from_reference_round_trip(arch):
     owner = {}
     for path, leaf in flat(jp):
         keys = "/".join(path)
-        for a in (leaf if keys.startswith("layers/") else [leaf]):
+        stacked = keys.startswith(("layers/", "enc_layers/"))
+        for a in (leaf if stacked else [leaf]):
             # an nn.Linear ``weight`` holds the reference's (in, out) as (out, in)
             hits = [name for name, p in named.items()
                     if np.array_equal(p, a.T if name.endswith(".weight") else a)]
@@ -604,15 +629,6 @@ def test_serve_main_on_cpu(capsys):
     with pytest.raises(SystemExit):
         serve.main(["--device", "cpu", "--reduced", "--arch",
                     "llava-next-mistral-7b"])
-
-
-@pytest.mark.parametrize("arch", UNPORTED)
-def test_unported_families_raise(arch):
-    cfg = configs.reduce_config(configs.get_config(arch))
-    with pytest.raises(NotImplementedError, match="encoder-decoder slice"):
-        model.build(cfg)
-    with pytest.raises(NotImplementedError, match="encoder-decoder slice"):
-        transformer.LM(cfg)
 
 
 def test_cuda_device_raises_without_a_card():

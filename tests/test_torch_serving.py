@@ -379,8 +379,8 @@ def test_chip_smoke_imports_neither_jax_nor_the_reference():
 
 def test_torch_examples_import_neither_jax_nor_the_reference():
     paths = sorted((ROOT / "examples").glob("torch_*.py"))
-    assert {"torch_quickstart.py", "torch_tm_mnist.py",
-            "torch_serve_lm.py"} <= {p.name for p in paths}
+    assert {"torch_quickstart.py", "torch_tm_mnist.py", "torch_serve_lm.py",
+            "torch_train_lm.py"} <= {p.name for p in paths}
     for path in paths:
         roots = import_roots(path)
         assert "repro_torch" in roots, path.name
