@@ -207,7 +207,25 @@ failure, and at once when no CUDA device is present):
    10 steps plus a second ``main`` that resumes from the checkpoint, with
    default and with deterministic algorithms: bit-equal, or the differing
    tensors printed and held at ``TRAIN_RESTART_TOL``.
-6. Print ``{"lm": {...}}`` (the numbers of phases 10–12, each beside its bound),
+13. **The sharded LM path** (after phase 12; single-controller meshes whose
+   every rank is ``cuda:0``: k shards on one card, never a scaling figure;
+   the four kernels' counts set to 0 just before each part and read 0
+   just after; no CPU path). (a) ``qwen3-1.7b`` at full width in bf16 on
+   a (2, 4) mesh through ``steps.make_prefill_step`` /
+   ``make_decode_step``: prefill B=4 x 128, then 32 decode steps fed the
+   unsharded run's greedy tokens, cache 160 (40 slots per model rank);
+   every step's logits against the unsharded run's at ``SHARD_LM_TOL`` of
+   max|logit| (greedy tokens equal where the top-2 margin exceeds twice
+   that), the gathered caches too (positions exactly). (b) The same for
+   ``qwen2-moe-a2.7b`` with 16 decode steps (the MoE's shard_map engine).
+   (c) One ``qwen3-1.7b`` train step at full width, B=8 x 512, M=2, remat,
+   on (2, 2), its NLL, loss and grad norm against an unsharded step run
+   first and freed first. (d) ``gpipe_apply`` over 4 stages of
+   qwen3-1.7b's layer groups (7 layers each), 8 microbatches of 2 x 128,
+   against the sequential stack. For each: per-rank resident bytes
+   required equal to what the specs predict, collective calls and payload
+   bytes by kind per step, ms per step beside the unsharded run's.
+6. Print ``{"lm": {...}}`` (the numbers of phases 10–13, each beside its bound),
    ``{"kernels": [...]}`` (all four kernels; ``launches`` from
    phases 3 and 5, ``sharded_launches`` from phase 7, ``phase8_launches``
    from phase 8, ``phase9_launches`` from phase 9, and ``tm_imdb`` with the
@@ -318,6 +336,20 @@ TRAIN_RESTART_TOL = 1e-3
 # order, at full depth: 5e-2 of max|logit|. The CPU tests measured 0.3-0.9%
 # for XLA's bf16 against PyTorch's at two layers; 28-32 layers compound it.
 LM_F32_TOL, LM_BF16_TOL = 1e-4, 5e-2
+# phase 13: the sharded LM path, every rank on cuda:0 (k shards on one
+# card, never a scaling figure). Serving rows (arch, mesh, batch, prompt,
+# decode steps, cache length: 40 slots per model rank); one train step of
+# qwen3-1.7b at B=8 x 512, M=2, remat, on (2, 2); gpipe over 4 stages of
+# qwen3-1.7b's 28 layers (7 each), 8 microbatches of 2 x 128 tokens.
+# Sharded bf16 against unsharded bf16 differs in reduction order: 2e-2 of
+# max|logit| (greedy tokens held where the top-2 margin exceeds twice that),
+# the gathered caches at the same bound; the train step's NLL and grad
+# norm at 2e-2 relative.
+SHARD_LM_SERVE = (("qwen3-1.7b", (2, 4), 4, 128, 32, 160),
+                  ("qwen2-moe-a2.7b", (2, 4), 4, 128, 16, 160))
+SHARD_LM_TRAIN = ("qwen3-1.7b", (2, 2), 8, 512, 2)
+SHARD_LM_PIPE = ("qwen3-1.7b", 4, 8, 2, 128)
+SHARD_LM_TOL = 2e-2
 # Peak rates of one H100 SXM. Memory: 3.35 TB/s (NVIDIA data sheet). The
 # votes are 32-bit compare and logic instructions, not FLOPs: the CUDA C++
 # Programming Guide's arithmetic-throughput table gives compute capability
@@ -2816,6 +2848,311 @@ def phase12(dev, card) -> dict:
     return lm
 
 
+def k_shards(shape) -> str:
+    d, c = shape
+    return f"{d * c} shards on one card (cuda:0), mesh {d}x{c}"
+
+
+def shard_collectives(mesh, steps: int = 1) -> dict:
+    """The mesh's collective calls and payload bytes since its last reset,
+    per step, by kind/axes."""
+    snap = mesh.collectives.snapshot()
+    return {part: {k: v / steps for k, v in sorted(d.items())}
+            for part, d in snap.items()}
+
+
+def coll_line(coll: dict) -> str:
+    return ", ".join(f"{k} {coll['calls'][k]:g} ({coll['bytes'][k] / 1e6:.3f} MB)"
+                     for k in coll["calls"])
+
+
+def shard_resident(what: str, tree, structs, specs, mesh) -> dict:
+    """Require each rank's bytes of ``tree`` to be what ``specs`` predict."""
+    from repro_torch import sharding
+
+    got = sharding.tree_bytes(tree)
+    want = sharding.predicted_bytes(structs, specs, mesh)
+    require(got == [want] * mesh.size,
+            f"{what}: per-rank bytes {got[:2]}… against {want} predicted")
+    return {"per_rank_bytes": got[0], "predicted_per_rank_bytes": want,
+            "ranks": mesh.size}
+
+
+def shard_serve(arch: str, shape, batch: int, prompt: int, n_steps: int,
+                cache_len: int, counts, dev, card) -> dict:
+    """Phase 13 (a), (b): bf16 at full width, unsharded first (prefill, then
+    greedy decode), then the sharded prefill and decode steps on the same
+    weights fed the same tokens; logits and caches held against the
+    unsharded ones."""
+    from repro_torch import convert, sharding, steps as steps_mod
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.model import build, cache_specs
+
+    cfg = get_config(arch)
+    m = build(cfg)
+    params = m.init(torch.Generator(device=dev).manual_seed(SEED)).to(
+        torch.bfloat16)
+    prompts = torch.from_numpy(np.random.default_rng(SEED).integers(
+        0, cfg.vocab, (batch, prompt)).astype(np.int32)).to(dev)
+    with torch.no_grad():
+        (logits, cache), pre_ms = synced_ms(
+            lambda: m.prefill(params, cache_len, tokens=prompts))
+        want, toks, dec_ms = [logits.float()], [], []
+        for i in range(n_steps):
+            toks.append(logits.argmax(-1)[:, None].to(torch.int32))
+            pos = torch.full((batch,), prompt + i, dtype=torch.int32, device=dev)
+            (logits, cache), t = synced_ms(
+                lambda: m.decode_step(params, toks[-1], cache, pos))
+            want.append(logits.float())
+            dec_ms.append(t)
+    k = shape[0] * shape[1]
+    mesh = make_mesh(*shape, devices=["cuda:0"] * k)
+    sp = convert.shard_lm(params, mesh, consume=True)
+    del params
+    torch.cuda.empty_cache()
+    pshape = ShapeSpec("phase13", "prefill", cache_len, batch)
+    pstep = steps_mod.make_prefill_step(cfg, pshape, mesh)
+    dstep = steps_mod.make_decode_step(
+        cfg, ShapeSpec("phase13", "decode", cache_len, batch), mesh)
+    batch_s = sharding.shard_tree({"tokens": prompts}, pstep.in_specs[1], mesh)
+    counts.reset()
+    mesh.collectives.reset()
+    (lg, scache), s_pre_ms = synced_ms(lambda: pstep.fn(sp, batch_s))
+    pre_coll = shard_collectives(mesh)
+    got = [sharding.gather(lg, pstep.out_specs[0], mesh)]
+    mesh.collectives.reset()
+    s_dec_ms = []
+    for i in range(n_steps):
+        tok = sharding.shard(toks[i], dstep.in_specs[2], mesh)
+        pos = sharding.shard(torch.full((batch,), prompt + i, dtype=torch.int32,
+                                        device=dev), dstep.in_specs[3], mesh)
+        (lg, scache), t = synced_ms(lambda: dstep.fn(sp, scache, tok, pos))
+        got.append(sharding.gather(lg, dstep.out_specs[0], mesh))
+        s_dec_ms.append(t)
+    dec_coll = shard_collectives(mesh, n_steps)
+    launched = counts.read()
+    require(not any(launched.values()), f"{arch} sharded: a TM kernel "
+            f"launched: {launched}")
+    rels, held = [], 0
+    for i, (g, w) in enumerate(zip(got, want)):
+        rel, rows = lm_compare(g, w, SHARD_LM_TOL, f"{arch} sharded step {i}")
+        rels.append(rel)
+        held += rows
+    whole = sharding.gather_tree(scache, dstep.out_specs[1], mesh)
+    cache_rel, by_layer = 0.0, {}
+    for key, block in cache["layers"].items():
+        require(torch.equal(whole["layers"][key]["pos"], block["pos"]),
+                f"{arch}: sharded cache positions differ")
+        for name in ("k", "v"):
+            w = block[name].double()
+            diff = (whole["layers"][key][name].double() - w).abs()
+            rel = float(diff.max() / w.abs().max())
+            by_layer[name] = [float(d.max() / w.abs().max()) for d in diff]
+            cache_rel = max(cache_rel, rel)
+    print(f"lm sharded {arch} cache max|diff| of max|cache| by layer: "
+          + "; ".join(f"{n} " + " ".join(f"{x:.2e}" for x in v)
+                      for n, v in by_layer.items()))
+    require(cache_rel <= SHARD_LM_TOL, f"{arch}: caches {cache_rel:.3e} of "
+            f"max|cache| against the unsharded run's")
+    res = {"params": shard_resident(f"{arch} params", sp, steps_mod
+                                    ._serve_params_struct(cfg, pshape),
+                                    pstep.in_specs[0], mesh),
+           "cache": shard_resident(f"{arch} cache", scache,
+                                   cache_specs(cfg, pshape), dstep.out_specs[1],
+                                   mesh)}
+    out = {"mesh": list(shape), "layout": k_shards(shape), "batch": batch,
+           "prompt": prompt, "decode_steps": n_steps, "cache_len": cache_len,
+           "prefill_ms": s_pre_ms, "decode_ms_per_step": float(np.median(s_dec_ms)),
+           "unsharded_prefill_ms": pre_ms,
+           "unsharded_decode_ms_per_step": float(np.median(dec_ms)),
+           "max_rel": max(rels), "argmax_rows_held": held,
+           "cache_max_rel": cache_rel, "cache_rel_by_layer": by_layer,
+           "resident": res,
+           "prefill_collectives": pre_coll, "decode_collectives_per_step": dec_coll,
+           "tm_kernel_launches": launched}
+    print(f"lm sharded {arch} bf16 full width, {k_shards(shape)}: B={batch} "
+          f"prefill {prompt} in {s_pre_ms:.3f} ms (unsharded {pre_ms:.3f}), "
+          f"{n_steps} decode steps {out['decode_ms_per_step']:.3f} ms/step "
+          f"(unsharded {out['unsharded_decode_ms_per_step']:.3f}); against "
+          f"unsharded max {max(rels):.3e} of max|logit| ({held} argmax rows "
+          f"held), caches {cache_rel:.3e}, tolerance {SHARD_LM_TOL}; per rank "
+          f"{res['params']['per_rank_bytes'] / 1e9:.4f} GB params and "
+          f"{res['cache']['per_rank_bytes'] / 1e6:.3f} MB cache, as the specs "
+          f"predict [{card}]")
+    print(f"lm sharded {arch} collectives, prefill: {coll_line(pre_coll)}")
+    print(f"lm sharded {arch} collectives per decode step: {coll_line(dec_coll)}")
+    del sp, scache, cache
+    torch.cuda.empty_cache()
+    return out
+
+
+def shard_train(counts, dev, card) -> dict:
+    """Phase 13 (c): one train step at full width, unsharded first (then
+    freed), then sharded on the same initial weights and batch."""
+    from repro_torch import convert, sharding, steps as steps_mod
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.model import build
+
+    arch, shape, batch, seq, micro = SHARD_LM_TRAIN
+    cfg = get_config(arch)
+    require(cfg.remat, f"{arch}: remat is off in the published config")
+    m = build(cfg)
+    tshape = ShapeSpec("phase13", "train", seq, batch)
+    kw = dict(microbatches=micro, compress="none", peak_lr=1e-3,
+              warmup_steps=5, total_steps=1000)
+    b = train_batches(cfg, batch, seq, 1, dev)[0]
+
+    def init():
+        return m.init(torch.Generator(device=dev).manual_seed(SEED))
+
+    state = steps_mod.init_train_state(init())
+    step = steps_mod.make_train_step(cfg, tshape, **kw)
+    (state, met), ms_u = synced_ms(lambda: step.fn(state, dict(b)))
+    want = {k: float(v) for k, v in met.items()}
+    del state, met
+    torch.cuda.empty_cache()
+    k = shape[0] * shape[1]
+    mesh = make_mesh(*shape, devices=["cuda:0"] * k)
+    tstep = steps_mod.make_train_step(cfg, tshape, mesh, **kw)
+    state = steps_mod.init_train_state(convert.shard_lm(init(), mesh,
+                                                        consume=True))
+    batch_s = sharding.shard_tree(b, tstep.in_specs[1], mesh)
+    torch.cuda.empty_cache()
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    counts.reset()
+    mesh.collectives.reset()
+    (state, met), ms_s = synced_ms(lambda: tstep.fn(state, batch_s))
+    coll = shard_collectives(mesh)
+    launched = counts.read()
+    require(not any(launched.values()), f"sharded training: a TM kernel "
+            f"launched: {launched}")
+    peak = (torch.cuda.max_memory_allocated() - resident) / 1e9
+    got = {k_: float(v) for k_, v in met.items()}
+    rel = {key: abs(got[key] - want[key]) / abs(want[key])
+           for key in ("nll", "grad_norm", "loss")}
+    for key, r in rel.items():
+        require(math.isfinite(got[key]) and r <= SHARD_LM_TOL,
+                f"sharded train step {key}: {got[key]} against {want[key]}")
+    res = shard_resident("train state", state, tstep.arg_structs[0],
+                         tstep.in_specs[0], mesh)
+    out = {"mesh": list(shape), "layout": k_shards(shape), "batch": batch,
+           "seq": seq, "microbatches": micro, "remat": cfg.remat,
+           "step_ms": ms_s, "unsharded_step_ms": ms_u, "metrics": got,
+           "unsharded_metrics": want, "rel": rel, "resident": res,
+           "peak_gb_above_resident": peak, "collectives_per_step": coll,
+           "tm_kernel_launches": launched}
+    print(f"lm sharded train {arch} full width, {k_shards(shape)}: B={batch} "
+          f"S={seq} M={micro} remat, one step {ms_s:.3f} ms (unsharded "
+          f"{ms_u:.3f}); nll {got['nll']:.5f} against {want['nll']:.5f} "
+          f"({rel['nll']:.3e}), grad_norm {got['grad_norm']:.5f} against "
+          f"{want['grad_norm']:.5f} ({rel['grad_norm']:.3e}), tolerance "
+          f"{SHARD_LM_TOL}; train state {res['per_rank_bytes'] / 1e9:.4f} GB "
+          f"per rank as the specs predict; peak {peak:.3f} GB above resident "
+          f"[{card}]")
+    print(f"lm sharded train collectives per step: {coll_line(coll)}")
+    del state
+    torch.cuda.empty_cache()
+    return out
+
+
+def shard_pipeline(counts, dev, card) -> dict:
+    """Phase 13 (d): ``gpipe_apply`` over qwen3-1.7b's layer groups against
+    the sequential stack, bf16, forward."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import transformer
+    from repro_torch.models.common import embed
+    from repro_torch.models.model import build
+    from repro_torch.models.pipeline import gpipe_apply
+
+    arch, n_stages, n_micro, rows, seq = SHARD_LM_PIPE
+    cfg = get_config(arch)
+    params = build(cfg).init(torch.Generator(device=dev).manual_seed(SEED)).to(
+        torch.bfloat16)
+    per = cfg.n_layers // n_stages
+    require(per * n_stages == cfg.n_layers, f"{n_stages} stages of {arch}")
+    blocks = [g["b0_attn_mlp"] for g in params.layers]
+    stages = [blocks[s * per:(s + 1) * per] for s in range(n_stages)]
+    positions = torch.arange(seq, device=dev)[None]
+
+    def stage_fn(group, x):
+        for blk in group:
+            x, _, _ = transformer._attn_block_seq(blk, cfg, x, positions, None,
+                                                  window=None)
+        return x
+
+    toks = torch.from_numpy(np.random.default_rng(SEED).integers(
+        0, cfg.vocab, (n_micro * rows, seq))).to(dev)
+    x_micro = embed(params.embed, toks, torch.bfloat16).reshape(
+        n_micro, rows, seq, cfg.d_model)
+    mesh = make_mesh(n_stages, 1, devices=["cuda:0"] * n_stages)
+    with torch.no_grad():
+        want, seq_ms = synced_ms(lambda: torch.stack(
+            [stage_fn(blocks, x) for x in x_micro]))
+        counts.reset()
+        mesh.collectives.reset()
+        outs, pipe_ms = synced_ms(lambda: gpipe_apply(
+            stage_fn, stages, x_micro, mesh=mesh, axis="data"))
+        coll = shard_collectives(mesh)
+        launched = counts.read()
+    require(not any(launched.values()), f"gpipe: a TM kernel launched: {launched}")
+    ticks = n_micro + n_stages - 1
+    require(coll["calls"].get("ppermute/data") == ticks,
+            f"gpipe: {coll['calls']} for {ticks} ticks")
+    rel = max(float((o.double() - want.double()).abs().max()
+                    / want.double().abs().max()) for o in outs)
+    require(rel <= SHARD_LM_TOL, f"gpipe against the sequential stack: {rel:.3e}")
+    stage_bytes = [sum(p.numel() * p.element_size() for blk in st
+                       for p in blk.parameters()) for st in stages]
+    layer_bytes = sum(p.numel() * p.element_size() for blk in blocks
+                      for p in blk.parameters())
+    require(stage_bytes == [layer_bytes // n_stages] * n_stages,
+            f"gpipe: stage bytes {stage_bytes}")
+    out = {"mesh": [n_stages, 1], "layout": k_shards((n_stages, 1)),
+           "stages": n_stages, "layers_per_stage": per, "microbatches": n_micro,
+           "rows": rows, "seq": seq, "ticks": ticks, "ms": pipe_ms,
+           "sequential_ms": seq_ms, "max_rel": rel,
+           "stage_bytes": stage_bytes[0], "predicted_stage_bytes":
+           layer_bytes // n_stages, "collectives": coll,
+           "tm_kernel_launches": launched}
+    print(f"lm gpipe {arch} bf16, {n_stages} stages of {per} layers, "
+          f"{k_shards((n_stages, 1))}: {n_micro} microbatches of {rows} x {seq} "
+          f"in {ticks} ticks, {pipe_ms:.3f} ms (sequential {seq_ms:.3f}); "
+          f"against the sequential stack {rel:.3e} (tolerance {SHARD_LM_TOL}); "
+          f"{stage_bytes[0] / 1e9:.4f} GB of layers per stage as predicted; "
+          f"collectives {coll_line(coll)} [{card}]")
+    del params, outs, want
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase13(dev, card) -> dict:
+    """Phase 13: the sharded LM path, k shards on ``cuda:0``. Returns its
+    part of the ``lm`` record."""
+    torch.cuda.empty_cache()
+    resident = torch.cuda.memory_allocated() / 1e9
+    require(resident <= LM_RESIDENT_GB,
+            f"earlier phases leave {resident:.3f} GB on the card")
+    counts = Counts()
+    out = {}
+    for arch, shape, batch, prompt, n_steps, clen in SHARD_LM_SERVE:
+        out[f"sharded_{arch}"] = shard_serve(arch, shape, batch, prompt,
+                                             n_steps, clen, counts, dev, card)
+    out["sharded_train"] = shard_train(counts, dev, card)
+    out["sharded_gpipe"] = shard_pipeline(counts, dev, card)
+    require(not any(counts.total.values()),
+            f"the sharded LM path launched a TM kernel: {counts.total}")
+    print(f"phase 13 launches: {counts.total} (the sharded LM path reaches no "
+          f"Pallas kernel of the reference, so none of the four; "
+          f"{resident:.3f} GB resident before it)")
+    return {"phase13": out}
+
+
 def phase10(dev, card) -> dict:
     """Phase 10: LM serving. Returns the ``lm`` record."""
     torch.cuda.empty_cache()
@@ -2992,6 +3329,11 @@ def main() -> int:
     t0 = time.perf_counter()
     lm.update(phase12(dev, card))
     print(f"phase 12: {time.perf_counter() - t0:.1f} s wall")
+
+    # -- 13. the sharded LM path, k shards on one card ---------------------------
+    t0 = time.perf_counter()
+    lm.update(phase13(dev, card))
+    print(f"phase 13: {time.perf_counter() - t0:.1f} s wall")
 
     # -- 6. report ----------------------------------------------------------
     top = BATCHES[-1]

@@ -1,11 +1,11 @@
 """Model/shape configuration schema (the port's own copy of
 ``repro.configs.base``, field for field, so configs compare equal).
 
-Three fields steer only the reference's XLA programs and are ignored by the
-port: ``remat`` (activation checkpointing in training), ``use_scan`` (the
-reference scans its layer stack; the port always walks an
-``nn.ModuleList`` in Python) and ``sp_residual`` (sequence sharding of the
-residual stream, part of the sharded LM path the port does not have yet).
+``use_scan`` steers only the reference's XLA programs and is ignored by
+the port (the reference scans its layer stack; the port always walks an
+``nn.ModuleList`` in Python). ``remat`` recomputes each layer group in the
+backward pass (``torch.utils.checkpoint``); ``sp_residual`` splits the
+residual stream on the sequence over ``model`` in a sharded train step.
 """
 from __future__ import annotations
 

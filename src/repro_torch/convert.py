@@ -18,6 +18,13 @@ module (``Whisper`` for the encoder-decoder family)::
 
     params_np = jax.tree.map(np.asarray, jax_model.init(jax.random.key(0)))
     params = lm_params_from_reference(cfg, params_np, "cuda")
+
+and are laid out over a mesh by the steps' ``in_specs`` with
+:func:`shard_lm` (the parameters) and :func:`shard_train_state` (a
+training state: parameters, moments, residuals, step); :func:`gather_lm` /
+:func:`gather_train_state` assemble them again::
+
+    params = shard_lm(lm_params_from_reference(cfg, params_np, "cpu"), mesh)
 """
 from __future__ import annotations
 
@@ -30,6 +37,15 @@ from repro_torch.core.tm import FeedbackRands, SampleDraws
 from repro_torch.core.types import TMConfig, TMState, resolve_device
 from repro_torch.models.transformer import LM
 from repro_torch.models.whisper import Whisper
+from repro_torch.optim import adamw, compression
+from repro_torch.sharding import (
+    P,
+    ShardedModule,
+    gather,
+    gather_module,
+    shard,
+    shard_module,
+)
 
 
 def config_from_reference(jax_cfg_fields: dict) -> TMConfig:
@@ -159,3 +175,50 @@ def lm_params_from_reference(cfg, params_np: dict, device) -> LM | Whisper:
     if left:
         raise ValueError(f"port parameters with no reference leaf: {sorted(left)}")
     return params
+
+
+def shard_lm(params: LM | Whisper, mesh, *, consume: bool = False) -> ShardedModule:
+    """``params`` laid out over ``mesh`` by ``sharding.param_specs`` (the
+    steps' ``in_specs``); ``consume=True`` frees each parameter once it
+    is sharded."""
+    return shard_module(params, mesh, consume=consume)
+
+
+def gather_lm(params: ShardedModule, device=None) -> LM | Whisper:
+    """The whole module of a ``shard_lm`` layout, on ``device`` (rank 0's
+    by default)."""
+    return gather_module(params, device)
+
+
+@torch.no_grad()
+def shard_train_state(state: dict, mesh) -> dict:
+    """A ``steps.init_train_state`` state laid out over ``mesh`` as
+    ``make_train_step(…, mesh).in_specs[0]`` says: the parameters by
+    ``shard_lm``, the moments and residuals like them, the step on every
+    rank."""
+    params = shard_lm(state["params"], mesh)
+    specs = params.specs
+
+    def like_params(tree):
+        return {n: shard(t, specs[n], mesh, n) for n, t in tree.items()}
+
+    opt = state["opt"]
+    return {"params": params,
+            "opt": adamw.AdamWState(shard(opt.step, P(), mesh),
+                                    like_params(opt.mu), like_params(opt.nu)),
+            "ef": compression.ErrorFeedback(like_params(state["ef"].residual))}
+
+
+def gather_train_state(state: dict, device=None) -> dict:
+    """The whole train state of a ``shard_train_state`` layout."""
+    params = gather_lm(state["params"], device)
+    specs, mesh = state["params"].specs, state["params"].mesh
+
+    def whole(tree):
+        return {n: gather(xs, specs[n], mesh, device) for n, xs in tree.items()}
+
+    opt = state["opt"]
+    return {"params": params,
+            "opt": adamw.AdamWState(gather(opt.step, P(), mesh, device),
+                                    whole(opt.mu), whole(opt.nu)),
+            "ef": compression.ErrorFeedback(whole(state["ef"].residual))}

@@ -10,9 +10,13 @@ post-rope.
 The arithmetic mirrors the reference's: einsum products in the compute
 dtype, scores masked with ``NEG_INF`` and softmaxed in float32, the weights
 cast back to the compute dtype. ``decode_attend`` writes the new token into
-the cache it is given, in place, and returns that same cache. The
-reference's mesh branch of ``decode_attend`` (a shard_map over a
-seq-sharded cache) comes with the sharded LM path.
+the cache it is given, in place, and returns that same cache.
+
+On a mesh (``*_sharded``, per-rank lists): head-parallel ``attend`` for
+prefill and training (``n_heads / model`` query heads per rank, the K/V
+heads they read; ``wo`` row-parallel, its partial sums reduced by the
+caller), and the reference's flash-decode over a cache split on ``S``
+over ``model`` (``decode_attend_sharded``).
 """
 from __future__ import annotations
 
@@ -20,13 +24,16 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.launch.mesh import axis_index, axis_size
 from repro_torch.models.common import (
     RMSNorm,
     apply_rope,
     empty_linear,
     init_linear_,
+    linear_f32,
     rmsnorm,
 )
+from repro_torch.sharding import MODEL, PerRank, all_gather, module_view, pmax, psum
 
 NEG_INF = -2.0 ** 30  # large-but-finite: keeps masked softmax NaN-free
 
@@ -153,11 +160,10 @@ def _broadcast_positions(positions, shape):
     return (positions if positions.ndim == 2 else positions[None]).expand(shape)
 
 
-def attend(p: Attention, x, positions, *, n_heads, n_kv_heads, head_dim,
-           rope_theta, kind="causal", window=None, use_rope=True,
-           dense_max_seq=8192, kv_block=512):
-    """Full-sequence attention (training / prefill). x: (B, S, D) →
-    (y (B, S, D), (k, v) each (B, S, Hkv, Dh))."""
+def _attend_heads(p: Attention, x, positions, *, n_heads, n_kv_heads,
+                  head_dim, rope_theta, kind, window, use_rope, dense_max_seq,
+                  kv_block):
+    """``attend`` up to ``wo``: (heads' outputs (B, S, H·Dh), (k, v))."""
     q, k, v = _project_qkv(p, x, n_heads, n_kv_heads, head_dim, positions,
                            rope_theta, use_rope)
     scale = head_dim ** -0.5
@@ -167,8 +173,19 @@ def attend(p: Attention, x, positions, *, n_heads, n_kv_heads, head_dim,
     else:
         out = _blockwise_sdpa(q, k, v, pos2, pos2, kind, window, scale,
                               kv_block)
-    out = out.reshape(*x.shape[:2], n_heads * head_dim)
-    return F.linear(out, p.wo.weight.to(x.dtype)), (k, v)
+    return out.reshape(*x.shape[:2], n_heads * head_dim), (k, v)
+
+
+def attend(p: Attention, x, positions, *, n_heads, n_kv_heads, head_dim,
+           rope_theta, kind="causal", window=None, use_rope=True,
+           dense_max_seq=8192, kv_block=512):
+    """Full-sequence attention (training / prefill). x: (B, S, D) →
+    (y (B, S, D), (k, v) each (B, S, Hkv, Dh))."""
+    out, kv = _attend_heads(
+        p, x, positions, n_heads=n_heads, n_kv_heads=n_kv_heads,
+        head_dim=head_dim, rope_theta=rope_theta, kind=kind, window=window,
+        use_rope=use_rope, dense_max_seq=dense_max_seq, kv_block=kv_block)
+    return F.linear(out, p.wo.weight.to(x.dtype)), kv
 
 
 # ---------------------------------------------------------------------------
@@ -274,6 +291,169 @@ def decode_attend(p: Attention, x, cache, pos, *, n_heads, n_kv_heads,
     out = acc / torch.clamp(l, min=1e-30)[..., None]
     out = out.reshape(b, 1, n_heads * head_dim).to(x.dtype)
     return F.linear(out, p.wo.weight.to(x.dtype)), cache
+
+
+# ---------------------------------------------------------------------------
+# Head-parallel attention and flash-decode over a mesh
+# ---------------------------------------------------------------------------
+
+
+def head_plan(n_heads: int, n_kv_heads: int, model: int) -> list[tuple[int, int]]:
+    """Per ``model`` rank ``c``: the K/V heads ``[lo, hi)`` that its query
+    heads ``[c·H/m, (c+1)·H/m)`` read (query head h reads K/V head h // g).
+    Raises ``NotImplementedError`` unless ``model`` divides the query
+    heads and the grouping maps a rank's heads onto whole K/V heads."""
+    hm, g = n_heads // model, n_heads // n_kv_heads
+    if n_heads % model or (hm % g and g % hm):
+        raise NotImplementedError(
+            f"{n_heads} query heads in groups of {g} over {model} model "
+            "ranks: head-parallel attention needs model | n_heads and whole "
+            "K/V heads per rank")
+    return [(c * hm // g, ((c + 1) * hm - 1) // g + 1) for c in range(model)]
+
+
+def kv_heads_split(n_kv_heads: int, model: int) -> bool:
+    """Whether the K/V heads' ranges are the ``model`` shards of ``wk`` /
+    ``wv`` (else the projections are also gathered over ``model``)."""
+    return n_kv_heads % model == 0
+
+
+def kv_extra_gather(n_kv_heads: int, model: int, prefix: str = "") -> dict:
+    """``sharding.gather_params``'s ``extra`` for an attention block: when
+    the K/V heads do not split over ``model`` (``kv_heads_split``), ``wk``
+    and ``wv`` (and their biases) are gathered over ``model`` too, so a
+    rank can project the heads its queries read."""
+    if kv_heads_split(n_kv_heads, model):
+        return {}
+    return {f"{prefix}{w}.{t}": (MODEL,) for w in ("wk", "wv")
+            for t in ("weight", "bias")}
+
+
+def _kv_rows(p: Attention, lo: int, hi: int, head_dim: int) -> Attention:
+    """A view of ``p`` (whole ``wk`` / ``wv``) projecting K/V heads
+    ``[lo, hi)`` only."""
+    rows = slice(lo * head_dim, hi * head_dim)
+    sub = {}
+    for name in ("wk", "wv"):
+        lin = getattr(p, name)
+        sub[f"{name}.weight"] = lin.weight[rows]
+        if lin.bias is not None:
+            sub[f"{name}.bias"] = lin.bias[rows]
+    return module_view(p, sub)
+
+
+def _local_attention(ps, mesh, n_heads, n_kv_heads, head_dim):
+    """Per rank: (its attention view, its query heads, its K/V heads)."""
+    m = axis_size(mesh, MODEL)
+    plan = head_plan(n_heads, n_kv_heads, m)
+    split = kv_heads_split(n_kv_heads, m)
+    out = []
+    for r, p in enumerate(ps):
+        lo, hi = plan[axis_index(mesh, r, MODEL)]
+        out.append((p if split else _kv_rows(p, lo, hi, head_dim),
+                    n_heads // m, hi - lo))
+    return out
+
+
+def gather_kv_heads(ks, mesh, n_heads: int, n_kv_heads: int, dim: int):
+    """Every rank's K (or V) with all ``n_kv_heads`` heads on ``dim``, from
+    each rank's own heads (``head_plan``): an all-gather over ``model``
+    and, where ranks share a head, one copy of it."""
+    m = axis_size(mesh, MODEL)
+    full = all_gather(ks, mesh, MODEL, dim)
+    if kv_heads_split(n_kv_heads, m):
+        return full
+    plan = head_plan(n_heads, n_kv_heads, m)
+    offs = [0]
+    for lo, hi in plan:
+        offs.append(offs[-1] + hi - lo)
+    idx = [next(offs[c] + j - lo for c, (lo, hi) in enumerate(plan)
+                if lo <= j < hi) for j in range(n_kv_heads)]
+    return PerRank(t.index_select(dim, torch.tensor(idx, device=t.device))
+                   for t in full)
+
+
+def attend_sharded(ps, hs, positions, *, mesh, n_heads, n_kv_heads, head_dim,
+                   rope_theta, kind="causal", window=None, use_rope=True,
+                   dense_max_seq=8192, kv_block=512):
+    """Head-parallel ``attend`` (training / prefill): each rank runs
+    ``attend``'s heads on its slice (``ps[r]`` gathered over ``data``;
+    ``hs[r]`` its batch rows, every position) with its query and K/V heads,
+    then its rows of the row-parallel ``wo``. Returns (the float32 partial
+    sums, for the caller to reduce over ``model``; each rank's (k, v) of its
+    K/V heads)."""
+    ys, kvs = [], []
+    for (p, hq, hkv), h in zip(_local_attention(ps, mesh, n_heads, n_kv_heads,
+                                                head_dim), hs):
+        out, kv = _attend_heads(
+            p, h, positions.to(h.device), n_heads=hq, n_kv_heads=hkv,
+            head_dim=head_dim, rope_theta=rope_theta, kind=kind, window=window,
+            use_rope=use_rope, dense_max_seq=dense_max_seq, kv_block=kv_block)
+        ys.append(linear_f32(out, p.wo.weight))
+        kvs.append(kv)
+    return ys, kvs
+
+
+def decode_attend_sharded(ps, xs, caches, pos, *, mesh, n_heads, n_kv_heads,
+                          head_dim, rope_theta, window, use_rope=True):
+    """One-token decode against a cache split on ``S`` over ``model`` (the
+    reference's shard_map; per-rank lists, ``ps`` gathered over ``data``).
+
+    Each rank projects its heads; an all-gather over ``model`` gives every
+    rank all of q and the new K/V. A rank writes them, and the position,
+    into slot ``pos % cache_len`` only if that slot lies in its slice of
+    the cache (the reference's ``mine`` mask), then scores all heads over
+    its slice (``_decode_attend_local``); the partials combine with a
+    ``pmax`` of ``m`` and ``psum``s of ``l·corr`` and ``acc·corr``. Each
+    rank multiplies its heads of the result by its ``wo`` rows. Returns
+    (float32 partial sums, for the caller to reduce over ``model``; the
+    caches, updated in place)."""
+    local = _local_attention(ps, mesh, n_heads, n_kv_heads, head_dim)
+    qs, kns, vns = [], [], []
+    for (p, hq, hkv), x, pb in zip(local, xs, pos):
+        q, k, v = _project_qkv(p, x, hq, hkv, head_dim, pb[:, None],
+                               rope_theta, use_rope)
+        qs.append(q)
+        kns.append(k)
+        vns.append(v)
+    qs = all_gather(qs, mesh, MODEL, 2)
+    kns = gather_kv_heads(kns, mesh, n_heads, n_kv_heads, 2)
+    vns = gather_kv_heads(vns, mesh, n_heads, n_kv_heads, 2)
+    scale = head_dim ** -0.5
+    accs, ms, ls = [], [], []
+    for r, cache in enumerate(caches):
+        ck, cv, cp, pb = cache["k"], cache["v"], cache["pos"], pos[r]
+        s_local = ck.shape[2]
+        cache_len = s_local * axis_size(mesh, MODEL)
+        slot = (pb % cache_len).long() - axis_index(mesh, r, MODEL) * s_local
+        mine = (slot >= 0) & (slot < s_local)
+        slot = slot.clamp(0, s_local - 1)
+        bidx = torch.arange(ck.shape[0], device=ck.device)
+        ck[bidx, :, slot] = torch.where(mine[:, None, None],
+                                        kns[r][:, 0].to(ck.dtype), ck[bidx, :, slot])
+        cv[bidx, :, slot] = torch.where(mine[:, None, None],
+                                        vns[r][:, 0].to(cv.dtype), cv[bidx, :, slot])
+        cp[bidx, slot] = torch.where(mine, pb.to(torch.int32), cp[bidx, slot])
+        cpos = cp
+        if window is not None:
+            cpos = torch.where(cp > (pb[:, None] - window), cp, -1)
+        acc, m, l = _decode_attend_local(qs[r][:, 0], ck, cv, cpos, pb, scale)
+        accs.append(acc)
+        ms.append(m)
+        ls.append(l)
+    m_g = pmax(ms, mesh, MODEL)
+    corr = [torch.exp(m - mg) for m, mg in zip(ms, m_g)]
+    l_g = psum([l * c for l, c in zip(ls, corr)], mesh, MODEL)
+    acc_g = psum([a * c[..., None] for a, c in zip(accs, corr)], mesh, MODEL)
+    ys = []
+    for r, ((p, hq, _), x) in enumerate(zip(local, xs)):
+        b = x.shape[0]
+        out = (acc_g[r] / torch.clamp(l_g[r], min=1e-30)[..., None]).reshape(
+            b, n_heads, head_dim)
+        c = axis_index(mesh, r, MODEL)
+        out = out[:, c * hq:(c + 1) * hq].reshape(b, 1, hq * head_dim)
+        ys.append(linear_f32(out.to(x.dtype), p.wo.weight))
+    return ys, caches
 
 
 # ---------------------------------------------------------------------------

@@ -14,6 +14,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.launch.mesh import axis_index
+from repro_torch.sharding import psum
+
 
 def truncated_normal_(t: torch.Tensor, gen: torch.Generator,
                       std: float) -> torch.Tensor:
@@ -157,6 +160,37 @@ def unembed(p_embed: Embed, lm_head, x: torch.Tensor) -> torch.Tensor:
     (the tied table is 622 MB in bf16 at qwen3-1.7b)."""
     w = p_embed.tokens if lm_head is None else lm_head.weight
     return F.linear(x, w.to(x.dtype))
+
+
+def linear_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w.T`` accumulated and returned in float32 (``w`` an
+    ``nn.Linear`` weight, cast to ``x``'s dtype): a row-parallel product's
+    partial sum, rounded only once its ranks' partials are added. bf16
+    on the card without autograd goes to ``bmm(..., out_dtype=float32)``;
+    elsewhere both operands are upcast, which is the same function."""
+    w = w.to(x.dtype)
+    if (x.is_cuda and x.dtype == torch.bfloat16 and not (
+            torch.is_grad_enabled() and (x.requires_grad or w.requires_grad))):
+        out = torch.bmm(x.reshape(1, -1, x.shape[-1]), w.t()[None],
+                        out_dtype=torch.float32)
+        return out.reshape(*x.shape[:-1], w.shape[0])
+    return F.linear(x.float(), w.float())
+
+
+def embed_sharded(ps, tokens, *, mesh, axis, compute_dtype=torch.bfloat16):
+    """Vocab-parallel ``embed``: rank ``r`` holds rows ``[c·V/m, (c+1)·V/m)``
+    of the table (``c`` its index along ``axis``, ``ps[r].tokens`` already
+    gathered over ``data``); it looks up the tokens that fall there, zeros
+    elsewhere, and a ``psum`` over ``axis`` adds the one non-zero row
+    (exact). ``tokens`` is a ``PerRank``."""
+    outs = []
+    for r, (p, tok) in enumerate(zip(ps, tokens)):
+        vm = p.tokens.shape[0]
+        local = tok.long() - axis_index(mesh, r, axis) * vm
+        ok = (local >= 0) & (local < vm)
+        rows = p.tokens[local.clamp(0, vm - 1)].to(compute_dtype)
+        outs.append(rows.masked_fill(~ok[..., None], 0))
+    return psum(outs, mesh, axis)
 
 
 def _relu2(x: torch.Tensor) -> torch.Tensor:

@@ -6,7 +6,13 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from repro_torch.models.common import activation, empty_linear, init_linear_
+from repro_torch.models.common import (
+    activation,
+    empty_linear,
+    init_linear_,
+    linear_f32,
+)
+from repro_torch.sharding import psum, psum_scatter
 
 
 class MLP(nn.Module):
@@ -30,12 +36,29 @@ def init_mlp(gen: torch.Generator, d_model: int, d_ff: int, *,
     return p
 
 
-def mlp(p: MLP, x: torch.Tensor, *, act: str = "silu") -> torch.Tensor:
-    """``act(gate) * up`` (gated) or ``act(up)``, then down, in x's dtype."""
+def _hidden(p: MLP, x: torch.Tensor, act: str) -> torch.Tensor:
+    """``act(gate) * up`` (gated) or ``act(up)``, in x's dtype."""
     fn = activation(act)
     up = F.linear(x, p.w_up.weight.to(x.dtype))
     if p.w_gate is not None:
-        h = fn(F.linear(x, p.w_gate.weight.to(x.dtype))) * up
-    else:
-        h = fn(up)
-    return F.linear(h, p.w_down.weight.to(x.dtype))
+        return fn(F.linear(x, p.w_gate.weight.to(x.dtype))) * up
+    return fn(up)
+
+
+def mlp(p: MLP, x: torch.Tensor, *, act: str = "silu") -> torch.Tensor:
+    """``act(gate) * up`` (gated) or ``act(up)``, then down, in x's dtype."""
+    return F.linear(_hidden(p, x, act), p.w_down.weight.to(x.dtype))
+
+
+def mlp_sharded(ps, hs, *, act: str = "silu", mesh, axis, scatter_dim=None):
+    """Tensor-parallel ``mlp``: rank ``r`` holds a ``d_ff`` slice
+    (``w_gate`` / ``w_up`` column-parallel, ``w_down`` row-parallel, each
+    already gathered over ``data``), so ``mlp`` on it gives a partial sum
+    (kept in float32), reduced over ``axis``: a ``psum``, or with
+    ``scatter_dim`` a reduce-scatter along that dim (the sequence-split
+    residual). The sums are float32."""
+    ys = [linear_f32(_hidden(p, h, act), p.w_down.weight)
+          for p, h in zip(ps, hs)]
+    if scatter_dim is None:
+        return psum(ys, mesh, axis)
+    return psum_scatter(ys, mesh, axis, scatter_dim)

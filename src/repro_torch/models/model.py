@@ -9,6 +9,12 @@
 Every family runs: dense, moe, vlm, ssm and hybrid through
 ``models/transformer.py``, encdec (whisper) through ``models/whisper.py``,
 whose batches carry ``frames`` (B, enc_seq, d).
+
+``apply_train`` / ``prefill`` / ``decode_step`` take ``policy=``: with an
+active ``sharding.Policy`` the params are a ``ShardedModule`` (or its
+per-rank views), the inputs ``PerRank`` lists, and the call runs the
+sharded stack on the policy's mesh. The dense, VLM and MoE families have
+one; the others raise ``NotImplementedError`` naming the family.
 """
 from __future__ import annotations
 
@@ -32,10 +38,17 @@ class Model:
 
     cfg: ModelConfig
     init: Callable          # (generator) -> params (float32, on its device)
-    apply_train: Callable   # (params, **batch) -> (logits, aux)
-    prefill: Callable       # (params, cache_len, **batch) -> (logits, cache)
-    decode_step: Callable   # (params, token, caches, pos) -> (logits, cache)
+    apply_train: Callable   # (params, *, policy=None, **batch) -> (logits, aux)
+    prefill: Callable       # (params, cache_len, *, policy=None, **batch) -> …
+    decode_step: Callable   # (params, token, caches, pos, policy=None) -> …
     init_cache: Callable    # (batch, cache_len, device="cuda") -> cache
+
+
+def _single_device(policy) -> None:
+    if policy is not None and policy.active:
+        raise NotImplementedError(
+            "the encdec family (whisper) has no sharded path yet; the "
+            "sharded LM steps run the dense, VLM and MoE families")
 
 
 def build(cfg: ModelConfig) -> Model:
@@ -45,13 +58,16 @@ def build(cfg: ModelConfig) -> Model:
         def init(generator: torch.Generator, max_dec_positions=4096):
             return whisper.init_params(generator, cfg, max_dec_positions)
 
-        def apply_train(params, *, tokens, frames):
+        def apply_train(params, *, tokens, frames, policy=None):
+            _single_device(policy)
             return whisper.apply_train(cfg, params, tokens, frames)
 
-        def prefill_fn(params, cache_len, *, tokens, frames):
+        def prefill_fn(params, cache_len, *, tokens, frames, policy=None):
+            _single_device(policy)
             return whisper.prefill(cfg, params, tokens, frames, cache_len)
 
-        def decode_fn(params, token, caches, pos):
+        def decode_fn(params, token, caches, pos, policy=None):
+            _single_device(policy)
             return whisper.decode_step(cfg, params, token, caches, pos)
 
         def init_cache(batch, cache_len, device="cuda"):
@@ -65,14 +81,24 @@ def build(cfg: ModelConfig) -> Model:
     def init(generator: torch.Generator):
         return transformer.init_params(generator, cfg)
 
-    def apply_train(params, *, tokens, vision_embeds=None):
+    def apply_train(params, *, tokens, vision_embeds=None, policy=None):
+        if policy is not None and policy.active:
+            return transformer.apply_train_sharded(cfg, policy, params, tokens,
+                                                   vision_embeds)
         return transformer.apply_train(cfg, params, tokens, vision_embeds)
 
-    def prefill_fn(params, cache_len, *, tokens, vision_embeds=None):
+    def prefill_fn(params, cache_len, *, tokens, vision_embeds=None,
+                   policy=None):
+        if policy is not None and policy.active:
+            return transformer.prefill_sharded(cfg, policy, params, tokens,
+                                               cache_len, vision_embeds)
         return transformer.prefill(cfg, params, tokens, cache_len,
                                    vision_embeds)
 
-    def decode_fn(params, token, caches, pos):
+    def decode_fn(params, token, caches, pos, policy=None):
+        if policy is not None and policy.active:
+            return transformer.decode_step_sharded(cfg, policy, params, token,
+                                                   caches, pos)
         return transformer.decode_step(cfg, params, token, caches, pos)
 
     def init_cache(batch, cache_len, device="cuda"):

@@ -13,8 +13,14 @@ Dispatch engines (identical outputs, drops included):
 Capacity: C = max(1, int(cf·T_g·k/E)) per group; ``dropless`` sets C = T_g,
 which is what inference uses. Expert weights stay stacked ``(E, d, f)`` /
 ``(E, f, d)`` parameters and the products are ``torch.einsum`` (batched
-GEMMs over the expert axis). The reference's shard_map path and sharding
-constraints belong to the sharded LM path and are not here.
+GEMMs over the expert axis).
+
+On a mesh (an active ``Policy``, per-rank lists), ``moe_block`` runs
+``_moe_shard_map``, the reference's explicit-collective engine: groups on
+the batch axes, one tiled all-gather over ``data`` of the router and each
+expert stack, the local engine unchanged on the rank's ``f`` slice, one
+``psum`` over ``model`` of the combined output and a ``pmean`` of the
+load-balance statistics over the batch axes.
 """
 from __future__ import annotations
 
@@ -27,7 +33,9 @@ from repro_torch.models.common import (
     init_linear_,
     truncated_normal_,
 )
-from repro_torch.models.mlp import MLP, mlp
+from repro_torch.launch.mesh import axis_size
+from repro_torch.models.mlp import MLP, mlp, mlp_sharded
+from repro_torch.sharding import DATA, all_gather, module_view, pmean, psum
 
 
 class MoE(nn.Module):
@@ -165,9 +173,73 @@ def moe_sort(p: MoE, x, *, top_k, capacity, act="silu", normalize=True):
     return torch.einsum("gtkd,gtk->gtd", per_k, gates.to(x.dtype)), aux
 
 
+def _moe_shard_map(ps, xgs, *, top_k, capacity, act, policy, dispatch,
+                   normalize):
+    """Explicit-collective MoE over ``policy.mesh`` (per-rank lists).
+
+    ``ps[r]`` holds rank r's shards of the router (d/|data|, E) and the
+    experts (E, d/|data|, f/|model|) / (E, f/|model|, d/|data|); ``xgs[r]``
+    its groups (G/|batch|, T, d), every token. The four weights are
+    all-gathered over ``data`` (their backward is the reduce-scatter of
+    the weight gradients); routing, dispatch, the experts on the local
+    ``f`` slice and the combine run locally, the combined output being a
+    partial sum over ``f``; ONE ``psum`` over ``model`` reduces it; ``me``
+    and ``ce`` are averaged over the batch axes. Returns (outputs, (me, ce))
+    as per-rank lists."""
+    mesh = policy.mesh
+    engine = {"einsum": moe_einsum, "sort": moe_sort}[dispatch]
+    gathered = {
+        "router": all_gather([p.router for p in ps], mesh, DATA, 0),
+        "w_gate": all_gather([p.w_gate for p in ps], mesh, DATA, 1),
+        "w_up": all_gather([p.w_up for p in ps], mesh, DATA, 1),
+        "w_down": all_gather([p.w_down for p in ps], mesh, DATA, 2),
+    }
+    outs, mes, ces = [], [], []
+    for r, (p, xl) in enumerate(zip(ps, xgs)):
+        p_local = module_view(p, {n: t[r] for n, t in gathered.items()})
+        out, (me, ce) = engine(p_local, xl, top_k=top_k, capacity=capacity,
+                               act=act, normalize=normalize)
+        outs.append(out)
+        mes.append(me)
+        ces.append(ce)
+    outs = psum(outs, mesh, policy.model_axis)   # token-sized TP reduce
+    if policy.batch_axes:                        # exact global aux stats
+        mes = pmean(mes, mesh, policy.batch_axes)
+        ces = pmean(ces, mesh, policy.batch_axes)
+    return outs, (mes, ces)
+
+
+def _moe_block_sharded(ps, xs, *, top_k, capacity_factor, act, policy,
+                       dispatch, normalize, num_groups, dropless):
+    """``moe_block`` on a mesh: ``xs[r]`` (B/|batch|, S, d) is rank r's
+    batch rows. The capacity comes from the groups' token count (the
+    batch's groups split over the batch axes; each holds T_g tokens on
+    one rank). A shared expert is the tensor-parallel ``mlp`` (its
+    weights in ``ps[r]`` already gathered over ``data``)."""
+    mesh = policy.mesh
+    b, s, d = xs[0].shape
+    nb = axis_size(mesh, policy.batch_axes)
+    g = num_groups or b * nb
+    tg = (b * nb * s) // g
+    e = ps[0].router.shape[-1]
+    capacity = tg if dropless else max(1, int(capacity_factor * tg * top_k / e))
+    outs, (mes, ces) = _moe_shard_map(
+        ps, [x.reshape(g // nb, tg, d) for x in xs], top_k=top_k,
+        capacity=capacity, act=act, policy=policy, dispatch=dispatch,
+        normalize=normalize)
+    aux = [e * torch.sum(me * ce) for me, ce in zip(mes, ces)]
+    outs = [o.reshape(b, s, d) for o in outs]
+    if ps[0].shared is not None:
+        shs = mlp_sharded([p.shared for p in ps], xs, act=act, mesh=mesh,
+                          axis=policy.model_axis)
+        outs = [o + torch.sigmoid(x @ p.shared_gate.to(x.dtype)) * sh.to(x.dtype)
+                for o, x, p, sh in zip(outs, xs, ps, shs)]
+    return outs, aux
+
+
 def moe_block(p: MoE, x, *, top_k, capacity_factor, act="silu",
               dispatch="sort", normalize=True, num_groups=None,
-              dropless=False):
+              dropless=False, policy=None):
     """x: (B, S, d) → (out, aux). Groups are batch rows (GShard); shared
     experts, if any, are always active.
 
@@ -175,7 +247,18 @@ def moe_block(p: MoE, x, *, top_k, capacity_factor, act="silu",
     token overflows its expert. Inference runs dropless (a prefill that
     drops tokens could never agree with step-by-step decode, where each
     single-token group fits); training keeps the capacity drops.
+
+    With an active ``policy`` (a mesh with a model axis), ``p`` and ``x``
+    are per-rank lists and the block runs ``_moe_shard_map``; returns
+    per-rank (out, aux) lists.
     """
+    if policy is not None and policy.active:
+        if policy.model_axis is None:
+            raise NotImplementedError("a sharded MoE block needs a model axis")
+        return _moe_block_sharded(
+            p, x, top_k=top_k, capacity_factor=capacity_factor, act=act,
+            policy=policy, dispatch=dispatch, normalize=normalize,
+            num_groups=num_groups, dropless=dropless)
     b, s, d = x.shape
     g = num_groups or b
     tg = (b * s) // g

@@ -18,6 +18,19 @@ Block kinds: ``attn_mlp`` and ``attn_moe`` (attention with an MLP or a
 MoE mixer), ``rwkv`` (RWKV-6), ``rec_mlp`` (a Griffin recurrent block
 and an MLP).
 
+On a mesh (``*_sharded``: an active ``Policy`` and a ``ShardedModule``
+or its per-rank views; activations, caches and tokens as ``PerRank``
+lists) the stack runs the ``attn_mlp`` / ``attn_moe`` plans (the dense,
+VLM and MoE families) in the Megatron partition the parameter specs
+imply. Each rank runs the single-device functions on its slice: a
+block's weights are gathered over ``data`` just before use (FSDP) and
+dropped after; q/k/v, gate/up and the vocabulary are split over
+``model`` and ``wo`` / ``w_down`` are row-parallel, reduced over
+``model``. When ``policy.sequence_split`` holds, the residual lies split
+on the sequence over ``model`` between blocks: reduce-scatter after a
+row-parallel product, all-gather before the next column-parallel one.
+The other families raise ``NotImplementedError`` naming themselves.
+
 API (functions of the config and an ``LM`` module):
   init_params(gen, cfg)                       → LM
   apply_train(cfg, params, tokens, …)         → (logits, aux)
@@ -38,11 +51,13 @@ from repro_torch.core.types import resolve_device
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import griffin as griffin_mod
 from repro_torch.models import rwkv6 as rwkv_mod
+from repro_torch.launch.mesh import axis_index, axis_size
 from repro_torch.models.common import (
     Embed,
     LayerNorm,
     RMSNorm,
     embed,
+    embed_sharded,
     empty_linear,
     init_linear_,
     layernorm,
@@ -50,8 +65,18 @@ from repro_torch.models.common import (
     truncated_normal_,
     unembed,
 )
-from repro_torch.models.mlp import MLP, init_mlp, mlp
+from repro_torch.models.mlp import MLP, init_mlp, mlp, mlp_sharded
 from repro_torch.models.moe import MoE, init_moe, moe_block
+from repro_torch.sharding import (
+    MODEL,
+    PerRank,
+    ShardedModule,
+    all_gather,
+    gather_params,
+    param_specs,
+    psum,
+    psum_scatter,
+)
 
 COMPUTE_DTYPE = torch.bfloat16
 
@@ -474,3 +499,267 @@ def decode_step(cfg: ModelConfig, params: LM, token, caches, pos):
     x, caches, _ = _run_stack(cfg, params, x, pos[:, None], caches,
                               decode=True)
     return _logits(cfg, params, x)[:, 0].float(), caches
+
+
+# ---------------------------------------------------------------------------
+# The sharded stack (a mesh: per-rank lists)
+# ---------------------------------------------------------------------------
+
+_ENGINE_PARAMS = ("moe.router", "moe.w_gate", "moe.w_up", "moe.w_down")
+
+
+def require_sharded_plan(cfg: ModelConfig) -> None:
+    """Raise ``NotImplementedError`` naming the family unless its blocks
+    are ``attn_mlp`` / ``attn_moe`` (the families with a sharded path)."""
+    if cfg.family == "encdec":
+        raise NotImplementedError(
+            "the encdec family (whisper) has no sharded path yet; the "
+            "sharded LM steps run the dense, VLM and MoE families")
+    kinds, _, tail = _plan(cfg)
+    bad = [k for k in kinds + tail if k not in ("attn_mlp", "attn_moe")]
+    if bad:
+        raise NotImplementedError(
+            f"the {cfg.family} family ({bad[0]} blocks) has no sharded path "
+            "yet; the sharded LM steps run the dense, VLM and MoE families")
+
+
+def rank_views(params, dtype=None) -> list:
+    """Per-rank module views of a ``ShardedModule`` (float32 shards cast to
+    ``dtype`` when given), or ``params`` itself when it is already a list
+    of them."""
+    if isinstance(params, ShardedModule):
+        return [params.rank_view(r, dtype) for r in range(params.mesh.size)]
+    return list(params)
+
+
+def _reduce_model(ys, mesh, sp: bool):
+    """Row-parallel partial sums reduced over ``model``: a reduce-scatter
+    on the sequence when the residual is split (``sp``), else a psum."""
+    if sp:
+        return psum_scatter(ys, mesh, MODEL, 1)
+    return psum(ys, mesh, MODEL)
+
+
+def _seq_chunk(xs, mesh):
+    """Each rank's chunk of the sequence (dim 1) by its ``model`` index,
+    of a tensor replicated over ``model`` (no communication)."""
+    m = axis_size(mesh, MODEL)
+    return PerRank(x.chunk(m, dim=1)[axis_index(mesh, r, MODEL)]
+                   for r, x in enumerate(xs))
+
+
+def _attn_block_sharded(blocks, prefix, specs, cfg, policy, xs, positions,
+                        caches, *, window, decode, sp):
+    """One attention block on every rank; ``blocks[r]`` is rank r's block
+    (its shards), ``sp`` whether the residual is split on the sequence
+    (never in decode). Returns (xs, caches (per-rank dicts, or None), aux
+    per rank)."""
+    mesh = policy.mesh
+    _, norm = _norm_fns(cfg)
+    m = axis_size(mesh, MODEL)
+    ps = gather_params(blocks, specs, mesh, prefix, skip=_ENGINE_PARAMS,
+                       extra=attn_mod.kv_extra_gather(cfg.n_kv_heads, m, "attn."))
+    hs = [norm(p.norm1, x) for p, x in zip(ps, xs)]
+    kw = dict(mesh=mesh, n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
+              head_dim=cfg.head_dim_, rope_theta=cfg.rope_theta, window=window)
+    if decode:
+        ys, caches = attn_mod.decode_attend_sharded(
+            [p.attn for p in ps], hs, caches, positions, **kw)
+    else:
+        if sp:
+            hs = all_gather(hs, mesh, MODEL, 1)
+        ys, kvs = attn_mod.attend_sharded(
+            [p.attn for p in ps], hs, positions, kind="causal",
+            dense_max_seq=cfg.dense_attn_max, kv_block=cfg.kv_block, **kw)
+        if caches is not None:
+            ks = attn_mod.gather_kv_heads([k for k, _ in kvs], mesh,
+                                          cfg.n_heads, cfg.n_kv_heads, 2)
+            vs = attn_mod.gather_kv_heads([v for _, v in kvs], mesh,
+                                          cfg.n_heads, cfg.n_kv_heads, 2)
+            for r, cache in enumerate(caches):
+                s_local = cache["k"].shape[2]
+                full = attn_mod.cache_from_prefill(
+                    ks[r], vs[r], positions.to(ks[r].device), s_local * m)
+                lo = axis_index(mesh, r, MODEL) * s_local
+                for name, t in cache.items():
+                    t.copy_(full[name][..., lo:lo + s_local, :] if name != "pos"
+                            else full[name][:, lo:lo + s_local])
+    xs = [x + y.to(x.dtype)
+          for x, y in zip(xs, _reduce_model(ys, mesh, sp))]
+    hs = [norm(p.norm2, x) for p, x in zip(ps, xs)]
+    if sp:
+        hs = all_gather(hs, mesh, MODEL, 1)
+    if hasattr(ps[0], "moe"):
+        os_, aux = moe_block(
+            [p.moe for p in ps], hs, top_k=cfg.top_k,
+            capacity_factor=cfg.capacity_factor, act=cfg.act,
+            dispatch=cfg.moe_dispatch, normalize=cfg.normalize_topk,
+            dropless=decode or caches is not None, policy=policy)
+        if sp:
+            os_ = _seq_chunk(os_, mesh)
+    else:
+        os_ = mlp_sharded([p.mlp for p in ps], hs, act=cfg.act, mesh=mesh,
+                          axis=MODEL, scatter_dim=1 if sp else None)
+        aux = [torch.zeros((), dtype=torch.float32, device=x.device) for x in xs]
+    return [x + o.to(x.dtype) for x, o in zip(xs, os_)], caches, aux
+
+
+def _run_stack_sharded(cfg, policy, specs, views, xs, positions, caches,
+                       decode, sp):
+    """The sharded layer walk; returns (xs, caches, aux per rank). In
+    training each group goes through ``maybe_checkpoint`` (the gathers are
+    recomputed in the backward, not kept)."""
+    kinds, _, _ = _plan(cfg)
+
+    def group(j, xs, cache_j):
+        aux = [torch.zeros((), dtype=torch.float32, device=x.device) for x in xs]
+        for i, kind in enumerate(kinds):
+            key = f"b{i}_{kind}"
+            c = None if cache_j is None else [cj[key] for cj in cache_j]
+            xs, _, a = _attn_block_sharded(
+                [v.layers[j][key] for v in views], f"layers.{j}.{key}.", specs,
+                cfg, policy, xs, positions, c, window=_window_for(cfg, kind),
+                decode=decode, sp=sp)
+            aux = [t + u for t, u in zip(aux, a)]
+        return xs, aux
+
+    aux = [torch.zeros((), dtype=torch.float32, device=x.device) for x in xs]
+    for j in range(len(views[0].layers)):
+        if caches is None:
+            xs, a = maybe_checkpoint(group, cfg, j, xs, None)
+        else:
+            cache_j = [{key: {name: t[r][j] for name, t in block.items()}
+                        for key, block in caches["layers"].items()}
+                       for r in range(len(views))]
+            xs, a = group(j, xs, cache_j)
+        aux = [t + u for t, u in zip(aux, a)]
+    return xs, caches, aux
+
+
+def _embed_inputs_sharded(cfg, policy, specs, views, tokens,
+                          vision_embeds=None):
+    mesh = policy.mesh
+    ps = gather_params([v.embed for v in views], specs, mesh, "embed.")
+    xs = embed_sharded(ps, tokens, mesh=mesh, axis=MODEL,
+                       compute_dtype=COMPUTE_DTYPE)
+    if cfg.family == "vlm" and vision_embeds is not None:
+        xs = PerRank(torch.cat([ve.to(COMPUTE_DTYPE), x], dim=1)
+                     for ve, x in zip(vision_embeds, xs))
+    return xs
+
+
+def _logits_sharded(cfg, policy, specs, views, xs):
+    """Final norm and the vocab-parallel head: logits (…, V/|model|)."""
+    mesh = policy.mesh
+    _, norm = _norm_fns(cfg)
+    # each rank's logits over its vocabulary slice; a tied head takes the
+    # embedding's shard
+    if views[0].lm_head is None:
+        embeds = gather_params([v.embed for v in views], specs, mesh, "embed.")
+        heads = [None] * len(views)
+    else:
+        embeds = [v.embed for v in views]
+        heads = gather_params([v.lm_head for v in views], specs, mesh,
+                              "lm_head.")
+    return [unembed(pe, lh, norm(v.final_norm, x))
+            for v, pe, lh, x in zip(views, embeds, heads, xs)]
+
+
+@functools.lru_cache(maxsize=None)
+def _lm_specs(cfg: ModelConfig) -> dict:
+    """``param_specs`` of ``cfg``'s LM (built on the meta device)."""
+    return param_specs(LM(cfg, torch.device("meta")))
+
+
+def _sharded_parts(cfg, params):
+    """(per-rank views, parameter specs) of a ``ShardedModule`` or of its
+    views; raises for a family without a sharded path."""
+    require_sharded_plan(cfg)
+    if isinstance(params, ShardedModule):
+        return rank_views(params), params.specs
+    return list(params), _lm_specs(cfg)
+
+
+def apply_train_sharded(cfg: ModelConfig, policy, params, tokens,
+                        vision_embeds=None):
+    """``apply_train`` on a mesh: tokens (and vision embeddings) per rank,
+    batch rows on the batch axes. Returns (per-rank logits (B/|batch|, S,
+    V/|model|) float32, per-rank aux, replicated)."""
+    views, specs = _sharded_parts(cfg, params)
+    mesh = policy.mesh
+    xs = _embed_inputs_sharded(cfg, policy, specs, views, tokens, vision_embeds)
+    s = xs[0].shape[1]
+    sp = policy.sequence_split(s)
+    if sp:
+        xs = _seq_chunk(xs, mesh)
+    positions = torch.arange(s, device=xs[0].device)[None, :]
+    xs, _, aux = _run_stack_sharded(cfg, policy, specs, views, xs, positions,
+                                    None, False, sp)
+    if sp:
+        xs = all_gather(xs, mesh, MODEL, 1)
+    logits = _logits_sharded(cfg, policy, specs, views, xs)
+    return PerRank(l.float() for l in logits), PerRank(aux)
+
+
+def _gather_vocab(logits, mesh):
+    """Vocab-split logits (…, V/|model|) → whole (…, V) on every rank."""
+    return PerRank(l.float() for l in all_gather(logits, mesh, MODEL, -1))
+
+
+@torch.no_grad()
+def prefill_sharded(cfg: ModelConfig, policy, params, tokens, cache_len,
+                    vision_embeds=None):
+    """``prefill`` on a mesh. Returns (per-rank last logits (B/|batch|, V),
+    the cache: ``init_cache``'s tree with ``PerRank`` leaves, each rank's
+    K/V (L, B/|batch|, Hkv, cache_len/|model|, Dh) and positions its slice
+    of the sequence)."""
+    views, specs = _sharded_parts(cfg, params)
+    mesh = policy.mesh
+    m = axis_size(mesh, MODEL)
+    xs = _embed_inputs_sharded(cfg, policy, specs, views, tokens, vision_embeds)
+    b, s = xs[0].shape[:2]
+    sp = policy.sequence_split(s)
+    caches = init_cache_sharded(cfg, mesh, b, cache_len, xs[0].dtype,
+                                [x.device for x in xs])
+    if sp:
+        xs = _seq_chunk(xs, mesh)
+    positions = torch.arange(s, device=xs[0].device)[None, :]
+    xs, caches, _ = _run_stack_sharded(cfg, policy, specs, views, xs,
+                                       positions, caches, False, sp)
+    if sp:           # the last position lies in the last model rank's chunk
+        xs = all_gather(xs, mesh, MODEL, 1)
+    logits = _logits_sharded(cfg, policy, specs, views, [x[:, -1:] for x in xs])
+    return PerRank(l[:, 0] for l in _gather_vocab(logits, mesh)), caches
+
+
+@torch.no_grad()
+def decode_step_sharded(cfg: ModelConfig, policy, params, token, caches, pos):
+    """``decode_step`` on a mesh: token (B/|batch|, 1) and pos per rank;
+    the cache (``prefill_sharded``'s layout) updated in place. Returns
+    (per-rank logits (B/|batch|, V), caches)."""
+    views, specs = _sharded_parts(cfg, params)
+    mesh = policy.mesh
+    xs = _embed_inputs_sharded(cfg, policy, specs, views, token)
+    xs, caches, _ = _run_stack_sharded(cfg, policy, specs, views, xs, pos,
+                                       caches, True, False)
+    logits = _logits_sharded(cfg, policy, specs, views, xs)
+    return PerRank(l[:, 0] for l in _gather_vocab(logits, mesh)), caches
+
+
+def init_cache_sharded(cfg: ModelConfig, mesh, batch: int, cache_len: int,
+                       dtype=torch.bfloat16, devices=None) -> dict:
+    """An empty cache laid out over ``mesh``: rank r's entry of each
+    ``PerRank`` is ``init_cache``'s for its ``batch`` rows and its
+    ``cache_len / |model|`` slots (``devices[r]``, default the mesh's)."""
+    require_sharded_plan(cfg)
+    m = axis_size(mesh, MODEL)
+    window = _window_for(cfg, _plan(cfg)[0][0])
+    clen = min(cache_len, window) if window else cache_len
+    if clen % m:
+        raise ValueError(f"cache length {clen} is not divisible by the {m} "
+                         "model ranks")
+    devices = devices or mesh.devices
+    per = [init_cache(cfg, batch, clen // m, dtype, d) for d in devices]
+    return {"layers": {key: {name: PerRank(c["layers"][key][name] for c in per)
+                             for name in block}
+                       for key, block in per[0]["layers"].items()}}

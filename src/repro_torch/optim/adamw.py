@@ -10,12 +10,20 @@ gives them). ``update`` writes the new parameters and moments in place,
 through ``torch._foreach_*`` over groups of at most ``_GROUP_ELEMENTS``
 elements, so a step costs a few launches per group and its temporaries
 stay within a group's size.
+
+On a mesh the moments are sharded like the parameters (``{name:
+PerRank}``) and each rank updates its shards with ``update``, given the
+global norm: ``global_norm_sharded`` counts every element once, a
+replicated shard on one rank only.
 """
 from __future__ import annotations
 
 from typing import NamedTuple
 
 import torch
+
+from repro_torch.launch.mesh import AXIS_NAMES
+from repro_torch.sharding import PerRank, canonical_ranks, psum
 
 # elements per foreach group: its float32 temporaries are at most 1 GiB each
 _GROUP_ELEMENTS = 1 << 28
@@ -57,6 +65,21 @@ def global_norm(grads) -> torch.Tensor:
     return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(leaves)))
 
 
+def global_norm_sharded(grads: dict, specs: dict, mesh) -> PerRank:
+    """``global_norm`` of ``{name: PerRank}`` laid out by ``specs``, on
+    every rank: each rank's sum of squares over the shards it holds one
+    copy of (coordinate 0 along the spec's replica axes), a ``psum`` over
+    the whole mesh, the square root."""
+    local = []
+    for r in range(mesh.size):
+        leaves = [g[r].float() for n, g in grads.items()
+                  if r in canonical_ranks(specs[n], mesh)]
+        dev = mesh.devices[r]
+        local.append(torch.stack(torch._foreach_norm(leaves)).square().sum()
+                     if leaves else torch.zeros((), device=dev))
+    return PerRank(torch.sqrt(s) for s in psum(local, mesh, AXIS_NAMES))
+
+
 def _clip_scale(norm: torch.Tensor, max_norm: float) -> torch.Tensor:
     return torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
 
@@ -86,13 +109,14 @@ def _groups(names, params: dict):
 @torch.no_grad()
 def update(grads: dict, state: AdamWState, params, *, lr, b1: float = 0.9,
            b2: float = 0.95, eps: float = 1e-8, weight_decay: float = 0.1,
-           max_grad_norm: float | None = 1.0):
+           max_grad_norm: float | None = 1.0, gnorm=None):
     """One AdamW step. ``grads`` is ``{name: tensor}`` (cast to float32),
     ``params`` a module or ``{name: float32 tensor}`` updated in place, as
-    are ``state``'s moments. Returns (new state, metrics ``grad_norm`` and
-    ``lr``)."""
+    are ``state``'s moments. ``gnorm``, when given, is the global norm to
+    clip by (a rank's shards on a mesh); else ``global_norm(grads)``.
+    Returns (new state, metrics ``grad_norm`` and ``lr``)."""
     named = _named(params)
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads) if gnorm is None else gnorm
     scale = (_clip_scale(gnorm, max_grad_norm) if max_grad_norm is not None
              else None)
     step = state.step + 1

@@ -8,6 +8,10 @@ trajectory converges to the uncompressed one. ``none`` passes gradients
 through. ``init_error_feedback`` allocates the float32 residuals in every
 mode, as the reference does (the state has the same parts whatever the
 mode).
+
+On a mesh (``compress_grads_sharded``) the residuals are sharded like the
+parameters and int8's per-tensor scale is the ``pmax`` of its shards'
+maxima, the scale of the whole tensor.
 """
 from __future__ import annotations
 
@@ -15,7 +19,9 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch.launch.mesh import AXIS_NAMES
 from repro_torch.optim.adamw import _named
+from repro_torch.sharding import PerRank, pmax
 
 
 class ErrorFeedback(NamedTuple):
@@ -36,8 +42,9 @@ def _compress_bf16(g):
     return c, g - c.float()
 
 
-def _compress_int8(g):
-    scale = torch.clamp(g.abs().max(), min=1e-12) / 127.0
+def _compress_int8(g, amax=None):
+    amax = g.abs().max() if amax is None else amax
+    scale = torch.clamp(amax, min=1e-12) / 127.0
     q = torch.clamp(torch.round(g / scale), -127, 127).to(torch.int8)
     deq = q.float() * scale
     return deq, g - deq
@@ -54,4 +61,28 @@ def compress_grads(grads: dict, ef: ErrorFeedback, *, mode: str = "bf16"):
     comp, res = {}, {}
     for n, g in grads.items():
         comp[n], res[n] = fn(g.float() + ef.residual[n])
+    return comp, ErrorFeedback(res)
+
+
+@torch.no_grad()
+def compress_grads_sharded(grads: dict, ef: ErrorFeedback, specs: dict, mesh,
+                           *, mode: str = "bf16"):
+    """``compress_grads`` of ``{name: PerRank}`` laid out by ``specs`` (the
+    residuals too); int8 scales each tensor by the max over all its
+    shards."""
+    if mode == "none":
+        return grads, ef
+    if mode not in ("bf16", "int8"):
+        raise KeyError(mode)
+    comp, res = {}, {}
+    for n, g in grads.items():
+        x = [t.float() + r for t, r in zip(g, ef.residual[n])]
+        if mode == "int8":
+            axes = tuple(a for a in AXIS_NAMES if a in specs[n].axes())
+            amax = pmax([t.abs().max() for t in x], mesh, axes)
+            out = [_compress_int8(t, a) for t, a in zip(x, amax)]
+        else:
+            out = [_compress_bf16(t) for t in x]
+        comp[n] = PerRank(c for c, _ in out)
+        res[n] = PerRank(r for _, r in out)
     return comp, ErrorFeedback(res)

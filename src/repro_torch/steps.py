@@ -4,9 +4,23 @@ one device.
 ``make_*_step`` return a ``StepBuild``: the step function plus the
 ``(shape, dtype)`` trees of its arguments (``arg_structs``: what
 ``model.input_shapes`` / ``model.cache_specs`` give and the state's
-parameters, moments and residuals), the loop trip counts and metadata. The
-reference's ``in_specs`` / ``out_specs`` are PartitionSpecs for a device
-mesh; they come with the sharded LM path, so a ``mesh`` raises here.
+parameters, moments and residuals), the partition specs of its inputs and
+outputs (``in_specs`` / ``out_specs``, the reference's, parameters keyed
+by the port's names), the loop trip counts and metadata.
+
+With a ``mesh`` (a ``launch.mesh.DeviceMesh``) the step runs sharded,
+single-controller: every input and output is laid out per rank as
+``in_specs`` / ``out_specs`` say (``sharding.shard_tree``; the parameters
+a ``sharding.ShardedModule``, ``convert.shard_lm``), and the policy is
+the reference's (``seq_shard_residual=cfg.sp_residual`` in training,
+``decode_mode`` in decode). Training re-splits each microbatch on its
+batch axes, takes the cross-entropy over vocabulary-split logits
+(``_xent_sharded``), sums the gradients of replicated shards over their
+replica axes (what the reference's partitioner does), compresses (int8's
+scale the max over a tensor's shards) and clips by the global norm
+counting every element once. The dense, VLM and MoE families run; the
+others' steps raise ``NotImplementedError`` naming the family when
+called.
 
 Training, in the reference's order: the batch is split into M microbatches
 (``reshape((M, B/M) + …)``); each runs forward in bf16 from the float32
@@ -24,7 +38,6 @@ the microbatches), ``grad_norm`` and ``lr``. ``train_state_to_ckpt`` /
 """
 from __future__ import annotations
 
-import copy
 import dataclasses
 from typing import Callable
 
@@ -40,10 +53,28 @@ from repro_torch.models.model import (
     effective_cache_len,
     input_shapes,
 )
+from repro_torch.launch.mesh import axis_index, axis_size
+from repro_torch.models import transformer
 from repro_torch.models.transformer import LM
 from repro_torch.models.whisper import Whisper
 from repro_torch.optim import adamw, compression
 from repro_torch.optim import schedule as sched
+from repro_torch.sharding import (
+    DATA,
+    MODEL,
+    POD,
+    P,
+    PerRank,
+    Policy,
+    ShardedModule,
+    all_gather,
+    module_view,
+    param_specs,
+    pmax,
+    pmean,
+    psum,
+    replica_axes,
+)
 
 COMPUTE_DTYPE = torch.bfloat16
 
@@ -51,27 +82,77 @@ COMPUTE_DTYPE = torch.bfloat16
 @dataclasses.dataclass
 class StepBuild:
     """A step function and what describes it. ``arg_structs``: its
-    positional arguments as ``(shape, dtype)`` trees. The reference's
-    ``in_specs`` / ``out_specs`` (PartitionSpecs) belong to the sharded LM
-    path and are left out."""
+    positional arguments as ``(shape, dtype)`` trees; ``in_specs`` /
+    ``out_specs``: their partition specs (``sharding.P``), the parameters'
+    as ``{port name: P}``."""
 
     fn: Callable
     arg_structs: tuple
+    in_specs: tuple
+    out_specs: object
     loop_dims: dict          # name -> full trip count
     meta: dict
 
 
-def _no_mesh(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError(
-            "the port's LM steps run on one device; the sharded LM path "
-            "(PartitionSpecs, Policy.for_mesh) is not ported")
-
-
 def batch_axes_for(global_batch: int, mesh) -> tuple:
-    """The mesh axes the batch is sharded over: ``()`` without a mesh."""
-    _no_mesh(mesh)
-    return ()
+    """Largest batch-sharding axis set the batch size divides (``()``
+    without a mesh)."""
+    if mesh is None:
+        return ()
+    axes = [a for a in (POD, DATA) if a in mesh.axis_names]
+    prod = 1
+    chosen = []
+    for a in axes:
+        if global_batch % (prod * axis_size(mesh, a)) == 0:
+            chosen.append(a)
+            prod *= axis_size(mesh, a)
+    return tuple(chosen)
+
+
+def _batch_spec(batch_tree, baxes):
+    return {k: P(baxes) for k in batch_tree}
+
+
+def _cache_partition_specs(cache_tree, policy: Policy):
+    """PartitionSpecs for a decode cache's ``(shape, dtype)`` tree by
+    leaf-name rules (the reference's, for every family's leaves)."""
+    bax = policy.batch_axes if policy.batch_axes else None
+    m = policy.model_axis
+
+    def spec(path, leaf):
+        path = "/".join(path)
+        stacked = path.startswith("layers") or path.startswith("cross")
+        nd = len(leaf[0]) - (1 if stacked else 0)
+        if path.endswith("/k") or path.endswith("/v"):
+            if "cross" in path:     # (B, S_enc, H, Dh): heads on model
+                out = (bax, None, m, None)[:nd]
+            else:                    # (B, Hkv, S, Dh): seq on model
+                out = (bax, None, m, None)[:nd]
+        elif path.endswith("/pos"):
+            out = (bax, m)[:nd]
+        elif path.endswith("/wkv"):  # (B, H, Dk, Dv): Dv on model
+            out = (bax, None, None, m)[:nd]
+        elif path.endswith("_shift"):  # (B, d)
+            out = (bax, m)[:nd]
+        elif path.endswith("/h"):    # (B, d_rnn)
+            out = (bax, m)[:nd]
+        elif path.endswith("/conv"):  # (B, 3, d_rnn)
+            out = (bax, None, m)[:nd]
+        else:
+            out = (bax,) + (None,) * (nd - 1)
+        if stacked:
+            out = (None,) + tuple(out)
+        return P(*out)
+
+    def walk(tree, path=()):
+        if isinstance(tree, tuple) and len(tree) == 2 and isinstance(
+                tree[1], torch.dtype):
+            return spec(path, tree)
+        if isinstance(tree, dict):
+            return {k: walk(v, path + (str(k),)) for k, v in tree.items()}
+        return [walk(v, path + (str(i),)) for i, v in enumerate(tree)]
+
+    return walk(cache_tree)
 
 
 def _xent(logits, labels):
@@ -84,21 +165,41 @@ def _xent(logits, labels):
     return nll + z_loss, nll
 
 
+def _xent_sharded(logits, labels, policy: Policy):
+    """``_xent`` over vocabulary-split logits (per rank (B, S, V/|model|)
+    float32, labels per rank): a global logsumexp through a ``pmax`` of
+    the (constant) maxima and a ``psum`` of the exponentials; the gold
+    logit by a masked gather on the rank that holds it and a ``psum``;
+    means over the batch axes by ``pmean``. Returns per-rank (loss, nll),
+    the same on every rank."""
+    mesh = policy.mesh
+    m_g = pmax([l.detach().amax(-1) for l in logits], mesh, MODEL)
+    sums = psum([torch.exp(l - m[..., None]).sum(-1)
+                 for l, m in zip(logits, m_g)], mesh, MODEL)
+    lse = [torch.log(s) + m for s, m in zip(sums, m_g)]
+    golds = []
+    for r, (l, lab) in enumerate(zip(logits, labels)):
+        vm = l.shape[-1]
+        local = lab.long() - axis_index(mesh, r, MODEL) * vm
+        ok = (local >= 0) & (local < vm)
+        g = torch.gather(l, -1, local.clamp(0, vm - 1)[..., None])[..., 0]
+        golds.append(torch.where(ok, g, 0.0))
+    gold = psum(golds, mesh, MODEL)
+    nll = pmean([(a - g).mean() for a, g in zip(lse, gold)], mesh,
+                policy.batch_axes)
+    z = pmean([1e-4 * torch.square(a).mean() for a in lse], mesh,
+              policy.batch_axes)
+    return PerRank(n + zz for n, zz in zip(nll, z)), nll
+
+
 def _cast_view(module: nn.Module, dtype) -> nn.Module:
     """A shallow copy of ``module``'s tree whose float32 parameters are
-    ``p.to(dtype)``: differentiable casts of the masters, so a backward
-    pass through the view puts float32 gradients on the masters (the
-    reference's ``astype`` of every float32 leaf inside the loss). The
-    view outlives the forward pass, so recomputing a block in the backward
-    (remat) sees the same casts."""
-    view = copy.copy(module)
-    view.__dict__["_parameters"] = {
-        n: (p.to(dtype) if p is not None and p.dtype == torch.float32 else p)
-        for n, p in module._parameters.items()}
-    view.__dict__["_modules"] = {
-        n: (None if m is None else _cast_view(m, dtype))
-        for n, m in module._modules.items()}
-    return view
+    ``p.to(dtype)`` (``sharding.module_view``): differentiable casts of the
+    masters, so a backward pass through the view puts float32 gradients on
+    the masters (the reference's ``astype`` of every float32 leaf inside
+    the loss). The view outlives the forward pass, so recomputing a block
+    in the backward (remat) sees the same casts."""
+    return module_view(module, {}, dtype=dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -115,16 +216,20 @@ def _init_for(model: Model, cfg: ModelConfig, gen: torch.Generator,
     return model.init(gen)
 
 
+def _meta_module(cfg: ModelConfig, max_positions=None) -> nn.Module:
+    """The model's module on the meta device (allocating nothing)."""
+    meta = torch.device("meta")
+    if cfg.family == "encdec":
+        return Whisper(cfg, meta, max_dec_positions=max_positions or 4096)
+    return LM(cfg, meta)
+
+
 def _param_structs(cfg: ModelConfig, dtype=torch.float32,
                    max_positions=None) -> dict:
     """``{name: (shape, dtype)}`` of the model's parameters, from a module
     built on the meta device."""
-    meta = torch.device("meta")
-    if cfg.family == "encdec":
-        params = Whisper(cfg, meta, max_dec_positions=max_positions or 4096)
-    else:
-        params = LM(cfg, meta)
-    return {n: (tuple(p.shape), dtype) for n, p in params.named_parameters()}
+    return {n: (tuple(p.shape), dtype) for n, p in
+            _meta_module(cfg, max_positions).named_parameters()}
 
 
 def _layer_count(cfg: ModelConfig) -> int:
@@ -154,12 +259,25 @@ def make_train_step(
 ) -> StepBuild:
     """The training step of ``cfg`` at ``shape`` (see the module's
     docstring); ``shape.global_batch`` must be a multiple of
-    ``microbatches``."""
-    _no_mesh(mesh)
+    ``microbatches``. With a ``mesh`` the step is sharded."""
     model = build(cfg)
+    baxes = batch_axes_for(shape.global_batch // microbatches, mesh)
+    policy = Policy.none()
+    if mesh is not None:
+        policy = dataclasses.replace(Policy.for_mesh(mesh), batch_axes=baxes,
+                                     seq_shard_residual=cfg.sp_residual)
+    full_axes = batch_axes_for(shape.global_batch, mesh)
 
     def loss_fn(params, mb):
         labels = mb.pop("labels")
+        if policy.active:
+            logits, aux = model.apply_train(params, policy=policy, **mb)
+            if cfg.family == "vlm":
+                logits = [l[:, cfg.n_vision_tokens:] for l in logits]
+            loss, nll = _xent_sharded(logits, labels, policy)
+            # rank 0's copy: every rank's work reaches it through the
+            # reductions, and counting one copy keeps the loss the global one
+            return loss[0] + aux_coef * aux[0], nll[0]
         logits, aux = model.apply_train(params, **mb)
         if cfg.family == "vlm":
             logits = logits[:, cfg.n_vision_tokens:]
@@ -195,6 +313,70 @@ def make_train_step(
                        nll=torch.stack(nlls).mean())
         return {"params": params, "opt": opt, "ef": ef}, metrics
 
+    def microbatch(batch, i):
+        """Microbatch ``i`` of a batch laid out on ``full_axes``, re-split
+        on the microbatch's batch axes (an all-gather of the rows)."""
+        out = {}
+        for k, xs in batch.items():
+            xs = all_gather(xs, mesh, full_axes, 0) if full_axes else xs
+            n = axis_size(mesh, baxes)
+            out[k] = PerRank(
+                x.reshape((microbatches, x.shape[0] // microbatches)
+                          + tuple(x.shape[1:]))[i].chunk(n)[
+                              axis_index(mesh, r, baxes)]
+                for r, x in enumerate(xs))
+        return out
+
+    def sharded_train_step(state, batch):
+        params, opt, ef = state["params"], state["opt"], state["ef"]
+        shards = params.shards
+        for xs in shards.values():
+            for p in xs:
+                p.grad = None
+        losses, nlls = [], []
+        with torch.enable_grad():
+            for i in range(microbatches):
+                views = transformer.rank_views(params, COMPUTE_DTYPE)
+                loss, nll = loss_fn(views, microbatch(batch, i))
+                loss.backward()        # accumulates float32 into .grad
+                losses.append(loss.detach())
+                nlls.append(nll.detach())
+        grads = {}
+        for n, xs in shards.items():
+            g = PerRank(torch.zeros_like(p) if p.grad is None else p.grad
+                        for p in xs)
+            # a replicated shard's copies each saw part of the work: the
+            # gradient of the tensor is their sum (the reference's
+            # partitioner inserts the same all-reduce)
+            rep = tuple(a for a in replica_axes(params.specs[n])
+                        if axis_size(mesh, a) > 1)
+            grads[n] = psum(g, mesh, rep) if rep else g
+            for p in xs:
+                p.grad = None
+        torch._foreach_div_([t for g in grads.values() for t in g],
+                            microbatches)
+        grads, ef = compression.compress_grads_sharded(
+            grads, ef, params.specs, mesh, mode=compress)
+        gnorm = adamw.global_norm_sharded(grads, params.specs, mesh)
+        steps_, metrics = PerRank(), None
+        for r in range(mesh.size):
+            lr = sched.cosine_with_warmup(
+                opt.step[r], peak_lr=peak_lr, warmup_steps=warmup_steps,
+                total_steps=total_steps)
+            st, met = adamw.update(
+                {n: g[r] for n, g in grads.items()},
+                adamw.AdamWState(opt.step[r],
+                                 {n: t[r] for n, t in opt.mu.items()},
+                                 {n: t[r] for n, t in opt.nu.items()}),
+                params.rank_parameters(r), lr=lr, gnorm=gnorm[r])
+            steps_.append(st.step)
+            if r == 0:
+                metrics = met
+        opt = adamw.AdamWState(steps_, opt.mu, opt.nu)
+        metrics.update(loss=torch.stack(losses).mean(),
+                       nll=torch.stack(nlls).mean())
+        return {"params": params, "opt": opt, "ef": ef}, metrics
+
     params_s = _param_structs(cfg)
     state_struct = {
         "params": params_s,
@@ -202,20 +384,52 @@ def make_train_step(
                                 nu=params_s),
         "ef": compression.ErrorFeedback(residual=params_s),
     }
+    batch_structs = input_shapes(cfg, shape)
+    p_specs = param_specs(_meta_module(cfg))
+    state_specs = {
+        "params": p_specs,
+        "opt": adamw.AdamWState(step=P(), mu=p_specs, nu=p_specs),
+        "ef": compression.ErrorFeedback(residual=p_specs),
+    }
     loop_dims = {"microbatches": microbatches, "layers": _layer_count(cfg)}
     if cfg.family == "encdec":
         loop_dims["enc_layers"] = cfg.n_enc_layers
+    fn = train_step
+    if mesh is not None:
+        fn = _sharded(cfg, sharded_train_step)
     return StepBuild(
-        fn=train_step,
-        arg_structs=(state_struct, input_shapes(cfg, shape)),
+        fn=fn,
+        arg_structs=(state_struct, batch_structs),
+        in_specs=(state_specs, _batch_spec(batch_structs, full_axes)),
+        out_specs=(state_specs, P()),
         loop_dims=loop_dims,
         meta=dict(kind="train", microbatches=microbatches),
     )
 
 
-def init_train_state(params: nn.Module) -> dict:
+def _sharded(cfg: ModelConfig, fn: Callable) -> Callable:
+    """``fn``, raising ``NotImplementedError`` naming the family when the
+    family has no sharded path (its specs are still built)."""
+    def step(*args):
+        transformer.require_sharded_plan(cfg)
+        return fn(*args)
+    return step
+
+
+def init_train_state(params) -> dict:
     """``{"params", "opt", "ef"}`` for float32 ``params``: zero moments and
-    zero residuals (float32, in every compression mode)."""
+    zero residuals (float32, in every compression mode). For a
+    ``ShardedModule`` they are sharded like the parameters and the step
+    is on every rank (``make_train_step(…, mesh).in_specs[0]``'s layout)."""
+    if isinstance(params, ShardedModule):
+        def zeros():
+            return {n: PerRank(torch.zeros(t.shape, dtype=torch.float32,
+                                           device=t.device) for t in xs)
+                    for n, xs in params.shards.items()}
+        step = PerRank(torch.zeros((), dtype=torch.int32, device=dev)
+                       for dev in params.mesh.devices)
+        return {"params": params, "opt": adamw.AdamWState(step, zeros(), zeros()),
+                "ef": compression.ErrorFeedback(zeros())}
     return {"params": params, "opt": adamw.init(params),
             "ef": compression.init_error_feedback(params)}
 
@@ -260,22 +474,39 @@ def _serve_params_struct(cfg: ModelConfig, shape: ShapeSpec) -> dict:
     return _param_structs(cfg, COMPUTE_DTYPE, max_pos)
 
 
+def _serve_policy(cfg: ModelConfig, shape: ShapeSpec, mesh, **kw):
+    baxes = batch_axes_for(shape.global_batch, mesh)
+    if mesh is None:
+        return Policy.none(), baxes
+    return dataclasses.replace(Policy.for_mesh(mesh), batch_axes=baxes,
+                               **kw), baxes
+
+
 def make_prefill_step(cfg: ModelConfig, shape: ShapeSpec, mesh=None) -> StepBuild:
     """``fn(params, batch) -> (last logits, cache)`` at ``shape``'s cache
-    length (rolling for windowed archs)."""
-    _no_mesh(mesh)
+    length (rolling for windowed archs); sharded with a ``mesh``."""
     model = build(cfg)
     clen = effective_cache_len(cfg, shape)
+    policy, baxes = _serve_policy(cfg, shape, mesh)
 
     def prefill_step(params, batch):
+        if policy.active:
+            return model.prefill(params, clen, policy=policy, **batch)
         return model.prefill(params, clen, **batch)
 
+    params_s = _serve_params_struct(cfg, shape)
+    batch_structs = input_shapes(cfg, shape)
+    max_pos = max(shape.seq_len, 4096) if cfg.family == "encdec" else None
+    p_specs = param_specs(_meta_module(cfg, max_pos))
+    cache_p = _cache_partition_specs(cache_specs(cfg, shape), policy)
     loop_dims = {"layers": _layer_count(cfg)}
     if cfg.family == "encdec":
         loop_dims["enc_layers"] = cfg.n_enc_layers
     return StepBuild(
-        fn=prefill_step,
-        arg_structs=(_serve_params_struct(cfg, shape), input_shapes(cfg, shape)),
+        fn=prefill_step if mesh is None else _sharded(cfg, prefill_step),
+        arg_structs=(params_s, batch_structs),
+        in_specs=(p_specs, _batch_spec(batch_structs, baxes)),
+        out_specs=(P(baxes) if baxes else P(), cache_p),
         loop_dims=loop_dims,
         meta=dict(kind="prefill", cache_len=clen),
     )
@@ -283,18 +514,27 @@ def make_prefill_step(cfg: ModelConfig, shape: ShapeSpec, mesh=None) -> StepBuil
 
 def make_decode_step(cfg: ModelConfig, shape: ShapeSpec, mesh=None) -> StepBuild:
     """``fn(params, caches, token, pos) -> (logits, caches)``, the cache
-    updated in place."""
-    _no_mesh(mesh)
+    updated in place; sharded with a ``mesh``."""
     model = build(cfg)
+    policy, baxes = _serve_policy(cfg, shape, mesh, decode_mode=True)
 
     def decode_fn(params, caches, token, pos):
+        if policy.active:
+            return model.decode_step(params, token, caches, pos, policy=policy)
         return model.decode_step(params, token, caches, pos)
 
     io = input_shapes(cfg, shape)
+    cache_s = cache_specs(cfg, shape)
+    max_pos = max(shape.seq_len, 4096) if cfg.family == "encdec" else None
+    p_specs = param_specs(_meta_module(cfg, max_pos))
+    cache_p = _cache_partition_specs(cache_s, policy)
+    bspec = P(baxes) if baxes else P()
     return StepBuild(
-        fn=decode_fn,
-        arg_structs=(_serve_params_struct(cfg, shape), cache_specs(cfg, shape),
+        fn=decode_fn if mesh is None else _sharded(cfg, decode_fn),
+        arg_structs=(_serve_params_struct(cfg, shape), cache_s,
                      io["token"], io["pos"]),
+        in_specs=(p_specs, cache_p, bspec, bspec),
+        out_specs=(bspec, cache_p),
         loop_dims={"layers": _layer_count(cfg)},
         meta=dict(kind="decode", cache_len=effective_cache_len(cfg, shape)),
     )

@@ -12,7 +12,9 @@ too); and one training step on the card equals the same step on the CPU
 under the same draws, state and caches alike; and the TM-native wrappers
 of ``kernels/ops.py`` equal the unpacked oracles of ``kernels/ref.py``.
 The LM path (no kernel of its own): float32 card = CPU for every family,
-whisper included; one train step's gradients card = CPU; remat on = off.
+whisper included; one train step's gradients card = CPU; remat on = off;
+the sharded LM path on ``["cuda:0"] * 4`` = the CPU mesh, and
+``gpipe_apply`` on the card = the sequential stack.
 Imports no JAX, so it runs where JAX is not installed.
 """
 import numpy as np
@@ -791,3 +793,105 @@ def test_train_main_on_card(cuda_device, tmp_path):
     assert res["device"].startswith("cuda") and res["end_step"] == 5
     assert all(np.isfinite(m["loss"]) for _, m in res["metrics_log"])
     assert next(iter(res["state"]["opt"].mu.values())).is_cuda
+
+
+# --- the sharded LM path: k shards on one card against the CPU mesh ---------
+
+SHARDED_ARCHS = ("qwen3-1.7b", "qwen2-moe-a2.7b")
+
+
+def sharded_case(arch):
+    """The reduced width of tests/test_torch_sharding.py (2 layers, d 64,
+    4 heads, 2 K/V heads, vocab 256; the MoE with 4 experts of 32)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    cfg = dataclasses.replace(
+        get_config(arch), n_layers=2, d_model=64, n_heads=4, n_kv_heads=2,
+        head_dim=16, d_ff=128, vocab=256, remat=False)
+    if cfg.family == "moe":
+        cfg = dataclasses.replace(cfg, n_experts=4, top_k=2, d_ff_expert=32,
+                                  d_ff_shared=64)
+    return cfg
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", SHARDED_ARCHS)
+def test_sharded_lm_on_card_matches_cpu_mesh(cuda_device, arch, monkeypatch):
+    """A (2, 2) mesh on ``["cuda:0"] * 4`` against the same mesh on the CPU,
+    float32 (TF32 off): prefill of 4 tokens and 4 decode steps, logits to
+    1e-5 of max|logit|; one train step (M=2): loss, nll and grad_norm to
+    1e-5, the first moment to 1e-5 of its largest magnitude. Every rank's
+    tensors stay on the card."""
+    from repro_torch import convert, sharding, steps
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import transformer
+    from repro_torch.models.model import build
+
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    for mod in (transformer, steps):
+        monkeypatch.setattr(mod, "COMPUTE_DTYPE", torch.float32)
+    cfg = sharded_case(arch)
+    meshes = (make_mesh(2, 2, device="cpu"),
+              make_mesh(2, 2, devices=["cuda:0"] * 4))
+    rng = np.random.default_rng(0)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (4, 8)).astype(np.int32))
+    labels = torch.from_numpy(rng.integers(0, cfg.vocab, (4, 8)).astype(np.int32))
+    outs = []
+    for mesh in meshes:
+        params = convert.shard_lm(build(cfg).init(
+            torch.Generator().manual_seed(0)), mesh)
+        assert all(t.device == mesh.devices[0] for xs in params.shards.values()
+                   for t in xs)
+        pstep = steps.make_prefill_step(cfg, ShapeSpec("p", "prefill", 16, 4), mesh)
+        dstep = steps.make_decode_step(cfg, ShapeSpec("d", "decode", 16, 4), mesh)
+        lg, cache = pstep.fn(params, sharding.shard_tree(
+            {"tokens": toks[:, :4]}, pstep.in_specs[1], mesh))
+        logits = [sharding.gather(lg, pstep.out_specs[0], mesh, "cpu")]
+        for i in range(4, 8):
+            lg, cache = dstep.fn(
+                params, cache, sharding.shard(toks[:, i:i + 1], dstep.in_specs[2], mesh),
+                sharding.shard(torch.full((4,), i, dtype=torch.int32),
+                               dstep.in_specs[3], mesh))
+            logits.append(sharding.gather(lg, dstep.out_specs[0], mesh, "cpu"))
+        tstep = steps.make_train_step(cfg, ShapeSpec("t", "train", 8, 4), mesh,
+                                      microbatches=2, peak_lr=0.0, warmup_steps=0)
+        state = convert.shard_train_state(steps.init_train_state(
+            build(cfg).init(torch.Generator().manual_seed(0))), mesh)
+        state, met = tstep.fn(state, sharding.shard_tree(
+            {"tokens": toks, "labels": labels}, tstep.in_specs[1], mesh))
+        mu = {n: sharding.gather(xs, state["params"].specs[n], mesh, "cpu")
+              for n, xs in state["opt"].mu.items()}
+        outs.append((logits, met, mu))
+    (l_cpu, m_cpu, mu_cpu), (l_card, m_card, mu_card) = outs
+    for got, want in zip(l_card, l_cpu):
+        assert lm_rel(got, want) <= 1e-5
+    for key in ("loss", "nll", "grad_norm"):
+        assert lm_rel(m_card[key], m_cpu[key]) <= 1e-5, key
+    scale = max(float(t.abs().max()) for t in mu_cpu.values())
+    for n, t in mu_cpu.items():
+        assert float((mu_card[n] - t).abs().max()) <= 1e-5 * scale, n
+
+
+@pytest.mark.cuda
+def test_gpipe_on_card_matches_sequential(cuda_device, monkeypatch):
+    """``gpipe_apply`` over 4 stages on ``["cuda:0"] * 4`` against the
+    sequential stack on the card, float32 (TF32 off): 1e-6."""
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.pipeline import gpipe_apply
+
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    mesh = make_mesh(1, 4, devices=["cuda:0"] * 4)
+    ws = torch.from_numpy((np.random.default_rng(1).normal(size=(4, 16, 16))
+                           * 0.3).astype(np.float32)).to(cuda_device)
+    xs = torch.from_numpy(np.random.default_rng(2).normal(
+        size=(6, 2, 16)).astype(np.float32)).to(cuda_device)
+    want = xs
+    for s in range(4):
+        want = torch.tanh(want @ ws[s])
+    for out in gpipe_apply(lambda w, x: torch.tanh(x @ w), ws, xs, mesh=mesh,
+                           axis="model"):
+        assert out.is_cuda
+        assert lm_rel(out, want) <= 1e-6

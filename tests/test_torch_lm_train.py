@@ -43,6 +43,7 @@ from repro_torch.checkpoint.checkpointer import Checkpointer  # noqa: E402
 from repro_torch.configs.base import ShapeSpec  # noqa: E402
 from repro_torch.data import pipeline, synthetic  # noqa: E402
 from repro_torch.launch import train  # noqa: E402
+from repro_torch.launch.mesh import make_mesh  # noqa: E402
 from repro_torch.models import model, transformer, whisper  # noqa: E402
 from repro_torch.optim import adamw, compression, schedule  # noqa: E402
 from repro_torch.runtime.trainer import (  # noqa: E402
@@ -353,8 +354,14 @@ def test_step_metadata_equals_reference():
         assert ours.loop_dims == ref.loop_dims and ours.meta == ref.meta
         assert {dt for _, dt in ours.arg_structs[0].values()} == {torch.bfloat16}
     assert steps.batch_axes_for(8, None) == ()
-    with pytest.raises(NotImplementedError, match="sharded LM path"):
-        steps.make_train_step(cfg, small, mesh=object())
+    # with a mesh the steps build sharded (tests/test_torch_sharding.py
+    # holds them against the unsharded port and their specs against the
+    # reference's); the batch splits over ``data``
+    mesh = make_mesh(2, 2, device="cpu")
+    assert steps.batch_axes_for(8, mesh) == ("data",)
+    sharded = steps.make_train_step(cfg, small, mesh=mesh)
+    assert sharded.loop_dims == steps.make_train_step(cfg, small).loop_dims
+    assert tuple(sharded.in_specs[1]["tokens"]) == ("data",)
 
 
 def test_prefill_then_decode_steps_run():
