@@ -347,9 +347,42 @@ LM_F32_TOL, LM_BF16_TOL = 1e-4, 5e-2
 # norm at 2e-2 relative.
 SHARD_LM_SERVE = (("qwen3-1.7b", (2, 4), 4, 128, 32, 160),
                   ("qwen2-moe-a2.7b", (2, 4), 4, 128, 16, 160))
-SHARD_LM_TRAIN = ("qwen3-1.7b", (2, 2), 8, 512, 2)
+SHARD_LM_TRAIN = ("qwen3-1.7b", (2, 2), 8, 512, 2, None)
 SHARD_LM_PIPE = ("qwen3-1.7b", 4, 8, 2, 128)
 SHARD_LM_TOL = 2e-2
+# phase 14: the sharded RWKV-6, hybrid and whisper paths, every rank on
+# cuda:0, against their unsharded runs in the same call at SHARD_LM_TOL.
+# Serving rows as phase 13's, at full width in bf16: rwkv6-3b and
+# recurrentgemma-9b prompts of 128 (144-slot caches: 36 per model rank),
+# whisper-medium B=4 x 32 tokens over 1500 frames (split over model = 4).
+# rwkv6-3b is held block by block (LM_LAYERWISE: its full-depth logit and
+# state gaps are printed, not gated); recurrentgemma-9b's caches in
+# float32 (SHARD_SERVE_F32_TWIN). Train rows (arch, mesh, batch, seq,
+# microbatches, layers) on (2, 2), remat on: whisper-medium whole;
+# rwkv6-3b and recurrentgemma-9b at full width with the depth cut (4 of
+# 32 layers; 5 of 38 = one (rec, rec, attn) group and the 2-block tail),
+# because their float32 train state (about 11 and 36 GB at the cut) is
+# made twice, unsharded and sharded.
+# recurrentgemma-9b's bf16 caches cannot meet SHARD_LM_TOL against any
+# other bf16 run summed in another order: bf16 itself puts the unsharded
+# run's caches 2.73e-2 of max|leaf| from float32 at its 38 layers (1 ulp
+# at layer 0, growing with depth; measured on an H100 80GB HBM3 at
+# 700 W). Its logits are held in bf16; its caches in a float32 twin of the
+# row (sharded against unsharded at LM_F32_TOL: 5.1e-6 on that card), the
+# bf16 gap printed. rwkv6-3b's gradient norm is ill-conditioned at a zero
+# state: the first token's per-head norm divides by |r·u·k|, so bf16 puts
+# the unsharded step's grad norm 38% from float32 (the NLL 7.6e-5) and two
+# float32 runs summed in other orders differ by 5.2e-4 (same card). Its
+# bf16 NLL and loss are held; its grad norm at SHARD_LM_TOL in a float32
+# twin of the step, the bf16 one printed.
+SHARD_SERVE_F32_TWIN = ("recurrentgemma-9b",)
+SHARD_TRAIN_F32_TWIN = ("rwkv6-3b",)
+SHARD_FAMILY_SERVE = (("rwkv6-3b", (2, 4), 4, 128, 16, 144),
+                      ("recurrentgemma-9b", (2, 4), 4, 128, 16, 144),
+                      ("whisper-medium", (2, 4), 4, 32, 16, 48))
+SHARD_FAMILY_TRAIN = (("whisper-medium", (2, 2), 2, 64, 2, None),
+                      ("rwkv6-3b", (2, 2), 4, 128, 2, 4),
+                      ("recurrentgemma-9b", (2, 2), 4, 128, 2, 5))
 # Peak rates of one H100 SXM. Memory: 3.35 TB/s (NVIDIA data sheet). The
 # votes are 32-bit compare and logic instructions, not FLOPs: the CUDA C++
 # Programming Guide's arithmetic-throughput table gives compute capability
@@ -2878,12 +2911,263 @@ def shard_resident(what: str, tree, structs, specs, mesh) -> dict:
             "ranks": mesh.size}
 
 
+def cache_leaves(tree, path=""):
+    """(path, tensor) of every leaf of a cache tree (dicts and lists)."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from cache_leaves(v, f"{path}/{k}")
+    elif isinstance(tree, list):
+        for i, v in enumerate(tree):
+            yield from cache_leaves(v, f"{path}/{i}")
+    else:
+        yield path, tree
+
+
+def cache_gaps(got, want, what: str) -> dict:
+    """Every leaf of the gathered sharded cache against the unsharded one:
+    positions required equal; for the others max|diff| over max|leaf|,
+    over the whole leaf (the gated figure, as phase 13 has held it) and,
+    printed, by layer where the leaf is stacked. Returns {path: (whole,
+    [by layer])}."""
+    got = dict(cache_leaves(got))
+    out = {}
+    for path, w in cache_leaves(want):
+        g = got[path]
+        require(g.shape == w.shape and g.dtype == w.dtype,
+                f"{what} cache {path}: {tuple(g.shape)} {g.dtype} against "
+                f"{tuple(w.shape)} {w.dtype}")
+        if path.endswith("/pos"):
+            require(torch.equal(g, w), f"{what}: sharded cache positions "
+                    f"{path} differ")
+            continue
+        w = w.double()
+        d = (g.double() - w).abs()
+        whole = float(d.max() / w.abs().max().clamp_min(1e-30))
+        stacked = path.split("/")[1] in ("layers", "cross")
+        out[path] = (whole, [float(a.max() / b.abs().max().clamp_min(1e-30))
+                             for a, b in zip(d, w)] if stacked else [whole])
+    return out
+
+
+@torch.no_grad()
+def rwkv_block_records(cfg, params, prompts, toks) -> dict:
+    """The unsharded bf16 stream of an RWKV-6 model block by block: each
+    block's input, output and state over the prompt (from a zero state),
+    then each block's input and output for every decode token, and the
+    final states."""
+    from repro_torch.models import rwkv6, transformer
+
+    batch, prompt = prompts.shape
+    blocks = [g["b0_rwkv"] for g in params.layers]
+    x = transformer.embed(params.embed, prompts, torch.bfloat16)
+    positions = torch.arange(prompt, device=x.device)[None]
+    pre, states = [], []
+    for blk in blocks:
+        zero = rwkv6.init_rwkv_state(batch, cfg.d_model, cfg.rwkv_heads,
+                                     cfg.rwkv_head_dim, x.dtype, x.device)
+        y, st, _ = transformer._apply_block(blk, cfg, "rwkv", x, positions,
+                                            zero, False)
+        pre.append((x, y, st))
+        states.append(st)
+        x = y
+    dec = []
+    for i, tok in enumerate(toks):
+        x = transformer.embed(params.embed, tok, torch.bfloat16)
+        pos = torch.full((batch, 1), prompt + i, dtype=torch.int32,
+                         device=x.device)
+        step = []
+        for j, blk in enumerate(blocks):
+            y, states[j], _ = transformer._apply_block(blk, cfg, "rwkv", x, pos,
+                                                       states[j], True)
+            step.append((x, y))
+            x = y
+        dec.append(step)
+    return {"prefill": pre, "decode": dec, "states": states}
+
+
+@torch.no_grad()
+def rwkv_blockwise_sharded(cfg, sp, mesh, batch: int, cache_len: int,
+                           records: dict, specs_out) -> dict:
+    """Each RWKV-6 block of the sharded model (``transformer._block_sharded``)
+    on the unsharded stream's input to that block, as ``rwkv_block_records``
+    kept it: the prompt from a zero sharded state (sequence-split where the
+    prefill step splits it), then every decode token; outputs and states
+    gathered and held against the unsharded block's at SHARD_LM_TOL of
+    their max. Returns the worst gaps."""
+    import dataclasses
+
+    from repro_torch import sharding
+    from repro_torch.models import transformer
+    from repro_torch.steps import batch_axes_for
+
+    policy = dataclasses.replace(sharding.Policy.for_mesh(mesh),
+                                 batch_axes=batch_axes_for(batch, mesh))
+    bspec = sharding.P(policy.batch_axes)
+    views = transformer.rank_views(sp)
+    caches = transformer.init_cache_sharded(cfg, policy, batch, cache_len)
+    key = "b0_rwkv"
+
+    def block(j, x, positions, decode, seq_split):
+        xs = sharding.shard(x, bspec, mesh)
+        if seq_split:
+            xs = transformer._seq_chunk(xs, mesh)
+        c = [{n: t[r][j] for n, t in caches["layers"][key].items()}
+             for r in range(mesh.size)]
+        ys, _ = transformer._block_sharded(
+            cfg, policy, sp.specs, [v.layers[j][key] for v in views],
+            f"layers.{j}.{key}.", "rwkv", xs, positions, c, decode, seq_split)
+        if seq_split:
+            ys = sharding.all_gather(ys, mesh, sharding.MODEL, 1)
+        return sharding.gather(ys, bspec, mesh)
+
+    def gap(g, w):
+        return float((g.double() - w.double()).abs().max()
+                     / w.double().abs().max())
+
+    def state_gap(states):
+        whole = sharding.gather_tree(caches, specs_out, mesh)["layers"][key]
+        return max(gap(whole[n][j], st[n]) for j, st in enumerate(states)
+                   for n in st)
+
+    prompt = records["prefill"][0][0].shape[1]
+    seq_split = policy.sequence_split(prompt)
+    positions = torch.arange(prompt, device=records["prefill"][0][0].device)[None]
+    worst = {"prefill": 0.0, "decode": 0.0}
+    for j, (x, y, _) in enumerate(records["prefill"]):
+        worst["prefill"] = max(worst["prefill"], gap(block(j, x, positions,
+                                                           False, seq_split), y))
+    worst["prefill_state"] = state_gap([st for _, _, st in records["prefill"]])
+    for i, step in enumerate(records["decode"]):
+        pos = torch.full((batch,), prompt + i, dtype=torch.int32,
+                         device=step[0][0].device)
+        pos_s = sharding.shard(pos, bspec, mesh)
+        for j, (x, y) in enumerate(step):
+            worst["decode"] = max(worst["decode"], gap(block(j, x, pos_s, True,
+                                                             False), y))
+    worst["decode_state"] = state_gap(records["states"])
+    for what, g in worst.items():
+        require(g <= SHARD_LM_TOL, f"{cfg.name} sharded block by block, "
+                f"{what}: {g:.3e} of max|out| > {SHARD_LM_TOL}")
+    return worst
+
+
+@torch.no_grad()
+def unsharded_serve(m, params, prompts, extra: dict, cache_len: int,
+                    n_steps: int, vocab: int, toks=None):
+    """Prefill then ``n_steps`` decode steps, greedy over the real
+    vocabulary (or fed ``toks``). Returns (float32 logits per step, the
+    tokens, the cache, prefill ms, decode ms per step)."""
+    batch, prompt = prompts.shape
+    (logits, cache), pre_ms = synced_ms(
+        lambda: m.prefill(params, cache_len, tokens=prompts, **extra))
+    want, fed, dec_ms = [logits.float()], [], []
+    for i in range(n_steps):
+        fed.append(logits[:, :vocab].argmax(-1)[:, None].to(torch.int32)
+                   if toks is None else toks[i])
+        pos = torch.full((batch,), prompt + i, dtype=torch.int32,
+                         device=prompts.device)
+        (logits, cache), t = synced_ms(
+            lambda: m.decode_step(params, fed[-1], cache, pos))
+        want.append(logits.float())
+        dec_ms.append(t)
+    return want, fed, cache, pre_ms, dec_ms
+
+
+def sharded_serve(cfg, sp, mesh, prompts, extra: dict, cache_len: int, toks,
+                  counts) -> dict:
+    """The sharded prefill and decode steps (``make_*_step(cfg, shape,
+    mesh)``) fed ``toks``, the four TM kernels' counts set to 0 just before
+    and read just after: logits gathered per step, the cache, ms, the
+    collectives of the prefill and per decode step."""
+    from repro_torch import sharding, steps as steps_mod
+    from repro_torch.configs.base import ShapeSpec
+
+    batch, prompt = prompts.shape
+    pstep = steps_mod.make_prefill_step(
+        cfg, ShapeSpec("phase13", "prefill", cache_len, batch), mesh)
+    dstep = steps_mod.make_decode_step(
+        cfg, ShapeSpec("phase13", "decode", cache_len, batch), mesh)
+    batch_s = sharding.shard_tree({"tokens": prompts, **extra},
+                                  pstep.in_specs[1], mesh)
+    counts.reset()
+    mesh.collectives.reset()
+    (lg, scache), pre_ms = synced_ms(lambda: pstep.fn(sp, batch_s))
+    pre_coll = shard_collectives(mesh)
+    got = [sharding.gather(lg, pstep.out_specs[0], mesh)]
+    mesh.collectives.reset()
+    dec_ms = []
+    for i, tok in enumerate(toks):
+        tok = sharding.shard(tok, dstep.in_specs[2], mesh)
+        pos = sharding.shard(torch.full((batch,), prompt + i, dtype=torch.int32,
+                                        device=prompts.device),
+                             dstep.in_specs[3], mesh)
+        (lg, scache), t = synced_ms(lambda: dstep.fn(sp, scache, tok, pos))
+        got.append(sharding.gather(lg, dstep.out_specs[0], mesh))
+        dec_ms.append(t)
+    dec_coll = shard_collectives(mesh, len(toks))
+    launched = counts.read()
+    require(not any(launched.values()), f"{cfg.name} sharded: a TM kernel "
+            f"launched: {launched}")
+    return {"logits": got, "cache": scache, "pre_ms": pre_ms, "dec_ms": dec_ms,
+            "pre_coll": pre_coll, "dec_coll": dec_coll, "launched": launched,
+            "pstep": pstep, "dstep": dstep}
+
+
+def logit_gap(got, want, vocab: int) -> float:
+    """max |got - want| over max |want|, over the real vocabulary."""
+    g, w = got[:, :vocab].double(), want[:, :vocab].double()
+    return float((g - w).abs().max() / w.abs().max())
+
+
+def float32_twin(cfg, m, params32, mesh, prompts, extra, cache_len, toks,
+                 want16, cache16, counts) -> dict:
+    """The same row in float32 (TF32 off), unsharded then sharded on
+    ``params32`` (consumed), fed the bf16 run's tokens: logits and every
+    cache leaf held at LM_F32_TOL. Also printed, not gated: how far bf16
+    puts the unsharded run from float32 (logits and caches), the floor
+    that bf16 rounding sets for any two bf16 runs summed in other orders."""
+    from repro_torch import convert, sharding
+
+    v = cfg.vocab
+    with lm_compute_dtype(torch.float32):
+        want32, _, cache32, _, _ = unsharded_serve(
+            m, params32, prompts, extra, cache_len, len(toks), v, toks)
+        sp32 = convert.shard_lm(params32, mesh, consume=True)
+        run = sharded_serve(cfg, sp32, mesh, prompts, extra, cache_len, toks,
+                            counts)
+    whole = sharding.gather_tree(run["cache"], run["dstep"].out_specs[1], mesh)
+    del sp32, run["cache"]
+    rel = max(logit_gap(g, w, v) for g, w in zip(run["logits"], want32))
+    gaps = cache_gaps(whole, cache32, f"{cfg.name} float32 sharded")
+    cache_rel = max(g for g, _ in gaps.values())
+    require(rel <= LM_F32_TOL and cache_rel <= LM_F32_TOL,
+            f"{cfg.name} float32 sharded against unsharded: logits {rel:.3e}, "
+            f"caches {cache_rel:.3e} > {LM_F32_TOL}")
+    floor_logits = max(logit_gap(a, b, v) for a, b in zip(want16, want32))
+    floor = {}
+    w32 = dict(cache_leaves(cache32))
+    for path, t in cache_leaves(cache16):
+        if not path.endswith("/pos"):
+            a, b = t.double(), w32[path].double()
+            floor[path] = float((a - b).abs().max() / b.abs().max())
+    del cache32, whole
+    torch.cuda.empty_cache()
+    return {"f32_sharded_vs_unsharded_logits_rel": rel,
+            "f32_sharded_vs_unsharded_cache_rel": cache_rel,
+            "bf16_vs_f32_unsharded_logits_rel": floor_logits,
+            "bf16_vs_f32_unsharded_cache_rel": max(floor.values()),
+            "bf16_vs_f32_unsharded_cache_rel_by_leaf": floor}
+
+
 def shard_serve(arch: str, shape, batch: int, prompt: int, n_steps: int,
                 cache_len: int, counts, dev, card) -> dict:
-    """Phase 13 (a), (b): bf16 at full width, unsharded first (prefill, then
-    greedy decode), then the sharded prefill and decode steps on the same
-    weights fed the same tokens; logits and caches held against the
-    unsharded ones."""
+    """Phases 13 (a), (b) and 14 (a)-(c): bf16 at full width, unsharded
+    first (prefill, then greedy decode), then the sharded prefill and
+    decode steps on the same weights fed the same tokens; logits (over the
+    real vocabulary, whisper's pad columns required masked and never an
+    argmax) and every cache leaf held against the unsharded ones, or for
+    an arch of LM_LAYERWISE printed and held block by block instead. An
+    arch of SHARD_SERVE_F32_TWIN also runs ``float32_twin``."""
     from repro_torch import convert, sharding, steps as steps_mod
     from repro_torch.configs import get_config
     from repro_torch.configs.base import ShapeSpec
@@ -2891,71 +3175,71 @@ def shard_serve(arch: str, shape, batch: int, prompt: int, n_steps: int,
     from repro_torch.models.model import build, cache_specs
 
     cfg = get_config(arch)
+    by_block = arch in LM_LAYERWISE
     m = build(cfg)
-    params = m.init(torch.Generator(device=dev).manual_seed(SEED)).to(
-        torch.bfloat16)
+    params32 = m.init(torch.Generator(device=dev).manual_seed(SEED))
+    if arch in SHARD_SERVE_F32_TWIN:     # a bf16 copy beside the float32 one
+        params = sharding.meta_copy(params32).to(torch.bfloat16).to_empty(
+            device=dev)
+        with torch.no_grad():
+            for p, q in zip(params.parameters(), params32.parameters()):
+                p.copy_(q)
+    else:
+        params = params32.to(torch.bfloat16)        # in place: one copy
+        del params32
     prompts = torch.from_numpy(np.random.default_rng(SEED).integers(
         0, cfg.vocab, (batch, prompt)).astype(np.int32)).to(dev)
-    with torch.no_grad():
-        (logits, cache), pre_ms = synced_ms(
-            lambda: m.prefill(params, cache_len, tokens=prompts))
-        want, toks, dec_ms = [logits.float()], [], []
-        for i in range(n_steps):
-            toks.append(logits.argmax(-1)[:, None].to(torch.int32))
-            pos = torch.full((batch,), prompt + i, dtype=torch.int32, device=dev)
-            (logits, cache), t = synced_ms(
-                lambda: m.decode_step(params, toks[-1], cache, pos))
-            want.append(logits.float())
-            dec_ms.append(t)
+    extra = ({"frames": whisper_frames(cfg, batch, dev)}
+             if cfg.family == "encdec" else {})
+    v = cfg.vocab
+    want, toks, cache, pre_ms, dec_ms = unsharded_serve(
+        m, params, prompts, extra, cache_len, n_steps, v)
+    records = rwkv_block_records(cfg, params, prompts, toks) if by_block else None
     k = shape[0] * shape[1]
     mesh = make_mesh(*shape, devices=["cuda:0"] * k)
+    twin = None
+    if arch in SHARD_SERVE_F32_TWIN:
+        twin = float32_twin(cfg, m, params32, mesh, prompts, extra, cache_len,
+                            toks, want, cache, counts)
+        del params32
     sp = convert.shard_lm(params, mesh, consume=True)
     del params
     torch.cuda.empty_cache()
     pshape = ShapeSpec("phase13", "prefill", cache_len, batch)
-    pstep = steps_mod.make_prefill_step(cfg, pshape, mesh)
-    dstep = steps_mod.make_decode_step(
-        cfg, ShapeSpec("phase13", "decode", cache_len, batch), mesh)
-    batch_s = sharding.shard_tree({"tokens": prompts}, pstep.in_specs[1], mesh)
-    counts.reset()
-    mesh.collectives.reset()
-    (lg, scache), s_pre_ms = synced_ms(lambda: pstep.fn(sp, batch_s))
-    pre_coll = shard_collectives(mesh)
-    got = [sharding.gather(lg, pstep.out_specs[0], mesh)]
-    mesh.collectives.reset()
-    s_dec_ms = []
-    for i in range(n_steps):
-        tok = sharding.shard(toks[i], dstep.in_specs[2], mesh)
-        pos = sharding.shard(torch.full((batch,), prompt + i, dtype=torch.int32,
-                                        device=dev), dstep.in_specs[3], mesh)
-        (lg, scache), t = synced_ms(lambda: dstep.fn(sp, scache, tok, pos))
-        got.append(sharding.gather(lg, dstep.out_specs[0], mesh))
-        s_dec_ms.append(t)
-    dec_coll = shard_collectives(mesh, n_steps)
-    launched = counts.read()
-    require(not any(launched.values()), f"{arch} sharded: a TM kernel "
-            f"launched: {launched}")
+    run = sharded_serve(cfg, sp, mesh, prompts, extra, cache_len, toks, counts)
+    pstep, dstep, scache, got = (run["pstep"], run["dstep"], run["cache"],
+                                 run["logits"])
+    s_pre_ms, s_dec_ms = run["pre_ms"], run["dec_ms"]
+    pre_coll, dec_coll, launched = (run["pre_coll"], run["dec_coll"],
+                                    run["launched"])
+    for g in got:
+        require(bool((g[:, v:] == -2.0 ** 30).all()) and
+                int(g[:, :v].argmax(-1).max()) < v and
+                int(g.argmax(-1).max()) < v,
+                f"{arch} sharded: pad columns unmasked or an argmax among them")
+    whole = sharding.gather_tree(scache, dstep.out_specs[1], mesh)
+    gaps = cache_gaps(whole, cache, f"{arch} sharded")
+    cache_rel = max(g for g, _ in gaps.values())
+    print(f"lm sharded {arch} cache max|diff| of max|leaf| (whole leaf: by "
+          f"layer): " + "; ".join(f"{p} {g:.2e}: " + " ".join(
+              f"{x:.2e}" for x in by) for p, (g, by) in gaps.items()))
     rels, held = [], 0
     for i, (g, w) in enumerate(zip(got, want)):
-        rel, rows = lm_compare(g, w, SHARD_LM_TOL, f"{arch} sharded step {i}")
+        if by_block:
+            rels.append(logit_gap(g, w, v))
+            continue
+        rel, rows = lm_compare(g[:, :v], w[:, :v], SHARD_LM_TOL,
+                               f"{arch} sharded step {i}")
         rels.append(rel)
         held += rows
-    whole = sharding.gather_tree(scache, dstep.out_specs[1], mesh)
-    cache_rel, by_layer = 0.0, {}
-    for key, block in cache["layers"].items():
-        require(torch.equal(whole["layers"][key]["pos"], block["pos"]),
-                f"{arch}: sharded cache positions differ")
-        for name in ("k", "v"):
-            w = block[name].double()
-            diff = (whole["layers"][key][name].double() - w).abs()
-            rel = float(diff.max() / w.abs().max())
-            by_layer[name] = [float(d.max() / w.abs().max()) for d in diff]
-            cache_rel = max(cache_rel, rel)
-    print(f"lm sharded {arch} cache max|diff| of max|cache| by layer: "
-          + "; ".join(f"{n} " + " ".join(f"{x:.2e}" for x in v)
-                      for n, v in by_layer.items()))
-    require(cache_rel <= SHARD_LM_TOL, f"{arch}: caches {cache_rel:.3e} of "
-            f"max|cache| against the unsharded run's")
+    blockwise = None
+    if by_block:
+        blockwise = rwkv_blockwise_sharded(cfg, sp, mesh, batch, cache_len,
+                                           records, dstep.out_specs[1])
+        del records
+    elif twin is None:
+        require(cache_rel <= SHARD_LM_TOL, f"{arch}: caches {cache_rel:.3e} of "
+                f"max|leaf| against the unsharded run's")
     res = {"params": shard_resident(f"{arch} params", sp, steps_mod
                                     ._serve_params_struct(cfg, pshape),
                                     pstep.in_specs[0], mesh),
@@ -2968,19 +3252,49 @@ def shard_serve(arch: str, shape, batch: int, prompt: int, n_steps: int,
            "unsharded_prefill_ms": pre_ms,
            "unsharded_decode_ms_per_step": float(np.median(dec_ms)),
            "max_rel": max(rels), "argmax_rows_held": held,
-           "cache_max_rel": cache_rel, "cache_rel_by_layer": by_layer,
+           "logits_gated": not by_block, "blockwise": blockwise,
+           "float32_twin": twin,
+           "cache_max_rel": cache_rel,
+           "cache_rel_by_leaf": {p: g for p, (g, _) in gaps.items()},
+           "cache_rel_by_layer": {p: by for p, (_, by) in gaps.items()},
            "resident": res,
            "prefill_collectives": pre_coll, "decode_collectives_per_step": dec_coll,
            "tm_kernel_launches": launched}
+    if by_block:
+        held_line = (f"full depth (printed, not gated) logits {max(rels):.3e} of "
+                     f"max|logit|, caches {cache_rel:.3e}; held block by block "
+                     f"at {SHARD_LM_TOL}: prefill outputs "
+                     f"{blockwise['prefill']:.3e}, states "
+                     f"{blockwise['prefill_state']:.3e}, {n_steps} decode "
+                     f"steps' outputs {blockwise['decode']:.3e}, states "
+                     f"{blockwise['decode_state']:.3e}")
+    elif twin is not None:
+        held_line = (f"against unsharded max {max(rels):.3e} of max|logit| "
+                     f"({held} argmax rows held, tolerance {SHARD_LM_TOL}), "
+                     f"caches {cache_rel:.3e} (printed: bf16 itself puts the "
+                     f"unsharded caches "
+                     f"{twin['bf16_vs_f32_unsharded_cache_rel']:.3e} from "
+                     f"float32; held in the float32 twin)")
+    else:
+        held_line = (f"against unsharded max {max(rels):.3e} of max|logit| "
+                     f"({held} argmax rows held), caches {cache_rel:.3e}, "
+                     f"tolerance {SHARD_LM_TOL}")
     print(f"lm sharded {arch} bf16 full width, {k_shards(shape)}: B={batch} "
           f"prefill {prompt} in {s_pre_ms:.3f} ms (unsharded {pre_ms:.3f}), "
           f"{n_steps} decode steps {out['decode_ms_per_step']:.3f} ms/step "
-          f"(unsharded {out['unsharded_decode_ms_per_step']:.3f}); against "
-          f"unsharded max {max(rels):.3e} of max|logit| ({held} argmax rows "
-          f"held), caches {cache_rel:.3e}, tolerance {SHARD_LM_TOL}; per rank "
-          f"{res['params']['per_rank_bytes'] / 1e9:.4f} GB params and "
+          f"(unsharded {out['unsharded_decode_ms_per_step']:.3f}); {held_line}; "
+          f"per rank {res['params']['per_rank_bytes'] / 1e9:.4f} GB params and "
           f"{res['cache']['per_rank_bytes'] / 1e6:.3f} MB cache, as the specs "
           f"predict [{card}]")
+    if twin is not None:
+        print(f"lm sharded {arch} float32 twin (TF32 off), {k_shards(shape)}: "
+              f"sharded against unsharded logits "
+              f"{twin['f32_sharded_vs_unsharded_logits_rel']:.3e} of max|logit|, "
+              f"caches {twin['f32_sharded_vs_unsharded_cache_rel']:.3e} "
+              f"(tolerance {LM_F32_TOL}); bf16 against float32, both "
+              f"unsharded (printed): logits "
+              f"{twin['bf16_vs_f32_unsharded_logits_rel']:.3e}, caches "
+              f"{twin['bf16_vs_f32_unsharded_cache_rel']:.3e} [{card}]")
     print(f"lm sharded {arch} collectives, prefill: {coll_line(pre_coll)}")
     print(f"lm sharded {arch} collectives per decode step: {coll_line(dec_coll)}")
     del sp, scache, cache
@@ -2988,39 +3302,76 @@ def shard_serve(arch: str, shape, batch: int, prompt: int, n_steps: int,
     return out
 
 
-def shard_train(counts, dev, card) -> dict:
-    """Phase 13 (c): one train step at full width, unsharded first (then
-    freed), then sharded on the same initial weights and batch."""
+def shard_train(row, counts, dev, card) -> dict:
+    """Phases 13 (c) and 14 (d): one train step at full width (``row``'s
+    last entry, when set, cuts the depth to that many layers), unsharded
+    first (then freed), then sharded on the same initial weights and
+    batch."""
+    import dataclasses
+
     from repro_torch import convert, sharding, steps as steps_mod
     from repro_torch.configs import get_config
     from repro_torch.configs.base import ShapeSpec
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.models.model import build
 
-    arch, shape, batch, seq, micro = SHARD_LM_TRAIN
+    arch, shape, batch, seq, micro, layers = row
     cfg = get_config(arch)
+    depth = f"{cfg.n_layers} layers (published)"
+    if layers is not None:
+        depth = f"{layers} of {cfg.n_layers} layers (depth cut)"
+        cfg = dataclasses.replace(cfg, n_layers=layers)
     require(cfg.remat, f"{arch}: remat is off in the published config")
     m = build(cfg)
     tshape = ShapeSpec("phase13", "train", seq, batch)
     kw = dict(microbatches=micro, compress="none", peak_lr=1e-3,
               warmup_steps=5, total_steps=1000)
-    b = train_batches(cfg, batch, seq, 1, dev)[0]
+    frames = whisper_frames(cfg, batch, dev) if cfg.family == "encdec" else None
+    b = train_batches(cfg, batch, seq, 1, dev, frames)[0]
 
     def init():
         return m.init(torch.Generator(device=dev).manual_seed(SEED))
 
-    state = steps_mod.init_train_state(init())
-    step = steps_mod.make_train_step(cfg, tshape, **kw)
-    (state, met), ms_u = synced_ms(lambda: step.fn(state, dict(b)))
-    want = {k: float(v) for k, v in met.items()}
-    del state, met
-    torch.cuda.empty_cache()
+    def metrics(met):
+        return {k_: float(v) for k_, v in met.items()}
+
+    def unsharded():
+        state = steps_mod.init_train_state(init())
+        step = steps_mod.make_train_step(cfg, tshape, **kw)
+        (state, met), ms = synced_ms(lambda: step.fn(state, dict(b)))
+        del state
+        torch.cuda.empty_cache()
+        return metrics(met), ms
+
     k = shape[0] * shape[1]
     mesh = make_mesh(*shape, devices=["cuda:0"] * k)
     tstep = steps_mod.make_train_step(cfg, tshape, mesh, **kw)
+    batch_s = sharding.shard_tree(b, tstep.in_specs[1], mesh)
+    keys = ("nll", "grad_norm", "loss")
+
+    def rel_to(got, want):
+        return {key: abs(got[key] - want[key]) / abs(want[key]) for key in keys}
+
+    twin = None
+    if arch in SHARD_TRAIN_F32_TWIN:
+        with lm_compute_dtype(torch.float32):
+            want32, _ = unsharded()
+            state = steps_mod.init_train_state(convert.shard_lm(
+                init(), mesh, consume=True))
+            state, met = tstep.fn(state, batch_s)
+            got32 = metrics(met)
+            del state, met
+            torch.cuda.empty_cache()
+        twin = {"f32_sharded_vs_unsharded": rel_to(got32, want32),
+                "f32_unsharded": want32}
+    want, ms_u = unsharded()
+    if twin is not None:
+        twin["bf16_vs_f32_unsharded"] = rel_to(want, twin["f32_unsharded"])
+        for key, r in twin["f32_sharded_vs_unsharded"].items():
+            require(r <= SHARD_LM_TOL, f"float32 sharded train step {key}: "
+                    f"{r:.3e} relative")
     state = steps_mod.init_train_state(convert.shard_lm(init(), mesh,
                                                         consume=True))
-    batch_s = sharding.shard_tree(b, tstep.in_specs[1], mesh)
     torch.cuda.empty_cache()
     resident = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
@@ -3032,21 +3383,23 @@ def shard_train(counts, dev, card) -> dict:
     require(not any(launched.values()), f"sharded training: a TM kernel "
             f"launched: {launched}")
     peak = (torch.cuda.max_memory_allocated() - resident) / 1e9
-    got = {k_: float(v) for k_, v in met.items()}
-    rel = {key: abs(got[key] - want[key]) / abs(want[key])
-           for key in ("nll", "grad_norm", "loss")}
+    got = metrics(met)
+    rel = rel_to(got, want)
     for key, r in rel.items():
+        if twin is not None and key == "grad_norm":
+            continue                    # held in the float32 twin
         require(math.isfinite(got[key]) and r <= SHARD_LM_TOL,
                 f"sharded train step {key}: {got[key]} against {want[key]}")
     res = shard_resident("train state", state, tstep.arg_structs[0],
                          tstep.in_specs[0], mesh)
     out = {"mesh": list(shape), "layout": k_shards(shape), "batch": batch,
            "seq": seq, "microbatches": micro, "remat": cfg.remat,
-           "step_ms": ms_s, "unsharded_step_ms": ms_u, "metrics": got,
-           "unsharded_metrics": want, "rel": rel, "resident": res,
+           "depth": depth, "step_ms": ms_s, "unsharded_step_ms": ms_u, "metrics": got,
+           "unsharded_metrics": want, "rel": rel, "float32_twin": twin,
+           "resident": res,
            "peak_gb_above_resident": peak, "collectives_per_step": coll,
            "tm_kernel_launches": launched}
-    print(f"lm sharded train {arch} full width, {k_shards(shape)}: B={batch} "
+    print(f"lm sharded train {arch} full width, {depth}, {k_shards(shape)}: B={batch} "
           f"S={seq} M={micro} remat, one step {ms_s:.3f} ms (unsharded "
           f"{ms_u:.3f}); nll {got['nll']:.5f} against {want['nll']:.5f} "
           f"({rel['nll']:.3e}), grad_norm {got['grad_norm']:.5f} against "
@@ -3054,7 +3407,15 @@ def shard_train(counts, dev, card) -> dict:
           f"{SHARD_LM_TOL}; train state {res['per_rank_bytes'] / 1e9:.4f} GB "
           f"per rank as the specs predict; peak {peak:.3f} GB above resident "
           f"[{card}]")
-    print(f"lm sharded train collectives per step: {coll_line(coll)}")
+    if twin is not None:
+        r32, floor = twin["f32_sharded_vs_unsharded"], twin["bf16_vs_f32_unsharded"]
+        print(f"lm sharded train {arch} float32 twin (TF32 off): sharded against "
+              f"unsharded nll {r32['nll']:.3e}, grad_norm {r32['grad_norm']:.3e} "
+              f"relative (tolerance {SHARD_LM_TOL}; the bf16 grad_norm above is "
+              f"printed, not gated); bf16 against float32, both "
+              f"unsharded (printed): nll {floor['nll']:.3e}, grad_norm "
+              f"{floor['grad_norm']:.3e} [{card}]")
+    print(f"lm sharded train {arch} collectives per step: {coll_line(coll)}")
     del state
     torch.cuda.empty_cache()
     return out
@@ -3143,7 +3504,7 @@ def phase13(dev, card) -> dict:
     for arch, shape, batch, prompt, n_steps, clen in SHARD_LM_SERVE:
         out[f"sharded_{arch}"] = shard_serve(arch, shape, batch, prompt,
                                              n_steps, clen, counts, dev, card)
-    out["sharded_train"] = shard_train(counts, dev, card)
+    out["sharded_train"] = shard_train(SHARD_LM_TRAIN, counts, dev, card)
     out["sharded_gpipe"] = shard_pipeline(counts, dev, card)
     require(not any(counts.total.values()),
             f"the sharded LM path launched a TM kernel: {counts.total}")
@@ -3151,6 +3512,34 @@ def phase13(dev, card) -> dict:
           f"Pallas kernel of the reference, so none of the four; "
           f"{resident:.3f} GB resident before it)")
     return {"phase13": out}
+
+
+def phase14(dev, card) -> dict:
+    """Phase 14: the sharded RWKV-6, hybrid and whisper paths, k shards on
+    ``cuda:0``. Returns its part of the ``lm`` record."""
+    torch.cuda.empty_cache()
+    resident = torch.cuda.memory_allocated() / 1e9
+    require(resident <= LM_RESIDENT_GB,
+            f"earlier phases leave {resident:.3f} GB on the card")
+    counts = Counts()
+    counts.reset()
+    out = {}
+    for arch, shape, batch, prompt, n_steps, clen in SHARD_FAMILY_SERVE:
+        t0 = time.perf_counter()
+        out[f"sharded_{arch}"] = shard_serve(arch, shape, batch, prompt,
+                                             n_steps, clen, counts, dev, card)
+        out[f"sharded_{arch}"]["row_s"] = time.perf_counter() - t0
+    for row in SHARD_FAMILY_TRAIN:
+        t0 = time.perf_counter()
+        out[f"sharded_train_{row[0]}"] = shard_train(row, counts, dev, card)
+        out[f"sharded_train_{row[0]}"]["row_s"] = time.perf_counter() - t0
+    counts.read()
+    require(not any(counts.total.values()),
+            f"phase 14 launched a TM kernel: {counts.total}")
+    print(f"phase 14 launches: {counts.total} (the sharded RWKV-6, hybrid and "
+          f"whisper paths reach no Pallas kernel of the reference, so none of "
+          f"the four; {resident:.3f} GB resident before it)")
+    return {"phase14": out}
 
 
 def phase10(dev, card) -> dict:
@@ -3334,6 +3723,11 @@ def main() -> int:
     t0 = time.perf_counter()
     lm.update(phase13(dev, card))
     print(f"phase 13: {time.perf_counter() - t0:.1f} s wall")
+
+    # -- 14. the sharded RWKV-6, hybrid and whisper paths, k shards on one card
+    t0 = time.perf_counter()
+    lm.update(phase14(dev, card))
+    print(f"phase 14: {time.perf_counter() - t0:.1f} s wall")
 
     # -- 6. report ----------------------------------------------------------
     top = BATCHES[-1]

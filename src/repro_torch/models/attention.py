@@ -15,8 +15,9 @@ the cache it is given, in place, and returns that same cache.
 On a mesh (``*_sharded``, per-rank lists): head-parallel ``attend`` for
 prefill and training (``n_heads / model`` query heads per rank, the K/V
 heads they read; ``wo`` row-parallel, its partial sums reduced by the
-caller), and the reference's flash-decode over a cache split on ``S``
-over ``model`` (``decode_attend_sharded``).
+caller), the reference's flash-decode over a cache split on ``S`` over
+``model`` (``decode_attend_sharded``), and head-parallel cross-attention
+over encoder K/V with heads on ``model`` (``cross_attend_sharded``).
 """
 from __future__ import annotations
 
@@ -461,17 +462,32 @@ def decode_attend_sharded(ps, xs, caches, pos, *, mesh, n_heads, n_kv_heads,
 # ---------------------------------------------------------------------------
 
 
+def _cross_heads(p: Attention, x, enc_kv, *, n_heads, head_dim):
+    """``cross_attend`` up to ``wo``: the heads' outputs (B, S, H·Dh)."""
+    b, s, _ = x.shape
+    q = F.linear(x, p.wq.weight.to(x.dtype)).reshape(b, s, n_heads, head_dim)
+    k, v = enc_kv
+    mask = torch.ones((b, s, k.shape[1]), dtype=torch.bool, device=x.device)
+    return _sdpa(q, k, v, mask, head_dim ** -0.5).reshape(b, s, n_heads * head_dim)
+
+
 def cross_attend(p: Attention, x, enc_kv, *, n_heads, n_kv_heads, head_dim):
     """Cross-attention of x (B, S, D) to precomputed encoder K/V, each
     (B, S_enc, Hkv, Dh): dense ``_sdpa`` with every encoder position
     allowed, no rope (whisper's decoder). ``n_kv_heads`` is the K/V's head
     count (the reference's signature; the tensors carry it too)."""
-    b, s, _ = x.shape
-    q = F.linear(x, p.wq.weight.to(x.dtype)).reshape(b, s, n_heads, head_dim)
-    k, v = enc_kv
-    mask = torch.ones((b, s, k.shape[1]), dtype=torch.bool, device=x.device)
-    out = _sdpa(q, k, v, mask, head_dim ** -0.5).reshape(b, s, n_heads * head_dim)
+    out = _cross_heads(p, x, enc_kv, n_heads=n_heads, head_dim=head_dim)
     return F.linear(out, p.wo.weight.to(x.dtype))
+
+
+def cross_attend_sharded(ps, hs, enc_kvs, *, head_dim):
+    """Head-parallel ``cross_attend``: rank r's query heads (``ps[r]``'s
+    ``wq`` rows, gathered over ``data``) against its heads of the encoder
+    K/V (``enc_kvs[r]``, heads on ``model``), then its ``wo`` rows. Returns
+    the float32 partial sums, for the caller to reduce over ``model``."""
+    return [linear_f32(_cross_heads(p, h, kv, n_heads=kv[0].shape[2],
+                                    head_dim=head_dim), p.wo.weight)
+            for p, h, kv in zip(ps, hs, enc_kvs)]
 
 
 def encoder_kv(p: Attention, enc_out, *, n_kv_heads, head_dim):

@@ -15,6 +15,13 @@ gelu is the tanh form.
 
 Decode state per layer: the conv tail (B, 3, d_rnn) and the LRU's h
 (B, d_rnn), both float32.
+
+On a mesh (``recurrent_block_sharded``, per-rank lists) the d_rnn channels
+lie on ``model``: ``w_y`` / ``w_x`` are column-parallel, the conv, Λ, the
+gate biases and both state tensors are local, the gates ``w_a`` / ``w_i``
+take their rows for the rank's channels over the whole d_rnn (so the
+conv output is all-gathered over ``model`` first) and ``w_o`` is
+row-parallel (float32 partial sums, reduced by the caller).
 """
 from __future__ import annotations
 
@@ -22,8 +29,14 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from repro_torch.models.common import activation, empty_linear, init_linear_
+from repro_torch.models.common import (
+    activation,
+    empty_linear,
+    init_linear_,
+    linear_f32,
+)
 from repro_torch.models.recurrence import chunked_diag_recurrence
+from repro_torch.sharding import MODEL, all_gather
 
 RG_LRU_C = 8.0
 CONV_W = 4
@@ -76,14 +89,17 @@ def _lin(lin: nn.Linear, x):
     return F.linear(x, lin.weight.to(x.dtype))
 
 
-def _rglru_coeffs(p: RGLRU, x):
-    """x: (…, d_rnn) → (a, b) of the diagonal recurrence, float32.
+def _rglru_coeffs(p: RGLRU, x, x_gate=None):
+    """x: (…, d_rnn) → (a, b) of the diagonal recurrence, float32. The
+    gates read ``x_gate`` (default ``x``): on a mesh, the whole d_rnn of
+    which ``x`` is the rank's channels.
 
     softplus(Λ) is taken in Λ's dtype (bf16 under bf16 serving), as the
     reference's is; sqrt(1 - a²) goes through expm1 for a near 1."""
     xf = x.float()
-    r = torch.sigmoid(F.linear(xf, p.w_a.weight.float()) + p.b_a.float())
-    i = torch.sigmoid(F.linear(xf, p.w_i.weight.float()) + p.b_i.float())
+    xg = xf if x_gate is None else x_gate.float()
+    r = torch.sigmoid(F.linear(xg, p.w_a.weight.float()) + p.b_a.float())
+    i = torch.sigmoid(F.linear(xg, p.w_i.weight.float()) + p.b_i.float())
     log_a = -RG_LRU_C * F.softplus(p.lam) * r
     a = torch.exp(log_a)
     mult = torch.sqrt(-torch.expm1(2.0 * log_a))
@@ -99,29 +115,70 @@ def _causal_conv_seq(p: RecurrentBlock, x, tail):
     return out + p.conv_b.to(x.dtype), full[:, -(CONV_W - 1):]
 
 
+def _branches(p: RecurrentBlock, x, tail, decode: bool):
+    """(gelu(x·W_y), the causal conv of x·W_x, the new conv tail) of a
+    sequence x (B, T, d), or of one token x (B, d)."""
+    y = activation("gelu")(_lin(p.w_y, x))
+    if not decode:
+        return (y,) + _causal_conv_seq(p, _lin(p.w_x, x), tail)
+    hist = torch.cat([tail.to(x.dtype), _lin(p.w_x, x)[:, None]], 1)
+    conv = sum(hist[:, -1 - i] * p.conv_w[CONV_W - 1 - i].to(x.dtype)
+               for i in range(CONV_W)) + p.conv_b.to(x.dtype)
+    return y, conv, hist[:, 1:]
+
+
+def _recur(p: RGLRU, xr, h0, *, chunk, decode: bool, x_gate=None):
+    """The RG-LRU over the conv output: (h of every position, float32; the
+    last h)."""
+    a, b = _rglru_coeffs(p, xr, x_gate)
+    if decode:
+        h = a * h0.float() + b
+        return h, h
+    hs, h_t = chunked_diag_recurrence(a.transpose(0, 1), b.transpose(0, 1),
+                                      h0.float(), chunk=chunk)
+    return hs.transpose(0, 1), h_t
+
+
 def recurrent_block_seq(p: RecurrentBlock, x, state, *, chunk):
     """x: (B, T, d); state: {"conv": (B, 3, dr), "h": (B, dr)}."""
-    gelu = activation("gelu")
-    y = gelu(_lin(p.w_y, x))
-    xr, conv_tail = _causal_conv_seq(p, _lin(p.w_x, x), state["conv"])
-    a, b = _rglru_coeffs(p.rglru, xr)
-    hs, h_t = chunked_diag_recurrence(a.transpose(0, 1), b.transpose(0, 1),
-                                      state["h"].float(), chunk=chunk)
-    h = hs.transpose(0, 1).to(x.dtype)                    # (B, T, dr)
-    return _lin(p.w_o, h * y), {"conv": conv_tail.float(), "h": h_t}
+    y, xr, conv_tail = _branches(p, x, state["conv"], False)
+    hs, h_t = _recur(p.rglru, xr, state["h"], chunk=chunk, decode=False)
+    return _lin(p.w_o, hs.to(x.dtype) * y), {"conv": conv_tail.float(),
+                                            "h": h_t}
 
 
 def recurrent_block_step(p: RecurrentBlock, x, state):
     """x: (B, d), a single token."""
-    gelu = activation("gelu")
-    y = gelu(_lin(p.w_y, x))
-    hist = torch.cat([state["conv"].to(x.dtype), _lin(p.w_x, x)[:, None]], 1)
-    conv = sum(hist[:, -1 - i] * p.conv_w[CONV_W - 1 - i].to(x.dtype)
-               for i in range(CONV_W)) + p.conv_b.to(x.dtype)
-    a, b = _rglru_coeffs(p.rglru, conv)
-    h = a * state["h"].float() + b
-    return (_lin(p.w_o, h.to(x.dtype) * y),
-            {"conv": hist[:, 1:].float(), "h": h})
+    y, conv, hist = _branches(p, x, state["conv"], True)
+    h, _ = _recur(p.rglru, conv, state["h"], chunk=None, decode=True)
+    return _lin(p.w_o, h.to(x.dtype) * y), {"conv": hist.float(), "h": h}
+
+
+def recurrent_block_sharded(ps, hs, states, *, mesh, chunk, decode=False):
+    """``recurrent_block_seq`` / ``_step`` (``decode``: hs (B, 1, d)) on
+    every rank: ``ps[r]`` rank r's block (gathered over ``data``), ``hs[r]``
+    its normed rows at every position, ``states[r]`` its conv tail (B, 3,
+    d_rnn/m) and h (B, d_rnn/m), or None in training (zeros). One
+    all_gather over ``model`` (the conv output, for the gates). Returns
+    (the ``w_o`` float32 partial sums, for the caller to reduce over
+    ``model``; per-rank new states, or None in training)."""
+    if states is None:
+        states = [init_griffin_state(h.shape[0], p.conv_b.shape[0], h.device)
+                  for p, h in zip(ps, hs)]
+        train = True
+    else:
+        train = False
+    pre = [_branches(p, h[:, 0] if decode else h, st["conv"], decode)
+           for p, h, st in zip(ps, hs, states)]
+    gates_in = all_gather([xr for _, xr, _ in pre], mesh, MODEL, -1)
+    ys, new = [], []
+    for p, (y, xr, tail), xg, st in zip(ps, pre, gates_in, states):
+        h, h_t = _recur(p.rglru, xr, st["h"], chunk=chunk, decode=decode,
+                        x_gate=xg)
+        out = h.to(y.dtype) * y
+        ys.append(linear_f32(out[:, None] if decode else out, p.w_o.weight))
+        new.append({"conv": tail.float(), "h": h_t})
+    return ys, (None if train else new)
 
 
 def griffin_state_shapes(batch, d_rnn):

@@ -13,8 +13,7 @@ whose batches carry ``frames`` (B, enc_seq, d).
 ``apply_train`` / ``prefill`` / ``decode_step`` take ``policy=``: with an
 active ``sharding.Policy`` the params are a ``ShardedModule`` (or its
 per-rank views), the inputs ``PerRank`` lists, and the call runs the
-sharded stack on the policy's mesh. The dense, VLM and MoE families have
-one; the others raise ``NotImplementedError`` naming the family.
+family's sharded functions on the policy's mesh (every family has them).
 """
 from __future__ import annotations
 
@@ -44,11 +43,8 @@ class Model:
     init_cache: Callable    # (batch, cache_len, device="cuda") -> cache
 
 
-def _single_device(policy) -> None:
-    if policy is not None and policy.active:
-        raise NotImplementedError(
-            "the encdec family (whisper) has no sharded path yet; the "
-            "sharded LM steps run the dense, VLM and MoE families")
+def _sharded(policy) -> bool:
+    return policy is not None and policy.active
 
 
 def build(cfg: ModelConfig) -> Model:
@@ -59,15 +55,21 @@ def build(cfg: ModelConfig) -> Model:
             return whisper.init_params(generator, cfg, max_dec_positions)
 
         def apply_train(params, *, tokens, frames, policy=None):
-            _single_device(policy)
+            if _sharded(policy):
+                return whisper.apply_train_sharded(cfg, policy, params, tokens,
+                                                   frames)
             return whisper.apply_train(cfg, params, tokens, frames)
 
         def prefill_fn(params, cache_len, *, tokens, frames, policy=None):
-            _single_device(policy)
+            if _sharded(policy):
+                return whisper.prefill_sharded(cfg, policy, params, tokens,
+                                               frames, cache_len)
             return whisper.prefill(cfg, params, tokens, frames, cache_len)
 
         def decode_fn(params, token, caches, pos, policy=None):
-            _single_device(policy)
+            if _sharded(policy):
+                return whisper.decode_step_sharded(cfg, policy, params, token,
+                                                   caches, pos)
             return whisper.decode_step(cfg, params, token, caches, pos)
 
         def init_cache(batch, cache_len, device="cuda"):
@@ -82,21 +84,21 @@ def build(cfg: ModelConfig) -> Model:
         return transformer.init_params(generator, cfg)
 
     def apply_train(params, *, tokens, vision_embeds=None, policy=None):
-        if policy is not None and policy.active:
+        if _sharded(policy):
             return transformer.apply_train_sharded(cfg, policy, params, tokens,
                                                    vision_embeds)
         return transformer.apply_train(cfg, params, tokens, vision_embeds)
 
     def prefill_fn(params, cache_len, *, tokens, vision_embeds=None,
                    policy=None):
-        if policy is not None and policy.active:
+        if _sharded(policy):
             return transformer.prefill_sharded(cfg, policy, params, tokens,
                                                cache_len, vision_embeds)
         return transformer.prefill(cfg, params, tokens, cache_len,
                                    vision_embeds)
 
     def decode_fn(params, token, caches, pos, policy=None):
-        if policy is not None and policy.active:
+        if _sharded(policy):
             return transformer.decode_step_sharded(cfg, policy, params, token,
                                                    caches, pos)
         return transformer.decode_step(cfg, params, token, caches, pos)

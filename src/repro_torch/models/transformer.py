@@ -20,16 +20,17 @@ and an MLP).
 
 On a mesh (``*_sharded``: an active ``Policy`` and a ``ShardedModule``
 or its per-rank views; activations, caches and tokens as ``PerRank``
-lists) the stack runs the ``attn_mlp`` / ``attn_moe`` plans (the dense,
-VLM and MoE families) in the Megatron partition the parameter specs
-imply. Each rank runs the single-device functions on its slice: a
-block's weights are gathered over ``data`` just before use (FSDP) and
-dropped after; q/k/v, gate/up and the vocabulary are split over
-``model`` and ``wo`` / ``w_down`` are row-parallel, reduced over
-``model``. When ``policy.sequence_split`` holds, the residual lies split
-on the sequence over ``model`` between blocks: reduce-scatter after a
+lists) the stack runs every block kind, the tail too, in the Megatron
+partition the parameter specs imply. Each rank runs the single-device
+functions on its slice: a block's weights are gathered over ``data``
+just before use (FSDP) and dropped after; q/k/v, gate/up, RWKV-6's
+heads, Griffin's d_rnn channels and the vocabulary are split over
+``model``, and ``wo`` / ``w_down`` / RWKV-6's ``w_o`` and ``cm/w_v`` /
+Griffin's ``w_o`` are row-parallel, reduced over ``model``
+(``models/rwkv6.py`` and ``models/griffin.py`` say where their states
+move). When ``policy.sequence_split`` holds, the residual lies split on
+the sequence over ``model`` between blocks: reduce-scatter after a
 row-parallel product, all-gather before the next column-parallel one.
-The other families raise ``NotImplementedError`` naming themselves.
 
 API (functions of the config and an ``LM`` module):
   init_params(gen, cfg)                       → LM
@@ -72,7 +73,9 @@ from repro_torch.sharding import (
     PerRank,
     ShardedModule,
     all_gather,
+    cache_partition_specs,
     gather_params,
+    local_structs,
     param_specs,
     psum,
     psum_scatter,
@@ -508,21 +511,6 @@ def decode_step(cfg: ModelConfig, params: LM, token, caches, pos):
 _ENGINE_PARAMS = ("moe.router", "moe.w_gate", "moe.w_up", "moe.w_down")
 
 
-def require_sharded_plan(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` naming the family unless its blocks
-    are ``attn_mlp`` / ``attn_moe`` (the families with a sharded path)."""
-    if cfg.family == "encdec":
-        raise NotImplementedError(
-            "the encdec family (whisper) has no sharded path yet; the "
-            "sharded LM steps run the dense, VLM and MoE families")
-    kinds, _, tail = _plan(cfg)
-    bad = [k for k in kinds + tail if k not in ("attn_mlp", "attn_moe")]
-    if bad:
-        raise NotImplementedError(
-            f"the {cfg.family} family ({bad[0]} blocks) has no sharded path "
-            "yet; the sharded LM steps run the dense, VLM and MoE families")
-
-
 def rank_views(params, dtype=None) -> list:
     """Per-rank module views of a ``ShardedModule`` (float32 shards cast to
     ``dtype`` when given), or ``params`` itself when it is already a list
@@ -548,20 +536,21 @@ def _seq_chunk(xs, mesh):
                    for r, x in enumerate(xs))
 
 
-def _attn_block_sharded(blocks, prefix, specs, cfg, policy, xs, positions,
-                        caches, *, window, decode, sp):
-    """One attention block on every rank; ``blocks[r]`` is rank r's block
-    (its shards), ``sp`` whether the residual is split on the sequence
-    (never in decode). Returns (xs, caches (per-rank dicts, or None), aux
-    per rank)."""
+def _attn_sharded(ps, cfg, policy, xs, positions, caches, *, window, decode,
+                  sp, kind="causal", use_rope=True, kv_block=None):
+    """The attention half of a block on every rank: ``norm1``, head-parallel
+    attention (``ps[r]`` rank r's block, gathered over ``data``), the
+    reduction of ``wo``, the residual. ``sp``: the residual is split on
+    the sequence (never in decode). With ``caches`` (per-rank dicts),
+    prefill writes each rank's slice of the K/V and decode updates it in
+    place. Returns (xs, caches)."""
     mesh = policy.mesh
     _, norm = _norm_fns(cfg)
     m = axis_size(mesh, MODEL)
-    ps = gather_params(blocks, specs, mesh, prefix, skip=_ENGINE_PARAMS,
-                       extra=attn_mod.kv_extra_gather(cfg.n_kv_heads, m, "attn."))
     hs = [norm(p.norm1, x) for p, x in zip(ps, xs)]
     kw = dict(mesh=mesh, n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
-              head_dim=cfg.head_dim_, rope_theta=cfg.rope_theta, window=window)
+              head_dim=cfg.head_dim_, rope_theta=cfg.rope_theta, window=window,
+              use_rope=use_rope)
     if decode:
         ys, caches = attn_mod.decode_attend_sharded(
             [p.attn for p in ps], hs, caches, positions, **kw)
@@ -569,8 +558,9 @@ def _attn_block_sharded(blocks, prefix, specs, cfg, policy, xs, positions,
         if sp:
             hs = all_gather(hs, mesh, MODEL, 1)
         ys, kvs = attn_mod.attend_sharded(
-            [p.attn for p in ps], hs, positions, kind="causal",
-            dense_max_seq=cfg.dense_attn_max, kv_block=cfg.kv_block, **kw)
+            [p.attn for p in ps], hs, positions, kind=kind,
+            dense_max_seq=cfg.dense_attn_max,
+            kv_block=cfg.kv_block if kv_block is None else kv_block, **kw)
         if caches is not None:
             ks = attn_mod.gather_kv_heads([k for k, _ in kvs], mesh,
                                           cfg.n_heads, cfg.n_kv_heads, 2)
@@ -584,8 +574,16 @@ def _attn_block_sharded(blocks, prefix, specs, cfg, policy, xs, positions,
                 for name, t in cache.items():
                     t.copy_(full[name][..., lo:lo + s_local, :] if name != "pos"
                             else full[name][:, lo:lo + s_local])
-    xs = [x + y.to(x.dtype)
-          for x, y in zip(xs, _reduce_model(ys, mesh, sp))]
+    return [x + y.to(x.dtype)
+            for x, y in zip(xs, _reduce_model(ys, mesh, sp))], caches
+
+
+def _mixer_sharded(ps, cfg, policy, xs, *, sp, dropless=True):
+    """The mixer half of a block on every rank: ``norm2``, the
+    tensor-parallel MLP (or the MoE's engine, ``dropless`` in inference),
+    the residual. Returns (xs, aux per rank)."""
+    mesh = policy.mesh
+    _, norm = _norm_fns(cfg)
     hs = [norm(p.norm2, x) for p, x in zip(ps, xs)]
     if sp:
         hs = all_gather(hs, mesh, MODEL, 1)
@@ -594,33 +592,88 @@ def _attn_block_sharded(blocks, prefix, specs, cfg, policy, xs, positions,
             [p.moe for p in ps], hs, top_k=cfg.top_k,
             capacity_factor=cfg.capacity_factor, act=cfg.act,
             dispatch=cfg.moe_dispatch, normalize=cfg.normalize_topk,
-            dropless=decode or caches is not None, policy=policy)
+            dropless=dropless, policy=policy)
         if sp:
             os_ = _seq_chunk(os_, mesh)
     else:
         os_ = mlp_sharded([p.mlp for p in ps], hs, act=cfg.act, mesh=mesh,
                           axis=MODEL, scatter_dim=1 if sp else None)
         aux = [torch.zeros((), dtype=torch.float32, device=x.device) for x in xs]
-    return [x + o.to(x.dtype) for x, o in zip(xs, os_)], caches, aux
+    return [x + o.to(x.dtype) for x, o in zip(xs, os_)], aux
+
+
+def _rec_block_sharded(blocks, prefix, specs, cfg, policy, kind, xs, states,
+                       *, decode, sp):
+    """One recurrent block on every rank: RWKV-6 (``rwkv``, its ``ln1`` /
+    ``ln2`` inside ``rwkv_block_sharded``) or Griffin's ``rec_mlp`` (norms,
+    the recurrent block, the gated MLP). ``states``: per-rank state dicts
+    in the stored layout, or None in training. Returns (xs, states)."""
+    mesh = policy.mesh
+    ps = gather_params(blocks, specs, mesh, prefix)
+    if kind == "rwkv":
+        return rwkv_mod.rwkv_block_sharded(
+            ps, xs, states, mesh=mesh, n_heads=cfg.rwkv_heads,
+            head_dim=cfg.rwkv_head_dim, chunk=cfg.rwkv_chunk, decode=decode,
+            sp=sp)
+    _, norm = _norm_fns(cfg)
+    hs = [norm(p.norm1, x) for p, x in zip(ps, xs)]
+    if sp:
+        hs = all_gather(hs, mesh, MODEL, 1)
+    ys, states = griffin_mod.recurrent_block_sharded(
+        [p.rec for p in ps], hs, states, mesh=mesh, chunk=cfg.rnn_chunk,
+        decode=decode)
+    xs = [x + y.to(x.dtype) for x, y in zip(xs, _reduce_model(ys, mesh, sp))]
+    xs, _ = _mixer_sharded(ps, cfg, policy, xs, sp=sp)
+    return xs, states
+
+
+def _block_sharded(cfg, policy, specs, blocks, prefix, kind, xs, positions,
+                   caches, decode, sp):
+    """One block of ``kind`` on every rank (``blocks[r]`` rank r's shards,
+    its parameters named under ``prefix``, gathered over ``data`` here and
+    dropped after); ``caches`` its per-rank cache dicts (written in place)
+    or None. Returns (xs, aux per rank)."""
+    if kind in ("attn_mlp", "attn_moe"):
+        mesh = policy.mesh
+        ps = gather_params(blocks, specs, mesh, prefix, skip=_ENGINE_PARAMS,
+                           extra=attn_mod.kv_extra_gather(
+                               cfg.n_kv_heads, axis_size(mesh, MODEL), "attn."))
+        xs, _ = _attn_sharded(ps, cfg, policy, xs, positions, caches,
+                              window=_window_for(cfg, kind), decode=decode,
+                              sp=sp)
+        return _mixer_sharded(ps, cfg, policy, xs, sp=sp,
+                              dropless=decode or caches is not None)
+    xs, new = _rec_block_sharded(blocks, prefix, specs, cfg, policy, kind, xs,
+                                 caches, decode=decode, sp=sp)
+    if caches is not None:
+        for cache, n in zip(caches, new):
+            _store(cache, n)
+    return xs, [torch.zeros((), dtype=torch.float32, device=x.device)
+                for x in xs]
 
 
 def _run_stack_sharded(cfg, policy, specs, views, xs, positions, caches,
                        decode, sp):
-    """The sharded layer walk; returns (xs, caches, aux per rank). In
-    training each group goes through ``maybe_checkpoint`` (the gathers are
-    recomputed in the backward, not kept)."""
-    kinds, _, _ = _plan(cfg)
+    """The sharded layer walk, then the tail; returns (xs, caches, aux per
+    rank). In training each group goes through ``maybe_checkpoint`` (the
+    gathers are recomputed in the backward, not kept); the tail is not
+    recomputed, as in ``_run_stack``."""
+    kinds, _, tail = _plan(cfg)
+    n = len(views)
+
+    def add(aux, a):
+        return [t + u for t, u in zip(aux, a)]
 
     def group(j, xs, cache_j):
         aux = [torch.zeros((), dtype=torch.float32, device=x.device) for x in xs]
         for i, kind in enumerate(kinds):
             key = f"b{i}_{kind}"
             c = None if cache_j is None else [cj[key] for cj in cache_j]
-            xs, _, a = _attn_block_sharded(
-                [v.layers[j][key] for v in views], f"layers.{j}.{key}.", specs,
-                cfg, policy, xs, positions, c, window=_window_for(cfg, kind),
-                decode=decode, sp=sp)
-            aux = [t + u for t, u in zip(aux, a)]
+            xs, a = _block_sharded(cfg, policy, specs,
+                                   [v.layers[j][key] for v in views],
+                                   f"layers.{j}.{key}.", kind, xs, positions, c,
+                                   decode, sp)
+            aux = add(aux, a)
         return xs, aux
 
     aux = [torch.zeros((), dtype=torch.float32, device=x.device) for x in xs]
@@ -630,9 +683,16 @@ def _run_stack_sharded(cfg, policy, specs, views, xs, positions, caches,
         else:
             cache_j = [{key: {name: t[r][j] for name, t in block.items()}
                         for key, block in caches["layers"].items()}
-                       for r in range(len(views))]
+                       for r in range(n)]
             xs, a = group(j, xs, cache_j)
-        aux = [t + u for t, u in zip(aux, a)]
+        aux = add(aux, a)
+    for i, kind in enumerate(tail):
+        c = (None if caches is None else
+             [{name: t[r] for name, t in caches["tail"][i].items()}
+              for r in range(n)])
+        xs, a = _block_sharded(cfg, policy, specs, [v.tail[i] for v in views],
+                               f"tail.{i}.", kind, xs, positions, c, decode, sp)
+        aux = add(aux, a)
     return xs, caches, aux
 
 
@@ -673,8 +733,7 @@ def _lm_specs(cfg: ModelConfig) -> dict:
 
 def _sharded_parts(cfg, params):
     """(per-rank views, parameter specs) of a ``ShardedModule`` or of its
-    views; raises for a family without a sharded path."""
-    require_sharded_plan(cfg)
+    views."""
     if isinstance(params, ShardedModule):
         return rank_views(params), params.specs
     return list(params), _lm_specs(cfg)
@@ -719,8 +778,8 @@ def prefill_sharded(cfg: ModelConfig, policy, params, tokens, cache_len,
     xs = _embed_inputs_sharded(cfg, policy, specs, views, tokens, vision_embeds)
     b, s = xs[0].shape[:2]
     sp = policy.sequence_split(s)
-    caches = init_cache_sharded(cfg, mesh, b, cache_len, xs[0].dtype,
-                                [x.device for x in xs])
+    caches = init_cache_sharded(cfg, policy, b * axis_size(mesh, policy.batch_axes),
+                                cache_len, xs[0].dtype, [x.device for x in xs])
     if sp:
         xs = _seq_chunk(xs, mesh)
     positions = torch.arange(s, device=xs[0].device)[None, :]
@@ -746,20 +805,37 @@ def decode_step_sharded(cfg: ModelConfig, policy, params, token, caches, pos):
     return PerRank(l[:, 0] for l in _gather_vocab(logits, mesh)), caches
 
 
-def init_cache_sharded(cfg: ModelConfig, mesh, batch: int, cache_len: int,
+def alloc_sharded(structs, policy, devices=None) -> dict:
+    """An empty cache of ``(shape, dtype)`` tree ``structs`` laid out as
+    ``sharding.cache_partition_specs`` says: each leaf a ``PerRank`` whose
+    entry r has ``local_structs``'s shape on ``devices[r]`` (default the
+    mesh's); zeros, ``pos`` -1."""
+    mesh = policy.mesh
+    local = local_structs(structs, cache_partition_specs(structs, policy), mesh)
+
+    def alloc(tree, dev):
+        if isinstance(tree, list):
+            return [alloc(t, dev) for t in tree]
+        if all(isinstance(v, tuple) for v in tree.values()):
+            return _alloc(tree, dev)
+        return {k: alloc(v, dev) for k, v in tree.items()}
+
+    def per_rank(trees):
+        if isinstance(trees[0], list):
+            return [per_rank(list(t)) for t in zip(*trees)]
+        if isinstance(trees[0], dict):
+            return {k: per_rank([t[k] for t in trees]) for k in trees[0]}
+        return PerRank(trees)
+
+    return per_rank([alloc(local, d) for d in devices or mesh.devices])
+
+
+def init_cache_sharded(cfg: ModelConfig, policy, batch: int, cache_len: int,
                        dtype=torch.bfloat16, devices=None) -> dict:
-    """An empty cache laid out over ``mesh``: rank r's entry of each
-    ``PerRank`` is ``init_cache``'s for its ``batch`` rows and its
-    ``cache_len / |model|`` slots (``devices[r]``, default the mesh's)."""
-    require_sharded_plan(cfg)
-    m = axis_size(mesh, MODEL)
-    window = _window_for(cfg, _plan(cfg)[0][0])
-    clen = min(cache_len, window) if window else cache_len
-    if clen % m:
-        raise ValueError(f"cache length {clen} is not divisible by the {m} "
-                         "model ranks")
-    devices = devices or mesh.devices
-    per = [init_cache(cfg, batch, clen // m, dtype, d) for d in devices]
-    return {"layers": {key: {name: PerRank(c["layers"][key][name] for c in per)
-                             for name in block}
-                       for key, block in per[0]["layers"].items()}}
+    """``init_cache`` (``batch`` rows in all) laid out over the policy's
+    mesh by ``sharding.cache_partition_specs``, every leaf included:
+    K/V and positions on the sequence, RWKV-6's ``wkv`` on Dv and its
+    shifts on d, Griffin's ``conv`` and ``h`` on d_rnn, ``tail`` too
+    (``alloc_sharded``)."""
+    return alloc_sharded(cache_shapes(cfg, batch, cache_len, dtype), policy,
+                         devices)

@@ -22,26 +22,52 @@ API (functions of the config and a ``Whisper`` module):
   prefill(cfg, params, tokens, frames, cache_len) → (logits_last, cache)
   decode_step(cfg, params, token, cache, pos)    → (logits, cache)
   init_dec_cache(cfg, batch, cache_len, enc_seq) → cache
+
+On a mesh (``*_sharded``: an active ``Policy``, a ``ShardedModule`` or its
+per-rank views, ``PerRank`` inputs and caches) every layer runs
+tensor-parallel as the decoder-only stack's do (``transformer``'s
+``_attn_sharded`` / ``_mixer_sharded``). The encoder's residual lies split
+on the frames over ``model`` where ``policy.sequence_split`` allows (1500
+frames at ``model`` = 4, not at 8), and its states are whole on every rank
+for the cross K/V, which each rank projects for its own heads (the
+cache's ``cross`` leaves, heads on ``model``); cross-attention is then
+head-local. ``pos_embed`` (d on ``data``) is gathered like a weight. The
+tied head is vocabulary-parallel over the padded table, and the pad
+columns are masked by their global index, so they fall in the last
+``model`` rank's slice.
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.types import resolve_device
+from repro_torch.launch.mesh import axis_index, axis_size
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import transformer
 from repro_torch.models.common import (
     Embed,
     LayerNorm,
     embed,
+    embed_sharded,
     layernorm,
     sinusoidal_positions,
     truncated_normal_,
     unembed,
 )
 from repro_torch.models.mlp import MLP, init_mlp, mlp
+from repro_torch.sharding import (
+    DATA,
+    MODEL,
+    PerRank,
+    ShardedModule,
+    all_gather,
+    gather_params,
+    param_specs,
+)
 
 COMPUTE_DTYPE = torch.bfloat16
 
@@ -107,12 +133,14 @@ def _padded_vocab(cfg: ModelConfig) -> int:
     return ((cfg.vocab + 127) // 128) * 128
 
 
-def _mask_pad_logits(cfg: ModelConfig, logits):
-    """The pad columns set to ``-2**30`` in the logits' dtype."""
-    v_pad = logits.shape[-1]
-    if v_pad == cfg.vocab:
+def _mask_pad_logits(cfg: ModelConfig, logits, offset: int = 0):
+    """The pad columns set to ``-2**30`` in the logits' dtype. ``logits``
+    holds the columns from ``offset`` on (on a mesh, a rank's slice of the
+    vocabulary), so a column is masked by its global index."""
+    n = logits.shape[-1]
+    if offset + n <= cfg.vocab:
         return logits
-    ok = torch.arange(v_pad, device=logits.device) < cfg.vocab
+    ok = torch.arange(offset, offset + n, device=logits.device) < cfg.vocab
     return torch.where(ok, logits, torch.tensor(-2.0 ** 30, dtype=logits.dtype,
                                                 device=logits.device))
 
@@ -323,3 +351,230 @@ def decode_step(cfg: ModelConfig, params: Whisper, token, caches, pos):
     x, _ = _decoder(cfg, params, x, pos[:, None], cross,
                     {"layers": caches["layers"]}, True)
     return _logits(cfg, params, x)[:, 0], caches
+
+
+# ---------------------------------------------------------------------------
+# On a mesh
+# ---------------------------------------------------------------------------
+
+# ``attend``'s default block, which ``encode`` keeps (blockwise attention
+# only runs above ``dense_attn_max`` frames)
+ENC_KV_BLOCK = 512
+
+
+@functools.lru_cache(maxsize=None)
+def _whisper_specs(cfg: ModelConfig) -> dict:
+    """``param_specs`` of ``cfg``'s ``Whisper`` (built on the meta device;
+    the specs do not depend on ``max_dec_positions``)."""
+    return param_specs(Whisper(cfg, torch.device("meta")))
+
+
+def _parts(cfg, params):
+    """(per-rank views, parameter specs) of a ``ShardedModule`` or of its
+    views."""
+    if isinstance(params, ShardedModule):
+        return transformer.rank_views(params), params.specs
+    return list(params), _whisper_specs(cfg)
+
+
+def _gather_layer(cfg, specs, mesh, views, stack: str, i: int):
+    """Layer ``i`` of ``stack`` on every rank, gathered over ``data``."""
+    return gather_params([getattr(v, stack)[i] for v in views], specs, mesh,
+                         f"{stack}.{i}.", extra=attn_mod.kv_extra_gather(
+                             cfg.n_kv_heads, axis_size(mesh, MODEL), "attn."))
+
+
+def _enc_layer_sharded(cfg, policy, specs, views, i, xs, positions, sp):
+    ps = _gather_layer(cfg, specs, policy.mesh, views, "enc_layers", i)
+    xs, _ = transformer._attn_sharded(
+        ps, cfg, policy, xs, positions, None, window=None, decode=False,
+        sp=sp, kind="full", use_rope=False, kv_block=ENC_KV_BLOCK)
+    return transformer._mixer_sharded(ps, cfg, policy, xs, sp=sp)[0]
+
+
+def _encode(cfg, policy, specs, views, frames):
+    mesh = policy.mesh
+    s = frames[0].shape[1]
+    xs = [f.to(COMPUTE_DTYPE) + sinusoidal_positions(
+        s, cfg.d_model, f.device).to(COMPUTE_DTYPE)[None] for f in frames]
+    sp = policy.sequence_split(s)
+    if sp:
+        xs = transformer._seq_chunk(xs, mesh)
+    positions = torch.arange(s, device=xs[0].device)[None, :]
+    for i in range(len(views[0].enc_layers)):
+        xs = transformer.maybe_checkpoint(_enc_layer_sharded, cfg, cfg, policy,
+                                          specs, views, i, xs, positions, sp)
+    xs = [layernorm(v.enc_norm, x) for v, x in zip(views, xs)]
+    return all_gather(xs, mesh, MODEL, 1) if sp else xs
+
+
+def encode_sharded(cfg: ModelConfig, policy, params, frames):
+    """``encode`` on a mesh: frames per rank (B/|batch|, enc_seq, d), the
+    residual split on the frames over ``model`` where
+    ``policy.sequence_split(enc_seq)`` holds (an indivisible count keeps it
+    whole, the same values). Returns per-rank encoder states, every frame
+    on every rank."""
+    views, specs = _parts(cfg, params)
+    return _encode(cfg, policy, specs, views, frames)
+
+
+def _dec_layer_sharded(cfg, policy, specs, views, i, xs, positions, enc,
+                       cross, cache, decode, sp):
+    """Decoder layer ``i`` on every rank. ``enc``: per-rank encoder states,
+    from which each rank projects its heads' cross K/V (training and
+    prefill), or None with ``cross`` given (decode, from the cache);
+    ``cache``: per-rank self-attention cache dicts or None. Returns (xs,
+    the per-rank cross K/V)."""
+    mesh = policy.mesh
+    ps = _gather_layer(cfg, specs, mesh, views, "layers", i)
+    if cross is None:
+        hm = cfg.n_heads // axis_size(mesh, MODEL)
+        cross = [attn_mod.encoder_kv(p.xattn, e, n_kv_heads=hm,
+                                     head_dim=cfg.head_dim_)
+                 for p, e in zip(ps, enc)]
+    xs, _ = transformer._attn_sharded(ps, cfg, policy, xs, positions, cache,
+                                      window=None, decode=decode, sp=sp,
+                                      use_rope=False)
+    hs = [layernorm(p.norm_x, x) for p, x in zip(ps, xs)]
+    if sp:
+        hs = all_gather(hs, mesh, MODEL, 1)
+    ys = attn_mod.cross_attend_sharded([p.xattn for p in ps], hs, cross,
+                                       head_dim=cfg.head_dim_)
+    xs = [x + y.to(x.dtype)
+          for x, y in zip(xs, transformer._reduce_model(ys, mesh, sp))]
+    xs, _ = transformer._mixer_sharded(ps, cfg, policy, xs, sp=sp)
+    return xs, cross
+
+
+def _train_dec_layer_sharded(cfg, policy, specs, views, i, xs, positions,
+                             enc, sp):
+    return _dec_layer_sharded(cfg, policy, specs, views, i, xs, positions,
+                              enc, None, None, False, sp)[0]
+
+
+def _decoder_sharded(cfg, policy, specs, views, xs, positions, enc, caches,
+                     decode, sp):
+    """Walk the decoder layers on every rank. Training (no ``caches``): each
+    layer through ``maybe_checkpoint``. Prefill (``enc`` and ``caches``):
+    each layer writes its self-attention slice and its cross K/V into
+    ``caches``. Decode (``caches``, no ``enc``): the cross K/V come from
+    the cache. Returns xs."""
+    n = len(views)
+    for i in range(len(views[0].layers)):
+        if caches is None:
+            xs = transformer.maybe_checkpoint(
+                _train_dec_layer_sharded, cfg, cfg, policy, specs, views, i,
+                xs, positions, enc, sp)
+            continue
+        cache = [{name: t[r][i] for name, t in caches["layers"].items()}
+                 for r in range(n)]
+        cross = None if enc is not None else [
+            (caches["cross"]["k"][r][i], caches["cross"]["v"][r][i])
+            for r in range(n)]
+        xs, cross = _dec_layer_sharded(cfg, policy, specs, views, i, xs,
+                                       positions, enc, cross, cache, decode, sp)
+        if enc is not None:
+            for r, (k, v) in enumerate(cross):
+                caches["cross"]["k"][r][i].copy_(k)
+                caches["cross"]["v"][r][i].copy_(v)
+    return xs
+
+
+def _embed_dec_sharded(cfg, policy, specs, views, tokens, pos=None):
+    """Vocab-parallel token rows plus the learned positions (0 … S-1, or
+    ``pos`` per rank in decode); ``pos_embed`` gathered over ``data``."""
+    mesh = policy.mesh
+    ps = gather_params([v.embed for v in views], specs, mesh, "embed.")
+    xs = embed_sharded(ps, tokens, mesh=mesh, axis=MODEL,
+                       compute_dtype=COMPUTE_DTYPE)
+    tables = all_gather(PerRank(v.pos_embed for v in views), mesh, DATA,
+                        specs["pos_embed"].index(DATA))
+    rows = ([t[:x.shape[1]] for t, x in zip(tables, xs)] if pos is None else
+            [t[p.long()][:, None] for t, p in zip(tables, pos)])
+    return [x + r.to(COMPUTE_DTYPE) for x, r in zip(xs, rows)]
+
+
+def _logits_sharded(cfg, policy, specs, views, xs):
+    """Final norm and the tied head over each rank's slice of the padded
+    vocabulary, the pad columns masked by global index; float32."""
+    mesh = policy.mesh
+    ps = gather_params([v.embed for v in views], specs, mesh, "embed.")
+    out = []
+    for r, (v, pe, x) in enumerate(zip(views, ps, xs)):
+        lg = unembed(pe, None, layernorm(v.final_norm, x))
+        out.append(_mask_pad_logits(
+            cfg, lg, axis_index(mesh, r, MODEL) * lg.shape[-1]).float())
+    return out
+
+
+def apply_train_sharded(cfg: ModelConfig, policy, params, tokens, frames):
+    """``apply_train`` on a mesh: tokens and frames per rank, batch rows on
+    the batch axes. Returns (per-rank logits (B/|batch|, S, V_pad/|model|)
+    float32, per-rank aux = 0)."""
+    views, specs = _parts(cfg, params)
+    mesh = policy.mesh
+    enc = _encode(cfg, policy, specs, views, frames)
+    xs = _embed_dec_sharded(cfg, policy, specs, views, tokens)
+    s = xs[0].shape[1]
+    sp = policy.sequence_split(s)
+    if sp:
+        xs = transformer._seq_chunk(xs, mesh)
+    positions = torch.arange(s, device=xs[0].device)[None, :]
+    xs = _decoder_sharded(cfg, policy, specs, views, xs, positions, enc, None,
+                          False, sp)
+    if sp:
+        xs = all_gather(xs, mesh, MODEL, 1)
+    return (PerRank(_logits_sharded(cfg, policy, specs, views, xs)),
+            PerRank(torch.zeros((), dtype=torch.float32, device=x.device)
+                    for x in xs))
+
+
+def init_dec_cache_sharded(cfg: ModelConfig, policy, batch: int,
+                           cache_len: int, enc_seq: int, dtype=torch.bfloat16,
+                           devices=None) -> dict:
+    """``init_dec_cache`` (``batch`` rows in all) laid out over the policy's
+    mesh by ``sharding.cache_partition_specs``: the self-attention K/V and
+    positions on the sequence, the cross K/V on the heads."""
+    return transformer.alloc_sharded(
+        cache_shapes(cfg, batch, cache_len, enc_seq, dtype), policy, devices)
+
+
+@torch.no_grad()
+def prefill_sharded(cfg: ModelConfig, policy, params, tokens, frames,
+                    cache_len):
+    """``prefill`` on a mesh. Returns (per-rank last logits (B/|batch|,
+    V_pad), the cache laid out as ``init_dec_cache_sharded`` says)."""
+    views, specs = _parts(cfg, params)
+    mesh = policy.mesh
+    enc = _encode(cfg, policy, specs, views, frames)
+    xs = _embed_dec_sharded(cfg, policy, specs, views, tokens)
+    b, s = xs[0].shape[:2]
+    sp = policy.sequence_split(s)
+    caches = init_dec_cache_sharded(
+        cfg, policy, b * axis_size(mesh, policy.batch_axes), cache_len,
+        frames[0].shape[1], xs[0].dtype, [x.device for x in xs])
+    if sp:
+        xs = transformer._seq_chunk(xs, mesh)
+    positions = torch.arange(s, device=xs[0].device)[None, :]
+    xs = _decoder_sharded(cfg, policy, specs, views, xs, positions, enc,
+                          caches, False, sp)
+    del enc
+    if sp:           # the last position lies in the last model rank's chunk
+        xs = all_gather(xs, mesh, MODEL, 1)
+    logits = _logits_sharded(cfg, policy, specs, views, [x[:, -1:] for x in xs])
+    return (PerRank(lg[:, 0] for lg in transformer._gather_vocab(logits, mesh)),
+            caches)
+
+
+@torch.no_grad()
+def decode_step_sharded(cfg: ModelConfig, policy, params, token, caches, pos):
+    """``decode_step`` on a mesh: token (B/|batch|, 1) and pos per rank; the
+    self-attention cache updated in place, the cross K/V read. Returns
+    (per-rank logits (B/|batch|, V_pad), caches)."""
+    views, specs = _parts(cfg, params)
+    xs = _embed_dec_sharded(cfg, policy, specs, views, token, pos)
+    xs = _decoder_sharded(cfg, policy, specs, views, xs, pos, None, caches,
+                          True, False)
+    logits = _logits_sharded(cfg, policy, specs, views, xs)
+    return (PerRank(lg[:, 0] for lg in transformer._gather_vocab(
+        logits, policy.mesh)), caches)

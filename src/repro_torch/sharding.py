@@ -20,13 +20,14 @@ reference stacks the layers) and transposes the spec of an ``nn.Linear``,
 which the port holds ``(out, in)`` and the reference ``(in, out)``.
 
 Collectives are explicit functions over ``PerRank`` lists: ``all_gather``
-(a concatenation in rank order), ``psum`` (a sum in fixed rank order on
-the group's first device, copied back to each rank), ``psum_scatter``
-(that sum, each rank keeping its chunk), ``pmax``, ``pmean`` and
-``ppermute`` (a rotation). Each is differentiable (autograd runs through
-the whole grid in one graph, so the backward of a data all-gather is the
-reduce-scatter of the weight gradients) and counted on the mesh's
-``CollectiveCounter`` when its group has more than one rank. There is no
+(a concatenation in rank order), ``all_to_all`` (each rank's chunks
+exchanged, moving a split from one dim to another), ``psum`` (a sum in
+fixed rank order on the group's first device, copied back to each rank),
+``psum_scatter`` (that sum, each rank keeping its chunk), ``pmax``,
+``pmean`` and ``ppermute`` (a rotation). Each is differentiable (autograd
+runs through the whole grid in one graph, so the backward of a data
+all-gather is the reduce-scatter of the weight gradients) and counted on
+the mesh's ``CollectiveCounter`` when its group has more than one rank. There is no
 counterpart of the reference's global ``current_mesh()``: the mesh rides on
 the ``Policy``.
 """
@@ -366,6 +367,13 @@ def tree_bytes(tree) -> list[int]:
     return [sum(col) for col in zip(*parts)] if parts else []
 
 
+def local_structs(structs, specs, mesh: DeviceMesh):
+    """A rank's ``(shape, dtype)`` tree of ``structs`` (a tree of ``(shape,
+    dtype)``) laid out by ``specs`` (a mirror tree of ``P``)."""
+    return _map(lambda st, spec: (local_shape(st[0], spec, mesh), st[1]),
+                structs, specs)
+
+
 def predicted_bytes(structs, specs, mesh: DeviceMesh) -> int:
     """Bytes each rank holds of a tree of ``(shape, dtype)`` structs laid
     out by ``specs`` (a mirror tree of ``P``)."""
@@ -381,6 +389,48 @@ def predicted_bytes(structs, specs, mesh: DeviceMesh) -> int:
 
     _map(one, structs, specs)
     return total
+
+
+def cache_partition_specs(cache_tree, policy: Policy):
+    """PartitionSpecs for a decode cache's ``(shape, dtype)`` tree by
+    leaf-name rules (the reference's, for every family's leaves)."""
+    bax = policy.batch_axes if policy.batch_axes else None
+    m = policy.model_axis
+
+    def spec(path, leaf):
+        path = "/".join(path)
+        stacked = path.startswith("layers") or path.startswith("cross")
+        nd = len(leaf[0]) - (1 if stacked else 0)
+        if path.endswith("/k") or path.endswith("/v"):
+            if "cross" in path:     # (B, S_enc, H, Dh): heads on model
+                out = (bax, None, m, None)[:nd]
+            else:                    # (B, Hkv, S, Dh): seq on model
+                out = (bax, None, m, None)[:nd]
+        elif path.endswith("/pos"):
+            out = (bax, m)[:nd]
+        elif path.endswith("/wkv"):  # (B, H, Dk, Dv): Dv on model
+            out = (bax, None, None, m)[:nd]
+        elif path.endswith("_shift"):  # (B, d)
+            out = (bax, m)[:nd]
+        elif path.endswith("/h"):    # (B, d_rnn)
+            out = (bax, m)[:nd]
+        elif path.endswith("/conv"):  # (B, 3, d_rnn)
+            out = (bax, None, m)[:nd]
+        else:
+            out = (bax,) + (None,) * (nd - 1)
+        if stacked:
+            out = (None,) + tuple(out)
+        return P(*out)
+
+    def walk(tree, path=()):
+        if isinstance(tree, tuple) and len(tree) == 2 and isinstance(
+                tree[1], torch.dtype):
+            return spec(path, tree)
+        if isinstance(tree, dict):
+            return {k: walk(v, path + (str(k),)) for k, v in tree.items()}
+        return [walk(v, path + (str(i),)) for i, v in enumerate(tree)]
+
+    return walk(cache_tree)
 
 
 # ---------------------------------------------------------------------------
@@ -524,6 +574,32 @@ def all_gather(xs, mesh: DeviceMesh, axes, dim: int) -> PerRank:
             dev = mesh.devices[r]
             out[r] = (xs[r] if len(g) == 1 else
                       torch.cat([xs[q].to(dev) for q in g], dim=dim))
+    return out
+
+
+def all_to_all(xs, mesh: DeviceMesh, axes, split_dim: int,
+               concat_dim: int) -> PerRank:
+    """Each rank cuts its tensor into one chunk per rank of its group along
+    ``axes`` on ``split_dim`` and sends chunk ``j`` to the group's rank
+    ``j``, which concatenates what it receives on ``concat_dim`` in rank
+    order (the reference's tiled ``all_to_all``): an array split on
+    ``concat_dim`` becomes the same array split on ``split_dim``. Each rank
+    sends what it holds once; ``all_gather`` + slice would move |group|
+    times as much."""
+    axes = _axes(axes)
+    groups = axis_groups(mesh, axes)
+    _record(mesh, "all_to_all", axes, xs, groups)
+    out = PerRank([None] * mesh.size)
+    for g in groups:
+        n = len(g)
+        if n > 1 and xs[g[0]].shape[split_dim] % n:
+            raise ValueError(f"all_to_all: dim {split_dim} of "
+                             f"{tuple(xs[g[0]].shape)} is not divisible by {n}")
+        for j, r in enumerate(g):
+            dev = mesh.devices[r]
+            out[r] = (xs[r] if n == 1 else torch.cat(
+                [xs[q].chunk(n, dim=split_dim)[j].to(dev) for q in g],
+                dim=concat_dim))
     return out
 
 

@@ -1,5 +1,5 @@
 """Train / prefill / decode step factories (the port's ``repro.steps``), on
-one device.
+one device or a mesh.
 
 ``make_*_step`` return a ``StepBuild``: the step function plus the
 ``(shape, dtype)`` trees of its arguments (``arg_structs``: what
@@ -18,9 +18,9 @@ batch axes, takes the cross-entropy over vocabulary-split logits
 (``_xent_sharded``), sums the gradients of replicated shards over their
 replica axes (what the reference's partitioner does), compresses (int8's
 scale the max over a tensor's shards) and clips by the global norm
-counting every element once. The dense, VLM and MoE families run; the
-others' steps raise ``NotImplementedError`` naming the family when
-called.
+counting every element once. Every family runs on a mesh; whisper's
+batches carry ``frames`` (B, enc_seq, d), laid out on the batch axes like
+the tokens.
 
 Training, in the reference's order: the batch is split into M microbatches
 (``reshape((M, B/M) + …)``); each runs forward in bf16 from the float32
@@ -68,6 +68,7 @@ from repro_torch.sharding import (
     Policy,
     ShardedModule,
     all_gather,
+    cache_partition_specs,
     module_view,
     param_specs,
     pmax,
@@ -111,48 +112,6 @@ def batch_axes_for(global_batch: int, mesh) -> tuple:
 
 def _batch_spec(batch_tree, baxes):
     return {k: P(baxes) for k in batch_tree}
-
-
-def _cache_partition_specs(cache_tree, policy: Policy):
-    """PartitionSpecs for a decode cache's ``(shape, dtype)`` tree by
-    leaf-name rules (the reference's, for every family's leaves)."""
-    bax = policy.batch_axes if policy.batch_axes else None
-    m = policy.model_axis
-
-    def spec(path, leaf):
-        path = "/".join(path)
-        stacked = path.startswith("layers") or path.startswith("cross")
-        nd = len(leaf[0]) - (1 if stacked else 0)
-        if path.endswith("/k") or path.endswith("/v"):
-            if "cross" in path:     # (B, S_enc, H, Dh): heads on model
-                out = (bax, None, m, None)[:nd]
-            else:                    # (B, Hkv, S, Dh): seq on model
-                out = (bax, None, m, None)[:nd]
-        elif path.endswith("/pos"):
-            out = (bax, m)[:nd]
-        elif path.endswith("/wkv"):  # (B, H, Dk, Dv): Dv on model
-            out = (bax, None, None, m)[:nd]
-        elif path.endswith("_shift"):  # (B, d)
-            out = (bax, m)[:nd]
-        elif path.endswith("/h"):    # (B, d_rnn)
-            out = (bax, m)[:nd]
-        elif path.endswith("/conv"):  # (B, 3, d_rnn)
-            out = (bax, None, m)[:nd]
-        else:
-            out = (bax,) + (None,) * (nd - 1)
-        if stacked:
-            out = (None,) + tuple(out)
-        return P(*out)
-
-    def walk(tree, path=()):
-        if isinstance(tree, tuple) and len(tree) == 2 and isinstance(
-                tree[1], torch.dtype):
-            return spec(path, tree)
-        if isinstance(tree, dict):
-            return {k: walk(v, path + (str(k),)) for k, v in tree.items()}
-        return [walk(v, path + (str(i),)) for i, v in enumerate(tree)]
-
-    return walk(cache_tree)
 
 
 def _xent(logits, labels):
@@ -394,26 +353,14 @@ def make_train_step(
     loop_dims = {"microbatches": microbatches, "layers": _layer_count(cfg)}
     if cfg.family == "encdec":
         loop_dims["enc_layers"] = cfg.n_enc_layers
-    fn = train_step
-    if mesh is not None:
-        fn = _sharded(cfg, sharded_train_step)
     return StepBuild(
-        fn=fn,
+        fn=train_step if mesh is None else sharded_train_step,
         arg_structs=(state_struct, batch_structs),
         in_specs=(state_specs, _batch_spec(batch_structs, full_axes)),
         out_specs=(state_specs, P()),
         loop_dims=loop_dims,
         meta=dict(kind="train", microbatches=microbatches),
     )
-
-
-def _sharded(cfg: ModelConfig, fn: Callable) -> Callable:
-    """``fn``, raising ``NotImplementedError`` naming the family when the
-    family has no sharded path (its specs are still built)."""
-    def step(*args):
-        transformer.require_sharded_plan(cfg)
-        return fn(*args)
-    return step
 
 
 def init_train_state(params) -> dict:
@@ -498,12 +445,12 @@ def make_prefill_step(cfg: ModelConfig, shape: ShapeSpec, mesh=None) -> StepBuil
     batch_structs = input_shapes(cfg, shape)
     max_pos = max(shape.seq_len, 4096) if cfg.family == "encdec" else None
     p_specs = param_specs(_meta_module(cfg, max_pos))
-    cache_p = _cache_partition_specs(cache_specs(cfg, shape), policy)
+    cache_p = cache_partition_specs(cache_specs(cfg, shape), policy)
     loop_dims = {"layers": _layer_count(cfg)}
     if cfg.family == "encdec":
         loop_dims["enc_layers"] = cfg.n_enc_layers
     return StepBuild(
-        fn=prefill_step if mesh is None else _sharded(cfg, prefill_step),
+        fn=prefill_step,
         arg_structs=(params_s, batch_structs),
         in_specs=(p_specs, _batch_spec(batch_structs, baxes)),
         out_specs=(P(baxes) if baxes else P(), cache_p),
@@ -527,10 +474,10 @@ def make_decode_step(cfg: ModelConfig, shape: ShapeSpec, mesh=None) -> StepBuild
     cache_s = cache_specs(cfg, shape)
     max_pos = max(shape.seq_len, 4096) if cfg.family == "encdec" else None
     p_specs = param_specs(_meta_module(cfg, max_pos))
-    cache_p = _cache_partition_specs(cache_s, policy)
+    cache_p = cache_partition_specs(cache_s, policy)
     bspec = P(baxes) if baxes else P()
     return StepBuild(
-        fn=decode_fn if mesh is None else _sharded(cfg, decode_fn),
+        fn=decode_fn,
         arg_structs=(_serve_params_struct(cfg, shape), cache_s,
                      io["token"], io["pos"]),
         in_specs=(p_specs, cache_p, bspec, bspec),

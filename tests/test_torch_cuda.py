@@ -13,8 +13,8 @@ under the same draws, state and caches alike; and the TM-native wrappers
 of ``kernels/ops.py`` equal the unpacked oracles of ``kernels/ref.py``.
 The LM path (no kernel of its own): float32 card = CPU for every family,
 whisper included; one train step's gradients card = CPU; remat on = off;
-the sharded LM path on ``["cuda:0"] * 4`` = the CPU mesh, and
-``gpipe_apply`` on the card = the sequential stack.
+the sharded LM path on ``["cuda:0"] * 4`` = the CPU mesh for every
+family, and ``gpipe_apply`` on the card = the sequential stack.
 Imports no JAX, so it runs where JAX is not installed.
 """
 import numpy as np
@@ -868,6 +868,94 @@ def test_sharded_lm_on_card_matches_cpu_mesh(cuda_device, arch, monkeypatch):
     (l_cpu, m_cpu, mu_cpu), (l_card, m_card, mu_card) = outs
     for got, want in zip(l_card, l_cpu):
         assert lm_rel(got, want) <= 1e-5
+    for key in ("loss", "nll", "grad_norm"):
+        assert lm_rel(m_card[key], m_cpu[key]) <= 1e-5, key
+    scale = max(float(t.abs().max()) for t in mu_cpu.values())
+    for n, t in mu_cpu.items():
+        assert float((mu_card[n] - t).abs().max()) <= 1e-5 * scale, n
+
+
+FAMILY_ARCHS = ("rwkv6-3b", "recurrentgemma-9b", "whisper-medium")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", FAMILY_ARCHS)
+def test_sharded_families_on_card_match_cpu_mesh(cuda_device, arch,
+                                                 monkeypatch):
+    """The RWKV-6, hybrid and whisper families at ``reduce_config`` width on
+    a (2, 2) mesh of ``["cuda:0"] * 4`` against the same mesh on the CPU,
+    float32 (TF32 off): prefill of 4 tokens and 4 decode steps, logits and
+    every cache leaf (the hybrid's tail, whisper's cross K/V) to 1e-5 of
+    their largest magnitude; one train step (M=2, remat on): loss, nll and
+    grad_norm to 1e-5, the first moment to 1e-5 of its largest
+    magnitude."""
+    import dataclasses
+
+    from repro_torch import convert, sharding, steps
+    from repro_torch.configs import get_config, reduce_config
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import transformer, whisper
+    from repro_torch.models.model import build
+
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    for mod in (transformer, whisper, steps):
+        monkeypatch.setattr(mod, "COMPUTE_DTYPE", torch.float32)
+    cfg = dataclasses.replace(reduce_config(get_config(arch)), remat=True)
+    meshes = (make_mesh(2, 2, device="cpu"),
+              make_mesh(2, 2, devices=["cuda:0"] * 4))
+    rng = np.random.default_rng(0)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (4, 8)).astype(np.int32))
+    labels = torch.from_numpy(rng.integers(0, cfg.vocab, (4, 8)).astype(np.int32))
+    extra = {}
+    if cfg.family == "encdec":
+        extra["frames"] = torch.from_numpy(rng.normal(
+            size=(4, cfg.enc_seq, cfg.d_model)).astype(np.float32))
+    outs = []
+    for mesh in meshes:
+        params = convert.shard_lm(build(cfg).init(
+            torch.Generator().manual_seed(0)), mesh)
+        pstep = steps.make_prefill_step(cfg, ShapeSpec("p", "prefill", 16, 4), mesh)
+        dstep = steps.make_decode_step(cfg, ShapeSpec("d", "decode", 16, 4), mesh)
+        lg, cache = pstep.fn(params, sharding.shard_tree(
+            {"tokens": toks[:, :4], **extra}, pstep.in_specs[1], mesh))
+        logits = [sharding.gather(lg, pstep.out_specs[0], mesh, "cpu")]
+        for i in range(4, 8):
+            lg, cache = dstep.fn(
+                params, cache, sharding.shard(toks[:, i:i + 1], dstep.in_specs[2], mesh),
+                sharding.shard(torch.full((4,), i, dtype=torch.int32),
+                               dstep.in_specs[3], mesh))
+            logits.append(sharding.gather(lg, dstep.out_specs[0], mesh, "cpu"))
+        whole = sharding.gather_tree(cache, dstep.out_specs[1], mesh, "cpu")
+        tstep = steps.make_train_step(cfg, ShapeSpec("t", "train", 8, 4), mesh,
+                                      microbatches=2, peak_lr=0.0, warmup_steps=0)
+        state = convert.shard_train_state(steps.init_train_state(
+            build(cfg).init(torch.Generator().manual_seed(0))), mesh)
+        state, met = tstep.fn(state, sharding.shard_tree(
+            {"tokens": toks, "labels": labels, **extra}, tstep.in_specs[1], mesh))
+        mu = {n: sharding.gather(xs, state["params"].specs[n], mesh, "cpu")
+              for n, xs in state["opt"].mu.items()}
+        outs.append((logits, whole, met, mu))
+    (l_cpu, c_cpu, m_cpu, mu_cpu), (l_card, c_card, m_card, mu_card) = outs
+    for got, want in zip(l_card, l_cpu):
+        assert lm_rel(got, want) <= 1e-5
+
+    def leaves(tree, path=""):
+        if isinstance(tree, dict):
+            for k, v in tree.items():
+                yield from leaves(v, f"{path}/{k}")
+        elif isinstance(tree, list):
+            for i, v in enumerate(tree):
+                yield from leaves(v, f"{path}/{i}")
+        else:
+            yield path, tree
+
+    card = dict(leaves(c_card))
+    for path, want in leaves(c_cpu):
+        if path.endswith("/pos"):
+            assert torch.equal(card[path], want), path
+        else:
+            assert lm_rel(card[path], want) <= 1e-5, path
     for key in ("loss", "nll", "grad_norm"):
         assert lm_rel(m_card[key], m_cpu[key]) <= 1e-5, key
     scale = max(float(t.abs().max()) for t in mu_cpu.values())

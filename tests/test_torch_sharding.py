@@ -617,7 +617,7 @@ def test_sharded_train_step_matches_unsharded(arch, shape, compress,
 
 
 # ---------------------------------------------------------------------------
-# Against the JAX package, and the families without a sharded path
+# Against the JAX package
 # ---------------------------------------------------------------------------
 
 
@@ -666,17 +666,3 @@ def test_sharded_decode_matches_reference_unsharded(float32_compute):
         want, c = step(jp, jnp.asarray(toks[:, i:i + 1].numpy()), c,
                        jnp.full((4,), i, jnp.int32))
         close(pairs[i - 1][0], np.asarray(want), TOL, f"step {i}")
-
-
-@pytest.mark.parametrize("arch", ["rwkv6-3b", "recurrentgemma-9b",
-                                  "whisper-medium"])
-def test_other_families_raise_under_a_mesh(arch):
-    cfg = configs.reduce_config(configs.get_config(arch))
-    mesh = make_mesh(1, 2, device="cpu")
-    step = steps.make_prefill_step(cfg, ShapeSpec("p", "prefill", 8, 2), mesh)
-    family = cfg.family
-    with pytest.raises(NotImplementedError, match=family):
-        step.fn(None, {})
-    with pytest.raises(NotImplementedError, match=family):
-        model.build(cfg).decode_step(None, None, None, None,
-                                     policy=S.Policy.for_mesh(mesh))
