@@ -225,7 +225,28 @@ failure, and at once when no CUDA device is present):
    against the sequential stack. For each: per-rank resident bytes
    required equal to what the specs predict, collective calls and payload
    bytes by kind per step, ms per step beside the unsharded run's.
-6. Print ``{"lm": {...}}`` (the numbers of phases 10–13, each beside its bound),
+14. **The sharded RWKV-6, hybrid and whisper paths** (after phase 13, the
+   same rules): ``SHARD_FAMILY_SERVE`` at full width on (2, 4) against
+   their unsharded runs, one train step each on (2, 2)
+   (``SHARD_FAMILY_TRAIN``).
+15. **The dry-run and roofline tools** (after phase 14). (a)
+   ``launch.dryrun.run_tm_checks`` with k ranks on ``cuda:0``, the even
+   (2, 4) / 256 and the ragged (2, 3) / 128 cells, the four kernels'
+   counts set to 0 just before and read just after: no failure, every
+   kernel launched, the launches equal to those the records hold; then
+   ``run_tm_async_checks``. (b) ``launch.trace`` on fake CUDA tensors
+   against a real run on the card of ``qwen3-1.7b``'s decode (B=4, cache
+   160), prefill (B=4 x 128) and (2, 4) decode steps, bf16 at full
+   width: FLOPs (``trace.flop_counter()``), collective calls, payloads and
+   per-device bytes, and argument bytes per rank exactly; the peak of new
+   bytes (the (2, 4) mesh: over all ranks) within ``TRACE_PEAK_TOL`` of
+   the measured rise of ``max_memory_allocated`` or ``TRACE_PEAK_FLOOR``.
+   (c) Phase 12's train step (B=8 x 512, M=2, remat): the traced peak
+   within ``TRACE_PEAK_TOL`` of the measured one, FLOPs exactly. (d)
+   ``lower_cell`` + ``analyze_cell`` of ``decode_32k`` on the 16 x 16
+   production mesh, depth cut to ``TRACE_PRODUCTION_LAYERS``, printed,
+   not gated. The LM parts launch no TM kernel.
+6. Print ``{"lm": {...}}`` (the numbers of phases 10–15, each beside its bound),
    ``{"kernels": [...]}`` (all four kernels; ``launches`` from
    phases 3 and 5, ``sharded_launches`` from phase 7, ``phase8_launches``
    from phase 8, ``phase9_launches`` from phase 9, and ``tm_imdb`` with the
@@ -383,6 +404,24 @@ SHARD_FAMILY_SERVE = (("rwkv6-3b", (2, 4), 4, 128, 16, 144),
 SHARD_FAMILY_TRAIN = (("whisper-medium", (2, 2), 2, 64, 2, None),
                       ("rwkv6-3b", (2, 2), 4, 128, 2, 4),
                       ("recurrentgemma-9b", (2, 2), 4, 128, 2, 5))
+# Phase 15: the dry-run's trace (launch/trace.py) against the card. The
+# served arch at full width: B=4, prefill of 128, decode against phase 13's
+# 160-slot cache, unsharded and on phase 13's (2, 4) mesh; phase 12's train
+# row (B=8 x 512, M=2, remat). A traced peak is held at TRACE_PEAK_TOL of
+# the measured one or TRACE_PEAK_FLOOR bytes, whichever is larger: the
+# allocator rounds blocks, and cuBLAS workspaces come through it.
+TRACE_ARCH = "qwen3-1.7b"
+TRACE_SERVE = (4, 128, 160)
+TRACE_MESH = (2, 4)
+TRACE_TRAIN = (8, 512, 2)
+TRACE_PEAK_TOL = 0.10
+TRACE_PEAK_FLOOR = 256 * 2 ** 20
+# the production cell printed (not gated) on the 16 x 16 trace mesh, its
+# depth cut to TRACE_PRODUCTION_LAYERS: 256 ranks in one process take
+# ~0.3 ms of host per fake op, and the full depth (1.37M ops) took 402.7 s
+# on the host of an H100 80GB HBM3 machine
+TRACE_PRODUCTION = ("qwen3-1.7b", "decode_32k")
+TRACE_PRODUCTION_LAYERS = 1
 # Peak rates of one H100 SXM. Memory: 3.35 TB/s (NVIDIA data sheet). The
 # votes are 32-bit compare and logic instructions, not FLOPs: the CUDA C++
 # Programming Guide's arithmetic-throughput table gives compute capability
@@ -3542,6 +3581,254 @@ def phase14(dev, card) -> dict:
     return {"phase14": out}
 
 
+def trace_tm_routes(counts, dev, card) -> dict:
+    """Phase 15 (a): ``dryrun.run_tm_checks`` on the card, k ranks on
+    ``cuda:0``: the even (2, 4) / 256 cell and the ragged (2, 3) / 128
+    one, the four kernels' counts set to 0 just before and read just
+    after, then the asynchronous checks."""
+    from repro_torch.launch import dryrun
+
+    counts.reset()
+    recs = [dryrun.run_tm_checks(expect_composition="composed_even",
+                                 device=dev.type, save=False),
+            dryrun.run_tm_checks(data=2, model=3, n_clauses=128,
+                                 expect_composition="composed_ragged",
+                                 device=dev.type, save=False)]
+    launched = counts.read()
+    recorded = {k: 0 for k in launched}
+    for r in recs:
+        require(not r["failures"], f"dry-run TM checks on the card: "
+                f"{r['failures']}")
+        for part in [e["kernel_launches"] for e in r["engines"].values()] + [
+                r["train_kernel_launches"]]:
+            for k, v in part.items():
+                recorded[k] += v
+    require(launched == recorded, f"TM kernel launches {launched} against "
+            f"the records' {recorded}")
+    require(all(v > 0 for v in launched.values()),
+            f"a TM kernel never launched in the dry-run checks: {launched}")
+    counts.reset()
+    arec = dryrun.run_tm_async_checks(device=dev.type, save=False)
+    async_launched = counts.read()
+    require(not arec["failures"], f"dry-run async checks on the card: "
+            f"{arec['failures']}")
+    for r in recs:
+        print(f"trace tm {r['mesh']} / {r['n_clauses']} on {r['device']} "
+              f"(k ranks on one card): one int32 reduction per scores call "
+              f"for {sorted(r['engines'])}; kernel routes "
+              f"{ {k: v['launches'] for k, v in r['backend_routes'].items()} }; "
+              f"composition {r['train_step_sequential']['composition']} "
+              f"[{card}]")
+    print(f"trace tm: launches {launched}, equal to the records; async "
+          + "; ".join(f"{k} sync {c['sync_count']} async {c['async_count']} "
+                      f"refresh {c['refresh_count']}"
+                      for k, c in arec["cells"].items()))
+    return {"checks": recs, "async": arec, "launches": launched,
+            "async_launches": async_launched}
+
+
+def peak_ok(traced: int, measured: int) -> bool:
+    return abs(traced - measured) <= max(TRACE_PEAK_TOL * measured,
+                                         TRACE_PEAK_FLOOR)
+
+
+def trace_vs_card(dev, card) -> dict:
+    """Phase 15 (b): the trace of qwen3-1.7b's unsharded decode and
+    prefill steps and of its (2, 4) decode step against a real run of
+    each on the card: FLOPs (``FlopCounterMode``) and collective calls,
+    payload and per-device bytes exactly, argument bytes per rank
+    exactly, the peak of new bytes within the stated margin (a second
+    run, after a warm-up)."""
+    from repro_torch import sharding, steps as steps_mod
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.launch import dryrun, trace
+    from repro_torch.launch.mesh import make_mesh
+
+    cfg = get_config(TRACE_ARCH)
+    batch, prompt, clen = TRACE_SERVE
+    cases = (("decode", ShapeSpec("phase15", "decode", clen, batch), None),
+             ("prefill", ShapeSpec("phase15", "prefill", prompt, batch), None),
+             (f"decode_{TRACE_MESH[0]}x{TRACE_MESH[1]}",
+              ShapeSpec("phase15", "decode", clen, batch), TRACE_MESH))
+    out = {}
+    for name, shape, mshape in cases:
+        tmesh = (None if mshape is None else
+                 dryrun.trace_mesh(mshape, device=dev.type))
+        acct = trace.trace_step(steps_mod.make_step(cfg, shape, tmesh), cfg,
+                                tmesh, device=dev)
+        mesh = (None if mshape is None else
+                make_mesh(*mshape, devices=[dev] * (mshape[0] * mshape[1])))
+        step = steps_mod.make_step(cfg, shape, mesh)
+        torch.cuda.empty_cache()
+        args = trace.real_step_args(step, cfg, mesh, dev, seed=SEED)
+        ranks = 1 if mesh is None else mesh.size
+        resident = trace.tree_rank_bytes(args, ranks)
+        params_rank = (sharding.tree_bytes(args[0])[0] if mesh is not None
+                       else sum(trace.nbytes(p) for p in args[0].parameters()))
+        if mesh is not None:
+            mesh.collectives.reset()
+        with trace.flop_counter() as fc:
+            first = step.fn(*args)
+        del first
+        flops = fc.get_total_flops()
+        counter = (mesh.collectives.snapshot() if mesh is not None
+                   else {"calls": {}, "bytes": {}})
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        again = step.fn(*args)
+        torch.cuda.synchronize()
+        rise = torch.cuda.max_memory_allocated() - base
+        del again, args
+        cost, mem, coll = acct["cost"], acct["memory"], acct["collectives"]
+        peak = (mem["peak_new_bytes_all_ranks"] if mesh is not None
+                else mem["peak_new_bytes_per_device"])
+        require(cost["flops_all_ranks_trace"] == flops,
+                f"trace {name}: {cost['flops_all_ranks_trace']} FLOPs traced, "
+                f"{flops} counted on the card")
+        require(coll["counter"] == counter, f"trace {name}: collectives "
+                f"{coll['counter']} traced, {counter} on the card")
+        if mesh is not None:
+            stats = trace.counter_stats(counter, mesh)
+            require(stats.by_kind == coll["by_kind"], f"trace {name}: per-device "
+                    f"collective bytes {coll['by_kind']} against {stats.by_kind}")
+        require(mem["argument_bytes_per_device"] == max(resident),
+                f"trace {name}: {mem['argument_bytes_per_device']} argument "
+                f"bytes per device traced, {max(resident)} resident per rank")
+        require(peak_ok(peak, rise), f"trace {name}: peak of new bytes "
+                f"{peak} traced, {rise} measured")
+        out[name] = {"flops": flops, "collectives": counter,
+                     "argument_bytes_per_device": mem["argument_bytes_per_device"],
+                     "params_bytes_per_rank": params_rank,
+                     "peak_new_traced": peak, "peak_new_measured": rise,
+                     "trace_s": acct["trace_s"], "ops": acct["ops"],
+                     "by_kind": coll["by_kind"]}
+        print(f"trace {TRACE_ARCH} {name} bf16 full width"
+              f"{'' if mesh is None else ', ' + k_shards(mshape)}: FLOPs "
+              f"{flops} traced = card; collectives "
+              f"{coll_line(counter) if counter['calls'] else 'none'} traced = "
+              f"card; arguments {mem['argument_bytes_per_device'] / 1e9:.4f} GB "
+              f"per rank traced = resident (params {params_rank / 1e9:.4f} GB); "
+              f"peak of new bytes traced {peak / 2**20:.1f} MiB, measured "
+              f"{rise / 2**20:.1f} MiB (margin {TRACE_PEAK_TOL:.0%} or "
+              f"{TRACE_PEAK_FLOOR // 2**20} MiB); trace {acct['trace_s']:.2f} s "
+              f"for {acct['ops']} ops [{card}]")
+        torch.cuda.empty_cache()
+    return out
+
+
+def trace_train_peak(dev, card) -> dict:
+    """Phase 15 (c): the traced peak of phase 12's qwen3-1.7b train step
+    (``peak_estimate_per_device``: arguments + outputs + temporaries −
+    aliases) against the card's peak over the state's allocation and one
+    step, within ``TRACE_PEAK_TOL``; the FLOPs equal to
+    ``trace.flop_counter()``'s over the real step."""
+    from repro_torch import steps as steps_mod
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.launch import trace
+
+    cfg = get_config(TRACE_ARCH)
+    require(cfg.remat, f"{TRACE_ARCH}: remat is off in the published config")
+    batch, seq, micro = TRACE_TRAIN
+    shape = ShapeSpec("phase15", "train", seq, batch)
+    kw = dict(microbatches=micro, compress="none")
+    acct = trace.trace_step(steps_mod.make_train_step(cfg, shape, **kw), cfg,
+                            device=dev)
+    step = steps_mod.make_train_step(cfg, shape, **kw)
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    args = trace.real_step_args(step, cfg, None, dev, seed=SEED)
+    with trace.flop_counter() as fc:
+        state, met = step.fn(*args)
+    torch.cuda.synchronize()
+    measured = torch.cuda.max_memory_allocated() - base
+    flops = fc.get_total_flops()
+    del state, met, args
+    torch.cuda.empty_cache()
+    traced = acct["memory"]["peak_estimate_per_device"]
+    require(abs(traced - measured) <= TRACE_PEAK_TOL * measured,
+            f"trace train peak {traced} against {measured} measured")
+    require(acct["cost"]["flops_per_device_trace"] == flops,
+            f"trace train: {acct['cost']['flops_per_device_trace']} FLOPs "
+            f"traced, {flops} counted on the card")
+    print(f"trace {TRACE_ARCH} train B={batch} x {seq} M={micro} remat, full "
+          f"width: peak traced {traced / 1e9:.3f} GB (arguments "
+          f"{acct['memory']['argument_bytes_per_device'] / 1e9:.3f} + temporaries "
+          f"{acct['memory']['temp_bytes_per_device'] / 1e9:.3f}), measured "
+          f"{measured / 1e9:.3f} GB (tolerance {TRACE_PEAK_TOL:.0%}); FLOPs "
+          f"{flops} traced = card; trace {acct['trace_s']:.2f} s for {acct['ops']} ops "
+          f"[{card}]")
+    return {"peak_traced": traced, "peak_measured": measured,
+            "memory": acct["memory"], "flops_traced":
+            acct["cost"]["flops_per_device_trace"], "flops_card": flops,
+            "trace_s": acct["trace_s"], "ops": acct["ops"]}
+
+
+def trace_production(dev, card) -> dict:
+    """Phase 15 (d), printed, not gated: ``lower_cell`` and ``analyze_cell``
+    of TRACE_PRODUCTION on the 16 x 16 production mesh (fake CUDA tensors,
+    256 ranks), its depth cut to TRACE_PRODUCTION_LAYERS (the roofline
+    from the dry-run's record); the full depth's argument bytes per device
+    from the specs."""
+    from repro_torch import sharding, steps as steps_mod
+    from repro_torch.configs import get_config, get_shape
+    from repro_torch.launch import dryrun, roofline
+
+    arch, shape = TRACE_PRODUCTION
+    over = {"n_layers": TRACE_PRODUCTION_LAYERS}
+    t0 = time.perf_counter()
+    rec = dryrun.lower_cell(arch, shape, cfg_override=over, save=False,
+                            device=dev.type)
+    roof = roofline.analyze_cell(arch, shape, cfg_override=over, record=rec,
+                                 save=False, device=dev.type)
+    wall = time.perf_counter() - t0
+    mesh = dryrun.trace_mesh(device=dev.type)
+    step = steps_mod.make_step(get_config(arch), get_shape(shape), mesh)
+    full_args = sharding.predicted_bytes(step.arg_structs, step.in_specs, mesh)
+    mem, t = rec["memory"], roof["terms"]
+    print(f"trace production {arch} x {shape} on {rec['mesh']} "
+          f"({rec['devices']} ranks, fake {rec['trace_device']} tensors), "
+          f"{TRACE_PRODUCTION_LAYERS} of {get_config(arch).n_layers} layers "
+          f"(depth cut): peak {mem['peak_estimate_per_device'] / 2**30:.3f} GiB "
+          f"per device (arguments {mem['argument_bytes_per_device'] / 2**30:.3f}, "
+          f"temporaries {mem['temp_bytes_per_device'] / 2**30:.3f}); "
+          f"{rec['cost']['flops_per_device_trace']:.4g} FLOPs and "
+          f"{rec['cost']['bytes_accessed_per_device_trace']:.4g} unfused bytes "
+          f"per device; collectives {rec['collectives']['count']} calls, "
+          f"{rec['collectives']['total_bytes'] / 2**20:.1f} MiB per device "
+          f"{rec['collectives']['by_kind']}; roofline compute "
+          f"{t['compute_s'] * 1e3:.3f} ms, memory {t['memory_s'] * 1e3:.3f} ms, "
+          f"collective {t['collective_s'] * 1e3:.3f} ms ({t['dominant']}); "
+          f"trace {rec['times']['trace_s']} s for {rec['ops']} ops, "
+          f"{wall:.1f} s in all; at full depth the arguments take "
+          f"{full_args / 2**30:.3f} GiB per device (the specs) (printed, not "
+          f"gated) [{card}]")
+    return {"record": rec, "roofline": roof, "wall_s": wall,
+            "layers": TRACE_PRODUCTION_LAYERS,
+            "full_depth_argument_bytes_per_device": full_args}
+
+
+def phase15(dev, card) -> dict:
+    """Phase 15: the dry-run and roofline tools on the card. Returns its
+    part of the ``lm`` record."""
+    torch.cuda.empty_cache()
+    counts = Counts()
+    out = {"tm": trace_tm_routes(counts, dev, card)}
+    counts.reset()
+    t0 = time.perf_counter()
+    out["vs_card"] = trace_vs_card(dev, card)
+    out["train_peak"] = trace_train_peak(dev, card)
+    launched = counts.read()
+    require(not any(launched.values()),
+            f"the traced LM steps launched a TM kernel: {launched}")
+    out["lm_s"] = time.perf_counter() - t0
+    out["production"] = trace_production(dev, card)
+    return {"phase15": out}
+
+
 def phase10(dev, card) -> dict:
     """Phase 10: LM serving. Returns the ``lm`` record."""
     torch.cuda.empty_cache()
@@ -3728,6 +4015,11 @@ def main() -> int:
     t0 = time.perf_counter()
     lm.update(phase14(dev, card))
     print(f"phase 14: {time.perf_counter() - t0:.1f} s wall")
+
+    # -- 15. the dry-run and roofline tools against the card -------------------
+    t0 = time.perf_counter()
+    lm.update(phase15(dev, card))
+    print(f"phase 15: {time.perf_counter() - t0:.1f} s wall")
 
     # -- 6. report ----------------------------------------------------------
     top = BATCHES[-1]

@@ -22,7 +22,6 @@ from typing import NamedTuple
 
 import torch
 
-from repro_torch.launch.mesh import AXIS_NAMES
 from repro_torch.sharding import PerRank, canonical_ranks, psum
 
 # elements per foreach group: its float32 temporaries are at most 1 GiB each
@@ -77,7 +76,7 @@ def global_norm_sharded(grads: dict, specs: dict, mesh) -> PerRank:
         dev = mesh.devices[r]
         local.append(torch.stack(torch._foreach_norm(leaves)).square().sum()
                      if leaves else torch.zeros((), device=dev))
-    return PerRank(torch.sqrt(s) for s in psum(local, mesh, AXIS_NAMES))
+    return PerRank(torch.sqrt(s) for s in psum(local, mesh, mesh.axis_names))
 
 
 def _clip_scale(norm: torch.Tensor, max_norm: float) -> torch.Tensor:

@@ -19,7 +19,6 @@ from typing import NamedTuple
 
 import torch
 
-from repro_torch.launch.mesh import AXIS_NAMES
 from repro_torch.optim.adamw import _named
 from repro_torch.sharding import PerRank, pmax
 
@@ -78,7 +77,7 @@ def compress_grads_sharded(grads: dict, ef: ErrorFeedback, specs: dict, mesh,
     for n, g in grads.items():
         x = [t.float() + r for t, r in zip(g, ef.residual[n])]
         if mode == "int8":
-            axes = tuple(a for a in AXIS_NAMES if a in specs[n].axes())
+            axes = tuple(a for a in mesh.axis_names if a in specs[n].axes())
             amax = pmax([t.abs().max() for t in x], mesh, axes)
             out = [_compress_int8(t, a) for t, a in zip(x, amax)]
         else:

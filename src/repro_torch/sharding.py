@@ -35,6 +35,7 @@ from __future__ import annotations
 
 import copy
 import dataclasses
+import functools
 import re
 from typing import Any
 
@@ -42,7 +43,6 @@ import torch
 from torch import nn
 
 from repro_torch.launch.mesh import (
-    AXIS_NAMES,
     DeviceMesh,
     _axes,
     axis_groups,
@@ -300,15 +300,15 @@ def local_shape(shape, spec: P, mesh: DeviceMesh) -> tuple:
                  for i, s in enumerate(shape))
 
 
-def replica_axes(spec: P) -> tuple:
+def replica_axes(spec: P, mesh: DeviceMesh) -> tuple:
     """The mesh axes a spec does not use: its shards repeat along them."""
     used = spec.axes()
-    return tuple(a for a in AXIS_NAMES if a not in used)
+    return tuple(a for a in mesh.axis_names if a not in used)
 
 
 def canonical_ranks(spec: P, mesh: DeviceMesh) -> list[int]:
     """One rank per distinct shard: coordinate 0 along every replica axis."""
-    rep = replica_axes(spec)
+    rep = replica_axes(spec, mesh)
     return [r for r in range(mesh.size) if axis_index(mesh, r, rep) == 0]
 
 
@@ -555,6 +555,19 @@ def gather_params(modules, specs: dict, mesh: DeviceMesh, prefix: str = "",
 # ---------------------------------------------------------------------------
 
 
+def _observed(fn):
+    """A collective that runs through ``mesh.collectives.observer`` when
+    one is set (``launch.trace`` while it traces: it attributes the
+    collective's outputs to their ranks and keeps its work apart)."""
+    @functools.wraps(fn)
+    def collective(xs, mesh: DeviceMesh, *args, **kwargs):
+        observer = mesh.collectives.observer
+        if observer is None:
+            return fn(xs, mesh, *args, **kwargs)
+        return observer(fn, xs, mesh, *args, **kwargs)
+    return collective
+
+
 def _record(mesh: DeviceMesh, kind: str, axes: tuple, xs, groups) -> None:
     if any(len(g) > 1 for g in groups):
         mesh.collectives.record(kind, axes, sum(
@@ -562,6 +575,7 @@ def _record(mesh: DeviceMesh, kind: str, axes: tuple, xs, groups) -> None:
             for x in (xs[r] for r in g)))
 
 
+@_observed
 def all_gather(xs, mesh: DeviceMesh, axes, dim: int) -> PerRank:
     """Each rank gets its group's tensors along ``axes`` concatenated on
     ``dim`` in rank order (the reference's tiled ``all_gather``)."""
@@ -577,6 +591,7 @@ def all_gather(xs, mesh: DeviceMesh, axes, dim: int) -> PerRank:
     return out
 
 
+@_observed
 def all_to_all(xs, mesh: DeviceMesh, axes, split_dim: int,
                concat_dim: int) -> PerRank:
     """Each rank cuts its tensor into one chunk per rank of its group along
@@ -630,6 +645,7 @@ def _add(acc, x):
     return acc + x
 
 
+@_observed
 def psum(xs, mesh: DeviceMesh, axes) -> PerRank:
     """Sum over ``axes``: each group's tensors added in rank order on the
     group's first device (in float32 for bf16 / fp16, rounded once); every
@@ -637,11 +653,13 @@ def psum(xs, mesh: DeviceMesh, axes) -> PerRank:
     return _reduce("psum", _add, xs, mesh, axes)
 
 
+@_observed
 def pmax(xs, mesh: DeviceMesh, axes) -> PerRank:
     """Elementwise max over ``axes``."""
     return _reduce("pmax", torch.maximum, xs, mesh, axes)
 
 
+@_observed
 def pmean(xs, mesh: DeviceMesh, axes) -> PerRank:
     """Mean over ``axes`` (``psum`` over the group's size)."""
     n = axis_size(mesh, axes)
@@ -650,6 +668,7 @@ def pmean(xs, mesh: DeviceMesh, axes) -> PerRank:
     return PerRank(x / n for x in _reduce("pmean", _add, xs, mesh, axes))
 
 
+@_observed
 def psum_scatter(xs, mesh: DeviceMesh, axes, dim: int) -> PerRank:
     """``psum`` over ``axes``, each rank keeping chunk ``axis_index`` of
     ``dim`` (a reduce-scatter)."""
@@ -662,6 +681,7 @@ def psum_scatter(xs, mesh: DeviceMesh, axes, dim: int) -> PerRank:
                    for r, s in enumerate(summed))
 
 
+@_observed
 def ppermute(xs, mesh: DeviceMesh, axis: str, perm) -> PerRank:
     """Send rank ``src``'s tensor to rank ``dst`` along ``axis`` for each
     ``(src, dst)`` of ``perm`` (coordinates along the axis); a rank that

@@ -307,7 +307,7 @@ def make_train_step(
             # a replicated shard's copies each saw part of the work: the
             # gradient of the tensor is their sum (the reference's
             # partitioner inserts the same all-reduce)
-            rep = tuple(a for a in replica_axes(params.specs[n])
+            rep = tuple(a for a in replica_axes(params.specs[n], mesh)
                         if axis_size(mesh, a) > 1)
             grads[n] = psum(g, mesh, rep) if rep else g
             for p in xs:

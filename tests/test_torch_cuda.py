@@ -14,7 +14,11 @@ of ``kernels/ops.py`` equal the unpacked oracles of ``kernels/ref.py``.
 The LM path (no kernel of its own): float32 card = CPU for every family,
 whisper included; one train step's gradients card = CPU; remat on = off;
 the sharded LM path on ``["cuda:0"] * 4`` = the CPU mesh for every
-family, and ``gpipe_apply`` on the card = the sequential stack.
+family, and ``gpipe_apply`` on the card = the sequential stack. The
+dry-run tools: ``dryrun.run_tm_checks`` / ``run_tm_async_checks`` with
+k ranks on ``cuda:0`` (each kernel-backed engine launches its kernel),
+and ``launch.trace`` on fake CUDA tensors = a real run on the card
+(FLOPs, collectives, argument bytes).
 Imports no JAX, so it runs where JAX is not installed.
 """
 import numpy as np
@@ -983,3 +987,83 @@ def test_gpipe_on_card_matches_sequential(cuda_device, monkeypatch):
                            axis="model"):
         assert out.is_cuda
         assert lm_rel(out, want) <= 1e-6
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mesh,n_clauses,rule", [
+    ((2, 4), 256, "composed_even"), ((2, 3), 128, "composed_ragged")])
+def test_dryrun_tm_checks_on_card(cuda_device, mesh, n_clauses, rule):
+    """``dryrun.run_tm_checks`` with k ranks on ``cuda:0``: no failure, one
+    int32 reduction per scores call, each kernel-backed engine launching
+    its kernel once per rank and nothing else, the learning kernels in the
+    train steps; the launches the record holds are the wrappers' counts."""
+    from repro_torch.launch import dryrun
+
+    kernels = (indexed.indexed_votes, clause_eval.clause_votes_packed,
+               clause_eval.clause_outputs_packed, ta_update.ta_update)
+    before = {k.__name__: k.launches for k in kernels}
+    rec = dryrun.run_tm_checks(data=mesh[0], model=mesh[1], n_clauses=n_clauses,
+                               expect_composition=rule, device="cuda",
+                               save=False)
+    assert rec["failures"] == []
+    ranks = mesh[0] * mesh[1]
+    for name, eng in rec["engines"].items():
+        assert eng["collective_count"] == 1, name
+        kernel = dryrun.ENGINE_KERNELS.get(name)
+        want = {k: (ranks if k == kernel else 0) for k in eng["kernel_launches"]}
+        assert eng["kernel_launches"] == want, name
+    assert all(rec["train_kernel_launches"][k] > 0
+               for k in ("clause_outputs_packed", "ta_update"))
+    total = {k: rec["train_kernel_launches"][k] + sum(
+        e["kernel_launches"][k] for e in rec["engines"].values()) for k in before}
+    assert {k.__name__: k.launches - before[k.__name__] for k in kernels} == total
+
+
+@pytest.mark.cuda
+def test_dryrun_tm_async_checks_on_card(cuda_device):
+    from repro_torch.launch import dryrun
+
+    rec = dryrun.run_tm_async_checks(device="cuda", save=False)
+    assert rec["failures"] == []
+    assert [c["async_count"] for c in rec["cells"].values()] == [0, 1, 1]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["decode", "prefill", "train"])
+@pytest.mark.parametrize("mesh_shape", [None, (2, 2)])
+def test_trace_equals_card_run(cuda_device, kind, mesh_shape):
+    """A reduced qwen3 step traced on fake CUDA tensors against the same
+    step run for real on the card (unsharded, and a (2, 2) mesh on
+    ``cuda:0``): FLOPs against ``FlopCounterMode``, the collectives'
+    calls and payloads against the mesh counter, and argument bytes per
+    rank against the resident ones, exactly."""
+    from repro_torch import configs, steps
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.launch import dryrun, trace
+    from repro_torch.launch.mesh import make_mesh
+
+    cfg = configs.reduce_config(configs.get_config("qwen3-1.7b"))
+    shape = {"decode": ShapeSpec("d", "decode", 32, 4),
+             "prefill": ShapeSpec("p", "prefill", 16, 4),
+             "train": ShapeSpec("t", "train", 16, 8)}[kind]
+    kw = {"microbatches": 2} if kind == "train" else {}
+    tmesh = None if mesh_shape is None else dryrun.trace_mesh(mesh_shape)
+    acct = trace.trace_step(steps.make_step(cfg, shape, tmesh, **kw), cfg,
+                            tmesh, device="cuda")
+    assert acct["device"].startswith("cuda")
+    mesh = (None if mesh_shape is None
+            else make_mesh(*mesh_shape, devices=["cuda:0"] * 4))
+    step = steps.make_step(cfg, shape, mesh, **kw)
+    args = trace.real_step_args(step, cfg, mesh, cuda_device)
+    resident = trace.tree_rank_bytes(args, 1 if mesh is None else 4)
+    if mesh is not None:
+        mesh.collectives.reset()
+    with trace.flop_counter() as fc:
+        step.fn(*args)
+    assert acct["cost"]["flops_all_ranks_trace"] == fc.get_total_flops()
+    assert acct["memory"]["argument_bytes_per_device"] == max(resident)
+    if mesh is not None:
+        counter = mesh.collectives.snapshot()
+        assert acct["collectives"]["counter"] == counter
+        assert (trace.counter_stats(counter, mesh).by_kind
+                == acct["collectives"]["by_kind"])
