@@ -201,8 +201,8 @@ class BitpackEngine(EvalEngine):
 
 class IndexedEngine(EvalEngine):
     """The paper's falsification index, scored by the ``indexed_votes``
-    primitive (CUDA kernel ``indexed_votes`` on the card) over the position
-    matrix's membership mask."""
+    primitive (CUDA kernel ``indexed_votes`` on the card): a walk of the
+    false literals' inclusion lists."""
 
     name = "indexed"
 

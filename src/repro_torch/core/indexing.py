@@ -2,8 +2,9 @@
 
 ``ClauseIndex`` holds the paper's inclusion lists ``L[i,k]`` (capacity-bound
 rows of clause ids), their counts ``n[i,k]`` and the position matrix
-``M[i,j,k]``. Scoring reads only ``pos != NA`` (the matmul form of Eq. 4,
-``kernels/indexed.py``).
+``M[i,j,k]``. Scoring walks the false literals' lists (Eq. 4,
+``kernels/indexed.py``), and reads a column of ``pos`` only for a list
+that overflowed its capacity.
 
 Maintenance: training updates the TA states densely, then
 :func:`events_from_transition` diffs the include masks into a fixed-size,
@@ -264,10 +265,11 @@ def indexed_partial_scores(index: ClauseIndex, x: torch.Tensor,
                            pol: torch.Tensor) -> torch.Tensor:
     """(B, o) inputs + per-clause ±1 polarity → (B, m) int32 partial vote
     sums ``-Σ_{j falsified} pol_j`` over the clauses this index covers,
-    through the ``indexed_votes`` primitive (the CUDA kernel on the card).
+    through the ``indexed_votes`` primitive: a walk of the false literals'
+    inclusion lists (the CUDA kernel on the card).
     The partials of a clause-sharded index's shards add up to the scores."""
     return kbackend.resolve("indexed_votes")(
-        index.pos, literals_from_input(x), pol)
+        index.lists, index.counts, index.pos, literals_from_input(x), pol)
 
 
 def indexed_scores(cfg: TMConfig, index: ClauseIndex,

@@ -93,11 +93,11 @@ register_primitive(Primitive(
     kernel=clause_eval.clause_votes_packed,
 ))
 
-# Matmul-form Eq. 4 over the falsification index's membership mask (the
-# indexed engine, the default serving engine).
+# Eq. 4 by a walk of the false literals' inclusion lists (the indexed
+# engine, the default serving engine): (lists, counts, pos, lit, pol).
 register_primitive(Primitive(
     name="indexed_votes",
-    plain=indexed.indexed_votes_ref,
+    plain=indexed.indexed_votes_walk_ref,
     kernel=indexed.indexed_votes,
 ))
 

@@ -1,22 +1,36 @@
-"""Falsification-index scoring: matmul-form Eq. 4 (port of
-``repro.kernels.indexed``).
+"""Falsification-index scoring (port of ``repro.kernels.indexed``).
 
-``pos (m, n, 2o)`` is ``NA`` exactly where clause j excludes literal k, so
-the membership mask ``pos != NA`` is the include mask and Eq. 4 becomes
+Eq. 4 of the paper: a clause is falsified by a sample when one of its
+included literals is false there, and
 
-    falsified(b, i, j)  =  Σ_k false_lit(b, k) · member(i, j, k)  >  0
-    votes(b, i)         =  -Σ_j falsified(b, i, j) · pol(j)
+    votes(b, i)  =  -Σ_j falsified(b, i, j) · pol(j)
 
-Two bodies:
+Three bodies compute it:
 
-  * :func:`indexed_votes_ref` — plain PyTorch, the counterpart of the
-    reference's ``indexed_votes_xla`` (a float32 product over 0/1 operands;
-    hit counts ≤ 2o < 2²⁴ are exact). CPU tensors take it.
+  * :func:`indexed_votes_ref` — the matmul form over the position matrix
+    ``pos (m, n, 2o)``, which is ``NA`` exactly where clause j excludes
+    literal k, so ``pos != NA`` is the include mask: a float32 product of
+    the false literals with that mask (hit counts ≤ 2o < 2²⁴ are exact).
+    It is the counterpart of the reference's ``indexed_votes_xla`` and the
+    oracle the tests hold against the JAX package.
+  * :func:`indexed_votes_walk_ref` — the paper's algorithm in plain
+    PyTorch: walk the inclusion lists ``lists (m, 2o, cap)`` of the false
+    literals and OR "false" into each listed clause. It is the registry's
+    plain body, so CPU tensors take it.
   * :func:`indexed_votes` — the hand-written CUDA kernel
     (``csrc/indexed_votes.cu``) that replaces the TPU kernel
-    ``_indexed_votes_kernel`` (``src/repro/kernels/indexed.py:103``). It is
-    bounded by reading ``pos`` and reads it once per 32 samples; see the
-    source for the design.
+    ``_indexed_votes_kernel`` (``src/repro/kernels/indexed.py:103``). It
+    walks the lists too, in thread-block clusters that split the literal
+    axis; see the source for the design. Its geometry is
+    :func:`walk_plan`, a pure function the CPU tests check.
+
+A list cannot be walked when its count exceeds the capacity (the ids past
+it were dropped from ``lists`` and live only in ``pos``), or when its used
+prefix has a hole (the batched replay leaves one in a list that once
+overflowed and has shrunk since). Both walks cover such a list from the
+column ``pos[i, :, k] != NA`` instead, so all three bodies agree on every
+``ClauseIndex`` the port builds or replays, list order included: only
+:func:`build_index` writes ascending ids, and nothing assumes it.
 
 Index maintenance, :func:`index_update_batched`, is PyTorch tensor code on
 both devices: the reference has no Pallas body for it either (its registry
@@ -25,20 +39,30 @@ routes both backends to one XLA body), and the port has no kernel for it.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.clause_eval import SMEM_LIMIT, SMS
 
 # Mirrors core.indexing.NA — the ClauseIndex layout's "excluded" sentinel.
 NA = -1
+
+THREADS = 1024              # threads of one walk block (csrc: kThreads)
+CLUSTER = 8                 # blocks of a cluster, splitting the literal axis
+MAX_CLUSTER = 16            # past 8 the card needs a non-portable cluster
+MAX_WINDOW = 16_384         # clause ids per block bitmask: 64 KB of shared
+_STATIC_SMEM = 3 * 4 * THREADS + 4 + 4 * 32   # the kernel's staged lists
+_MAX_GRID_Z = 65_535
 
 
 def indexed_votes_ref(pos: torch.Tensor, lit: torch.Tensor,
                       pol: torch.Tensor) -> torch.Tensor:
     """(m, n, 2o) positions + (B, 2o) literals + (n,) ±1 polarity →
-    (B, m) int32 vote sums ``-Σ_{j falsified} pol_j`` (plain PyTorch)."""
+    (B, m) int32 vote sums ``-Σ_{j falsified} pol_j`` (plain PyTorch, the
+    matmul form)."""
     m, n, L = pos.shape
     member = (pos != NA).reshape(m * n, L)
     false_lit = (lit == 0)
@@ -49,11 +73,108 @@ def indexed_votes_ref(pos: torch.Tensor, lit: torch.Tensor,
         -1, dtype=torch.int32)
 
 
+def _prefixes(lists: torch.Tensor, counts: torch.Tensor, n: int):
+    """(entries, ok): (m, 2o, cap) bool marking the valid ids of each used
+    prefix ``min(counts, cap)``, and (m, 2o) bool :func:`walkable`."""
+    cap = lists.shape[-1]
+    used = torch.arange(cap, device=lists.device) < counts.clamp(max=cap)[..., None]
+    valid = (lists >= 0) & (lists < n)
+    ok = (counts <= cap) & ~(used & ~valid).any(-1)
+    return used & valid, ok
+
+
+def walkable(lists: torch.Tensor, counts: torch.Tensor,
+             n: int) -> torch.Tensor:
+    """(m, 2o) bool: the lists whose used prefix ``min(counts, cap)`` holds
+    every member — count within the capacity and no hole (an id that is
+    ``NA`` or out of ``[0, n)``) in the prefix. The kernel decides the same
+    per list, on the card."""
+    return _prefixes(lists, counts, n)[1]
+
+
+def indexed_votes_walk_ref(lists: torch.Tensor, counts: torch.Tensor,
+                           pos: torch.Tensor, lit: torch.Tensor,
+                           pol: torch.Tensor) -> torch.Tensor:
+    """The paper's list walk in plain PyTorch: (B, m) int32 votes, the
+    contract of :func:`indexed_votes_ref` computed from the lists.
+
+    The used entries ``(i, k, j)`` of the lists of literals false in some
+    sample are gathered once; a list that cannot be walked
+    (:func:`walkable`) adds its column of ``pos`` instead. Each sample then
+    ORs ``lit[b, k] == 0`` into its (m·n) falsified row by
+    ``scatter_reduce`` (max over 0/1), and the votes are
+    ``-Σ_j falsified · pol``.
+    """
+    m, L, cap = lists.shape
+    n = pos.shape[1]
+    b = lit.shape[0]
+    false_lit = lit == 0                                          # (B, L)
+    hot = false_lit.any(0)[None, :]                               # (1, L)
+    entries, ok = _prefixes(lists, counts, n)
+    ii, kk, ss = torch.nonzero(entries & hot[..., None], as_tuple=True)
+    jj = lists[ii, kk, ss].long()
+    # lists the walk cannot trust: every member from pos's column
+    bi, bk = torch.nonzero(~ok & hot, as_tuple=True)
+    bb, bj = torch.nonzero(pos[bi, :, bk] != NA, as_tuple=True)
+    ii, kk = torch.cat([ii, bi[bb]]), torch.cat([kk, bk[bb]])
+    jj = torch.cat([jj, bj])
+    hit = false_lit[:, kk].to(torch.int32)                        # (B, E)
+    falsified = torch.zeros((b, m * n), dtype=torch.int32, device=lists.device)
+    falsified.scatter_reduce_(1, (ii * n + jj).expand(b, -1), hit, "amax")
+    return -(falsified.reshape(b, m, n) * pol.to(torch.int32)).sum(
+        -1, dtype=torch.int32)
+
+
+@dataclasses.dataclass(frozen=True)
+class WalkPlan:
+    """Geometry of the ``csrc/indexed_votes.cu`` launches.
+
+    Block ``(r, i, z)`` of a cluster of ``cluster`` blocks along x takes
+    class ``i``, batch word ``z // n_windows`` (32 samples) and clause ids
+    ``[w · window, (w + 1) · window)`` with ``w = z % n_windows``; block
+    ``r`` of the cluster walks the lists of literal groups ``r, r +
+    cluster, …`` (32 literals a group). The C launcher splits z over
+    launches of at most 65535 // ``n_windows`` batch words.
+    """
+
+    cluster: int            # blocks per cluster (x)
+    window: int             # clause ids per block bitmask
+    n_windows: int          # windows over the n clauses
+    n_words: int            # batch words of 32 samples
+    grid: tuple[int, int, int]   # (cluster, m, n_words · n_windows)
+    smem_bytes: int         # shared bytes per block, static + dynamic
+
+
+def walk_plan(b: int, m: int, n: int, *, window: int | None = None,
+              cluster: int | None = None) -> WalkPlan:
+    """The launch geometry of :func:`indexed_votes` (pure). ``window``
+    defaults to ``min(n, MAX_WINDOW)``; any n runs, in more windows.
+    ``cluster`` defaults to ``MAX_CLUSTER`` blocks when the grid then still
+    fits one block per SM, else ``CLUSTER``: a block holds 1024 threads
+    (one per SM at the kernel's register count), and at m = 2 (IMDb) a
+    cluster of 8 leaves the walk of each block's lists on too few SMs."""
+    window = min(n, MAX_WINDOW) if window is None else window
+    _require(1 <= window and 4 * window + _STATIC_SMEM <= SMEM_LIMIT,
+             f"window {window} does not fit a block's shared memory")
+    n_windows = -(-n // window)
+    _require(n_windows <= _MAX_GRID_Z, f"{n} clauses need {n_windows} windows")
+    n_words = -(-b // 32)
+    if cluster is None:
+        fits = MAX_CLUSTER * m * n_words * n_windows <= SMS
+        cluster = MAX_CLUSTER if fits else CLUSTER
+    _require(1 <= cluster <= MAX_CLUSTER,
+             f"cluster must be in [1, {MAX_CLUSTER}], got {cluster}")
+    return WalkPlan(cluster=cluster, window=window, n_windows=n_windows,
+                    n_words=n_words,
+                    grid=(cluster, m, n_words * n_windows),
+                    smem_bytes=4 * window + _STATIC_SMEM)
+
+
 @functools.cache
 def _launcher():
     p, i = ctypes.c_void_p, ctypes.c_int
     return _build.entry("indexed_votes", "indexed_votes_launch",
-                        [p, p, p, p, p, i, i, i, i, i, p])
+                        [p, p, p, p, p, p, i, i, i, i, i, i, i, p])
 
 
 def _require(cond: bool, msg: str) -> None:
@@ -61,39 +182,56 @@ def _require(cond: bool, msg: str) -> None:
         raise ValueError(f"indexed_votes: {msg}")
 
 
-def indexed_votes(pos: torch.Tensor, lit: torch.Tensor,
-                  pol: torch.Tensor) -> torch.Tensor:
-    """CUDA kernel: (B, m) int32 falsification votes, same contract as
-    :func:`indexed_votes_ref`.
+def indexed_votes(lists: torch.Tensor, counts: torch.Tensor,
+                  pos: torch.Tensor, lit: torch.Tensor, pol: torch.Tensor,
+                  *, window: int | None = None,
+                  cluster: int | None = None) -> torch.Tensor:
+    """CUDA kernel: (B, m) int32 falsification votes by a walk of the false
+    literals' inclusion lists, equal to :func:`indexed_votes_walk_ref` and
+    :func:`indexed_votes_ref` on the same index.
 
-    Takes ``pos`` (m, n, 2o) int32, ``lit`` (B, 2o) uint8 and ``pol`` (n,)
-    int32, all contiguous on one CUDA device, and raises on anything else.
-    Launches on the current stream without synchronising.
+    Takes ``lists`` (m, 2o, cap), ``counts`` (m, 2o), ``pos`` (m, n, 2o),
+    ``pol`` (n,), all int32, and ``lit`` (B, 2o) uint8, contiguous on one
+    CUDA device, and raises on anything else. ``window`` and ``cluster``
+    force the geometry (:func:`walk_plan`). Launches on the current stream
+    without synchronising, and never reads a value back to the host.
     """
-    _require(pos.is_cuda, f"pos must be a CUDA tensor, got {pos.device}")
-    _require(lit.device == pos.device and pol.device == pos.device,
-             f"operands on different devices: pos {pos.device}, "
-             f"lit {lit.device}, pol {pol.device}")
-    _require(pos.dtype == torch.int32 and pos.dim() == 3,
-             f"pos must be (m, n, 2o) int32, got {tuple(pos.shape)} {pos.dtype}")
-    m, n, L = pos.shape
+    _require(lists.is_cuda, f"lists must be a CUDA tensor, got {lists.device}")
+    _require(all(t.device == lists.device for t in (counts, pos, lit, pol)),
+             f"operands on different devices: lists {lists.device}, counts "
+             f"{counts.device}, pos {pos.device}, lit {lit.device}, pol "
+             f"{pol.device}")
+    _require(lists.dtype == torch.int32 and lists.dim() == 3,
+             f"lists must be (m, 2o, cap) int32, got {tuple(lists.shape)} "
+             f"{lists.dtype}")
+    m, L, cap = lists.shape
+    _require(counts.dtype == torch.int32 and tuple(counts.shape) == (m, L),
+             f"counts must be ({m}, {L}) int32, got {tuple(counts.shape)} "
+             f"{counts.dtype}")
+    _require(pos.dtype == torch.int32 and pos.dim() == 3
+             and pos.shape[0] == m and pos.shape[2] == L,
+             f"pos must be ({m}, n, {L}) int32, got {tuple(pos.shape)} "
+             f"{pos.dtype}")
+    n = pos.shape[1]
     _require(lit.dtype == torch.uint8 and lit.dim() == 2 and lit.shape[1] == L,
              f"lit must be (B, {L}) uint8, got {tuple(lit.shape)} {lit.dtype}")
     _require(pol.dtype == torch.int32 and tuple(pol.shape) == (n,),
              f"pol must be ({n},) int32, got {tuple(pol.shape)} {pol.dtype}")
-    _require(pos.is_contiguous() and lit.is_contiguous()
-             and pol.is_contiguous(), "operands must be contiguous")
+    _require(all(t.is_contiguous() for t in (lists, counts, pos, lit, pol)),
+             "operands must be contiguous")
     b = lit.shape[0]
-    out = torch.zeros((b, m), dtype=torch.int32, device=pos.device)
     if b == 0 or m == 0 or n == 0 or L == 0:
-        return out
-    fl = torch.empty(((b + 31) // 32, L), dtype=torch.int32, device=pos.device)
-    vec4 = int(L % 4 == 0 and pos.data_ptr() % 16 == 0)
+        return torch.zeros((b, m), dtype=torch.int32, device=lists.device)
+    plan = walk_plan(b, m, n, window=window, cluster=cluster)
+    # one window stores every cell; more windows add into zeros
+    out = (torch.empty if plan.n_windows == 1 else torch.zeros)(
+        (b, m), dtype=torch.int32, device=lists.device)
     launch = _launcher()
-    with torch.cuda.device(pos.device):
+    with torch.cuda.device(lists.device):
         stream = torch.cuda.current_stream().cuda_stream
-        code = launch(pos.data_ptr(), lit.data_ptr(), pol.data_ptr(),
-                      fl.data_ptr(), out.data_ptr(), m, n, L, b, vec4, stream)
+        code = launch(lists.data_ptr(), counts.data_ptr(), pos.data_ptr(),
+                      lit.data_ptr(), pol.data_ptr(), out.data_ptr(), m, n, L,
+                      b, cap, plan.window, plan.cluster, stream)
     _build.check(code, "indexed_votes")
     indexed_votes.launches += 1
     return out

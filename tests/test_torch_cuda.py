@@ -6,7 +6,11 @@ Run on a machine with an NVIDIA GPU:
 
 Each kernel is held against its plain PyTorch version on the same CUDA
 tensors, bit for bit (integer results, tolerance 0), over unaligned shapes,
-batches past one 32-sample word and the MNIST width and the IMDb width; the session's
+batches past one 32-sample word and the MNIST width and the IMDb width;
+the list walk ``indexed_votes`` on real indexes (``build_index``) against
+the plain walk and the position form, also overflowing, after replays that
+leave holes and unsorted lists, over several clause windows and cluster
+sizes, and replayed from a CUDA graph; the session's
 scores on the card equal the same session's on the CPU (the compact engine
 too); and one training step on the card equals the same step on the CPU
 under the same draws, state and caches alike; and the TM-native wrappers
@@ -25,7 +29,7 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.core import bitpack, tm
+from repro_torch.core import bitpack, indexing, tm
 from repro_torch.core.session import TMSession
 from repro_torch.core.types import TMConfig, TMState
 from repro_torch.kernels import clause_eval, indexed, ops, ref, ta_update
@@ -43,26 +47,46 @@ def cuda_device():
     return torch.device("cuda")
 
 
+def index_of(include, capacity=None):
+    """The falsification index of an include mask: ``build_index`` of a
+    state that includes exactly there (it reads nothing of the config but
+    ``n_states``), at ``capacity`` (default n: no list overflows)."""
+    m, n, L = include.shape
+    cfg = TMConfig(n_classes=m, n_clauses=2, n_features=L // 2)
+    ta = torch.where(include, cfg.n_states + 1, cfg.n_states).to(torch.int16)
+    return indexing.build_index(cfg, TMState(ta_state=ta), capacity or n)
+
+
 def make_case(m, n, o, b, seed, dev):
+    """include (m, n, 2o) bool, x (B, o) uint8, its ``ClauseIndex`` and
+    pol (n,) int32 ±1, on ``dev``."""
     rng = np.random.default_rng(seed)
     include = rng.uniform(size=(m, n, 2 * o)) < 0.02
     x = rng.integers(0, 2, (b, o)).astype(np.uint8)
-    pos = np.where(include, rng.integers(0, n, include.shape), -1)
     pol = np.where(np.arange(n) < n // 2, 1, -1).astype(np.int32)
     t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
-    return t(include), t(x), t(pos.astype(np.int32)), t(pol)
+    return t(include), t(x), index_of(t(include)), t(pol)
+
+
+def assert_votes_equal(index, lit, pol, **plan):
+    """The kernel against the plain walk and the position form, bit for bit;
+    one launch per call."""
+    before = indexed.indexed_votes.launches
+    got = indexed.indexed_votes(*index, lit, pol, **plan)
+    assert indexed.indexed_votes.launches == before + 1
+    torch.testing.assert_close(
+        got, indexed.indexed_votes_walk_ref(*index, lit, pol), rtol=0, atol=0)
+    torch.testing.assert_close(got, indexed.indexed_votes_ref(index.pos, lit, pol),
+                               rtol=0, atol=0)
+    return got
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", SHAPES)
 def test_kernels_equal_plain_versions(cuda_device, shape):
-    include, x, pos, pol = make_case(*shape, seed=sum(shape), dev=cuda_device)
+    include, x, index, pol = make_case(*shape, seed=sum(shape), dev=cuda_device)
     lit = torch.cat([x, 1 - x], dim=-1)
-    before = indexed.indexed_votes.launches
-    got = indexed.indexed_votes(pos, lit, pol)
-    assert indexed.indexed_votes.launches == before + 1
-    torch.testing.assert_close(got, indexed.indexed_votes_ref(pos, lit, pol),
-                               rtol=0, atol=0)
+    assert_votes_equal(index, lit, pol)
     words = bitpack.pack_bits(include)
     lw = bitpack.packed_literals(x)
     got = clause_eval.clause_votes_packed(words, lw, pol)
@@ -72,15 +96,89 @@ def test_kernels_equal_plain_versions(cuda_device, shape):
 
 @pytest.mark.cuda
 def test_kernels_refuse_what_they_do_not_take(cuda_device):
-    _, x, pos, pol = make_case(2, 8, 5, 3, seed=0, dev=cuda_device)
+    _, x, (lists, counts, pos), pol = make_case(2, 8, 5, 3, seed=0,
+                                                dev=cuda_device)
     lit = torch.cat([x, 1 - x], dim=-1)
     with pytest.raises(ValueError, match="uint8"):
-        indexed.indexed_votes(pos, lit.to(torch.int32), pol)
+        indexed.indexed_votes(lists, counts, pos, lit.to(torch.int32), pol)
     with pytest.raises(ValueError, match="contiguous"):
-        indexed.indexed_votes(pos.transpose(0, 1).contiguous().transpose(0, 1),
+        indexed.indexed_votes(lists, counts,
+                              pos.transpose(0, 1).contiguous().transpose(0, 1),
                               lit, pol)
     with pytest.raises(ValueError, match="devices"):
-        indexed.indexed_votes(pos, lit.cpu(), pol)
+        indexed.indexed_votes(lists, counts, pos, lit.cpu(), pol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("capacity", [1, 3, 40])
+def test_indexed_votes_on_overflowing_and_replayed_indexes(cuda_device, capacity):
+    """Lists past their capacity (ids only in ``pos``); then two batched
+    replays: most includes deleted (lists that overflowed shrink back under
+    the capacity with holes in their prefixes), then random crossings
+    (unsorted lists). After each, the kernel equals the plain walk, the
+    position form and the position form of a rebuild."""
+    dev, m, n, o = cuda_device, 3, 200, 60
+    gen = torch.Generator(device=dev).manual_seed(capacity)
+    include = torch.rand((m, n, 2 * o), generator=gen, device=dev) < 0.05
+    x = torch.randint(0, 2, (70, o), generator=gen, device=dev, dtype=torch.uint8)
+    lit = torch.cat([x, 1 - x], dim=-1)
+    pol = torch.where(torch.arange(n, device=dev) < n // 2, 1, -1).to(torch.int32)
+    index = index_of(include, capacity)
+    assert bool((index.counts > capacity).any()) == (capacity < 40)
+    assert_votes_equal(index, lit, pol)
+    holes = 0
+    for flips in (include & (torch.rand(include.shape, generator=gen,
+                                        device=dev) < 0.8),
+                  torch.rand(include.shape, generator=gen, device=dev) < 0.05):
+        buf = indexing.events_from_transition(include, include ^ flips, 1 << 16)
+        assert int(buf.overflow) == 0
+        index = indexing.index_update(index, buf.events)
+        include = include ^ flips
+        got = assert_votes_equal(index, lit, pol)
+        torch.testing.assert_close(
+            got, indexed.indexed_votes_ref(index_of(include).pos, lit, pol),
+            rtol=0, atol=0)
+        holes += int((~indexed.walkable(index.lists, index.counts, n)
+                      & (index.counts <= capacity)).sum())
+    assert (holes > 0) == (capacity < 40), holes
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,window,cluster", [
+    (20_000, None, 8), (2000, 300, 8), (2000, 64, 16), (130, 7, 1),
+    (2000, None, 4)])
+def test_indexed_votes_over_clause_windows_and_cluster_sizes(
+        cuda_device, n, window, cluster):
+    """More than one clause window (n past ``MAX_WINDOW``, or a forced
+    window), and clusters of 1 to 16 blocks, against the plain walk."""
+    dev, m, o = cuda_device, 2, 300
+    gen = torch.Generator(device=dev).manual_seed(n + cluster)
+    include = torch.rand((m, n, 2 * o), generator=gen, device=dev) < 4 / (2 * o)
+    x = torch.randint(0, 2, (33, o), generator=gen, device=dev, dtype=torch.uint8)
+    lit = torch.cat([x, 1 - x], dim=-1)
+    pol = torch.where(torch.arange(n, device=dev) < n // 2, 1, -1).to(torch.int32)
+    plan = indexed.walk_plan(33, m, n, window=window, cluster=cluster)
+    assert plan.n_windows > 1 or cluster != 8
+    got = assert_votes_equal(index_of(include), lit, pol, window=window,
+                             cluster=cluster)
+    assert got.unique().numel() > 1
+
+
+@pytest.mark.cuda
+def test_indexed_votes_replays_in_a_cuda_graph(cuda_device):
+    """No host sync in the wrapper: captured once, replayed on new inputs."""
+    include, x, index, pol = make_case(10, 2000, 784, 32, seed=3, dev=cuda_device)
+    lit = torch.cat([x, 1 - x], dim=-1)
+    indexed.indexed_votes(*index, lit, pol)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = indexed.indexed_votes(*index, lit, pol)
+    lit.copy_(1 - lit)
+    graph.replay()
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, indexed.indexed_votes_walk_ref(*index, lit, pol),
+                               rtol=0, atol=0)
 
 
 @pytest.mark.cuda
@@ -331,21 +429,18 @@ def test_kernels_at_shard_widths_with_padding_rows(cuda_device, n):
     n_local 500 and 667), with the trailing rows padding: polarity 0 in the
     vote kernels, frozen (active False) in ta_update."""
     dev, m, o = cuda_device, 10, 784
-    _, x, pos, pol = make_case(m, n, o, 340, seed=n, dev=dev)
+    _, x, _, pol = make_case(m, n, o, 340, seed=n, dev=dev)
     # about three literals per clause, so that clauses fire and votes vary
     gen = torch.Generator(device=dev).manual_seed(n)
     include = torch.rand((m, n, 2 * o), generator=gen, device=dev) < 3 / (2 * o)
-    pos = torch.where(include, pos.clamp(min=0), -1).contiguous()
     pad = torch.arange(n, device=dev) >= n - 3
     include[:, pad] = False
-    pos[:, pad] = -1
+    index = index_of(include)
     pol = torch.where(pad, 0, pol)
     lit = torch.cat([x, 1 - x], dim=-1)
     words, lw = bitpack.pack_bits(include), bitpack.packed_literals(x)
     for b in (1, 2, 340):
-        torch.testing.assert_close(
-            indexed.indexed_votes(pos, lit[:b].contiguous(), pol),
-            indexed.indexed_votes_ref(pos, lit[:b], pol), rtol=0, atol=0)
+        assert_votes_equal(index, lit[:b].contiguous(), pol)
         torch.testing.assert_close(
             clause_eval.clause_votes_packed(words, lw[:b].contiguous(), pol),
             clause_eval.clause_votes_ref(words, lw[:b], pol), rtol=0, atol=0)
@@ -465,17 +560,13 @@ def test_four_kernels_at_the_imdb_width(cuda_device):
     include = torch.rand((m, n, L), generator=gen, device=dev) < 116 / L
     x = (torch.rand((b, o), generator=gen, device=dev) < 0.01).to(torch.uint8)
     include[:, :, :o] = False     # clauses of absent words: about half fire
-    pos = torch.where(include, torch.randint(0, n, (m, n, L), generator=gen,
-                                             device=dev, dtype=torch.int32),
-                      -1).contiguous()
+    index = index_of(include)
     pol = torch.where(torch.arange(n, device=dev) < n // 2, 1, -1).to(torch.int32)
     lit = torch.cat([x, 1 - x], dim=-1)
     words, lw = bitpack.pack_bits(include), bitpack.packed_literals(x)
     plan = clause_eval.launch_plan(b, m, n, words.shape[-1])
     assert words.shape[-1] == 313 and plan.route == "tiled" and plan.n_chunks > 1
-    want = indexed.indexed_votes_ref(pos, lit, pol)
-    torch.testing.assert_close(indexed.indexed_votes(pos, lit, pol), want,
-                               rtol=0, atol=0)
+    want = assert_votes_equal(index, lit, pol)
     torch.testing.assert_close(clause_eval.clause_votes_packed(words, lw, pol),
                                want, rtol=0, atol=0)
     assert want.unique().numel() > 1

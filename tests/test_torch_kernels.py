@@ -20,8 +20,8 @@ from repro.core import bitpack as jbitpack  # noqa: E402
 from repro.kernels import clause_eval as jclause_eval  # noqa: E402
 from repro.kernels import indexed as jindexed  # noqa: E402
 from repro.kernels.backend import _clause_votes_xla  # noqa: E402
-from repro_torch.core import bitpack  # noqa: E402
-from repro_torch.core.types import TMConfig  # noqa: E402
+from repro_torch.core import bitpack, indexing  # noqa: E402
+from repro_torch.core.types import TMConfig, TMState  # noqa: E402
 from repro_torch.kernels import _build, backend  # noqa: E402
 from repro_torch.kernels import clause_eval, indexed, ta_update  # noqa: E402
 
@@ -138,15 +138,15 @@ def test_registry_routes_cpu_tensors_to_plain_body():
     assert backend.registered_primitives() == (
         "clause_votes", "indexed_votes", "clause_outputs", "ta_update",
         "index_update")
-    include, x, pos, pol = make_case(3, 8, 17, 9, seed=5)
+    include, x, _, pol = make_case(3, 8, 17, 9, seed=5)
+    cfg = TMConfig(n_classes=3, n_clauses=8, n_features=17)
+    index = indexing.build_index(cfg, TMState(torch.from_numpy(np.where(
+        include, cfg.n_states + 1, cfg.n_states).astype(np.int16))), 8)
     before = (indexed.indexed_votes.launches,
               clause_eval.clause_votes_packed.launches)
-    got = backend.resolve("indexed_votes")(
-        torch.from_numpy(pos), torch.from_numpy(literals(x)),
-        torch.from_numpy(pol))
-    want = indexed.indexed_votes_ref(
-        torch.from_numpy(pos), torch.from_numpy(literals(x)),
-        torch.from_numpy(pol))
+    lit = torch.from_numpy(literals(x))
+    got = backend.resolve("indexed_votes")(*index, lit, torch.from_numpy(pol))
+    want = indexed.indexed_votes_ref(index.pos, lit, torch.from_numpy(pol))
     assert torch.equal(got, want)
     backend.resolve("clause_votes")(
         bitpack.pack_bits(torch.from_numpy(include)),
@@ -160,9 +160,13 @@ def test_registry_routes_cpu_tensors_to_plain_body():
                                     clause_eval.clause_votes_packed])
 def test_kernel_wrappers_refuse_cpu_tensors(kernel):
     a = torch.zeros((1, 2, 4), dtype=torch.int32)
+    args = (a, torch.zeros((1, 4), dtype=torch.uint8),
+            torch.ones(2, dtype=torch.int32))
+    if kernel is indexed.indexed_votes:      # (lists, counts) of the index
+        args = (torch.zeros((1, 4, 2), dtype=torch.int32),
+                torch.zeros((1, 4), dtype=torch.int32)) + args
     with pytest.raises(ValueError, match="CUDA tensor"):
-        kernel(a, torch.zeros((1, 4), dtype=torch.uint8),
-               torch.ones(2, dtype=torch.int32))
+        kernel(*args)
 
 
 def test_only_the_auto_backend_exists():
