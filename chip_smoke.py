@@ -405,6 +405,13 @@ SHARD_LM_TOL = 2e-2
 # float32 runs summed in other orders differ by 5.2e-4 (same card). Its
 # bf16 NLL and loss are held; its grad norm at SHARD_LM_TOL in a float32
 # twin of the step, the bf16 one printed.
+# Payload gathered over ``data`` per decode step of each serving row by the
+# FSDP-gather decode that preceded the weight-stationary one (every weight
+# gathered each step; GB, measured by this script's phases 13-14 on an H100
+# 80GB HBM3 at 700 W), printed beside what a step moves now.
+FSDP_DECODE_GATHER_GB = {"qwen3-1.7b": 4.06, "qwen2-moe-a2.7b": 28.6,
+                         "rwkv6-3b": 6.12, "recurrentgemma-9b": 21.04,
+                         "whisper-medium": 1.05}
 SHARD_SERVE_F32_TWIN = ("recurrentgemma-9b",)
 SHARD_TRAIN_F32_TWIN = ("rwkv6-3b",)
 SHARD_FAMILY_SERVE = (("rwkv6-3b", (2, 4), 4, 128, 16, 144),
@@ -3095,6 +3102,21 @@ def shard_collectives(mesh, steps: int = 1) -> dict:
             for part, d in snap.items()}
 
 
+def decode_moved(coll: dict, mesh) -> dict:
+    """A step's collective calls, payload bytes (every rank's input), the
+    per-device result bytes (``trace.counter_stats``) and the payload
+    all-gathered over ``data``, from ``shard_collectives``' per-step
+    record."""
+    from repro_torch.launch import trace
+
+    stats = trace.counter_stats({"calls": coll["calls"], "bytes": {
+        k: round(v) for k, v in coll["bytes"].items()}}, mesh)
+    return {"calls": sum(coll["calls"].values()),
+            "payload_bytes": sum(coll["bytes"].values()),
+            "per_device_bytes": stats.total_bytes,
+            "gather_data_bytes": coll["bytes"].get("all_gather/data", 0)}
+
+
 def coll_line(coll: dict) -> str:
     return ", ".join(f"{k} {coll['calls'][k]:g} ({coll['bytes'][k] / 1e6:.3f} MB)"
                      for k in coll["calls"])
@@ -3192,7 +3214,8 @@ def rwkv_blockwise_sharded(cfg, sp, mesh, batch: int, cache_len: int,
     """Each RWKV-6 block of the sharded model (``transformer._block_sharded``)
     on the unsharded stream's input to that block, as ``rwkv_block_records``
     kept it: the prompt from a zero sharded state (sequence-split where the
-    prefill step splits it), then every decode token; outputs and states
+    prefill step splits it), then every decode token (weight-stationary,
+    the residual's d on ``data``, as the decode step lays it); outputs and states
     gathered and held against the unsharded block's at SHARD_LM_TOL of
     their max. Returns the worst gaps."""
     import dataclasses
@@ -3204,22 +3227,27 @@ def rwkv_blockwise_sharded(cfg, sp, mesh, batch: int, cache_len: int,
     policy = dataclasses.replace(sharding.Policy.for_mesh(mesh),
                                  batch_axes=batch_axes_for(batch, mesh))
     bspec = sharding.P(policy.batch_axes)
+    # a decode step's residual: d on data, rows on the other batch axes
+    rows = tuple(a for a in policy.batch_axes if a != sharding.DATA)
+    dspec = sharding.P(rows or None, None, sharding.DATA)
     views = transformer.rank_views(sp)
     caches = transformer.init_cache_sharded(cfg, policy, batch, cache_len)
     key = "b0_rwkv"
 
     def block(j, x, positions, decode, seq_split):
-        xs = sharding.shard(x, bspec, mesh)
+        spec = dspec if decode else bspec
+        xs = sharding.shard(x, spec, mesh)
         if seq_split:
             xs = transformer._seq_chunk(xs, mesh)
         c = [{n: t[r][j] for n, t in caches["layers"][key].items()}
              for r in range(mesh.size)]
         ys, _ = transformer._block_sharded(
-            cfg, policy, sp.specs, [v.layers[j][key] for v in views],
-            f"layers.{j}.{key}.", "rwkv", xs, positions, c, decode, seq_split)
+            cfg, dataclasses.replace(policy, decode_mode=decode), sp.specs,
+            [v.layers[j][key] for v in views], f"layers.{j}.{key}.", "rwkv",
+            xs, positions, c, decode, seq_split)
         if seq_split:
             ys = sharding.all_gather(ys, mesh, sharding.MODEL, 1)
-        return sharding.gather(ys, bspec, mesh)
+        return sharding.gather(ys, spec, mesh)
 
     def gap(g, w):
         return float((g.double() - w.double()).abs().max()
@@ -3312,6 +3340,34 @@ def sharded_serve(cfg, sp, mesh, prompts, extra: dict, cache_len: int, toks,
     return {"logits": got, "cache": scache, "pre_ms": pre_ms, "dec_ms": dec_ms,
             "pre_coll": pre_coll, "dec_coll": dec_coll, "launched": launched,
             "pstep": pstep, "dstep": dstep}
+
+
+def decode_turns(cfg, sp, mesh, dstep, scache, tok, pos, rounds: int = 2):
+    """ms of one decode step with the weights stationary (``dstep``, whose
+    policy has ``decode_mode``) and of the same step with every weight
+    gathered over ``data`` (that policy without ``decode_mode``), in turns
+    (stationary, gathered, gathered, stationary per round) in one call on
+    one card. The steps write into ``scache`` in place: timing only."""
+    import dataclasses
+
+    from repro_torch import sharding
+    from repro_torch.models.model import build
+    from repro_torch.steps import batch_axes_for
+
+    m = build(cfg)
+    gathered = dataclasses.replace(sharding.Policy.for_mesh(mesh),
+                                   batch_axes=batch_axes_for(len(pos), mesh))
+    steps_ = {"stationary": dstep.fn,
+              "gathered": lambda p, c, t, q: m.decode_step(p, t, c, q,
+                                                           policy=gathered)}
+    tok = sharding.shard(tok, dstep.in_specs[2], mesh)
+    pos = sharding.shard(pos, dstep.in_specs[3], mesh)
+    ms = {"stationary": [], "gathered": []}
+    for _ in range(rounds):
+        for kind in ("stationary", "gathered", "gathered", "stationary"):
+            _, t = synced_ms(lambda: steps_[kind](sp, scache, tok, pos))
+            ms[kind].append(t)
+    return ms
 
 
 def logit_gap(got, want, vocab: int) -> float:
@@ -3441,6 +3497,8 @@ def shard_serve(arch: str, shape, batch: int, prompt: int, n_steps: int,
     elif twin is None:
         require(cache_rel <= SHARD_LM_TOL, f"{arch}: caches {cache_rel:.3e} of "
                 f"max|leaf| against the unsharded run's")
+    turns = decode_turns(cfg, sp, mesh, dstep, scache, toks[-1], torch.full(
+        (batch,), prompt + n_steps, dtype=torch.int32, device=dev))
     res = {"params": shard_resident(f"{arch} params", sp, steps_mod
                                     ._serve_params_struct(cfg, pshape),
                                     pstep.in_specs[0], mesh),
@@ -3459,6 +3517,7 @@ def shard_serve(arch: str, shape, batch: int, prompt: int, n_steps: int,
            "cache_rel_by_leaf": {p: g for p, (g, _) in gaps.items()},
            "cache_rel_by_layer": {p: by for p, (_, by) in gaps.items()},
            "resident": res,
+           "decode_ms_turns": turns,
            "prefill_collectives": pre_coll, "decode_collectives_per_step": dec_coll,
            "tm_kernel_launches": launched}
     if by_block:
@@ -3498,6 +3557,18 @@ def shard_serve(arch: str, shape, batch: int, prompt: int, n_steps: int,
               f"{twin['bf16_vs_f32_unsharded_cache_rel']:.3e} [{card}]")
     print(f"lm sharded {arch} collectives, prefill: {coll_line(pre_coll)}")
     print(f"lm sharded {arch} collectives per decode step: {coll_line(dec_coll)}")
+    moved = decode_moved(dec_coll, mesh)
+    out["decode_moved"] = moved
+    print(f"lm sharded {arch} weight-stationary decode step moves "
+          f"{moved['payload_bytes'] / 1e6:.3f} MB of payload in "
+          f"{moved['calls']:g} calls ({moved['per_device_bytes'] / 1e6:.3f} MB "
+          f"per device), {moved['gather_data_bytes'] / 1e6:.3f} MB of it "
+          f"all-gathered over data; every weight gathered over data each step "
+          f"moved {FSDP_DECODE_GATHER_GB[arch]} GB before; in turns in "
+          f"this call, a decode step "
+          f"{' '.join(f'{t:.3f}' for t in turns['stationary'])} ms stationary, "
+          f"{' '.join(f'{t:.3f}' for t in turns['gathered'])} ms with every "
+          f"weight gathered [{card}]")
     del sp, scache, cache
     torch.cuda.empty_cache()
     return out
@@ -3865,13 +3936,15 @@ def trace_vs_card(dev, card) -> dict:
                      "params_bytes_per_rank": params_rank,
                      "peak_new_traced": peak, "peak_new_measured": rise,
                      "trace_s": acct["trace_s"], "ops": acct["ops"],
-                     "by_kind": coll["by_kind"]}
+                     "by_kind": coll["by_kind"],
+                     "collective_bytes_per_device": coll["total_bytes"]}
         print(f"trace {TRACE_ARCH} {name} bf16 full width"
               f"{'' if mesh is None else ', ' + k_shards(mshape)}: FLOPs "
               f"{flops} traced = card; collectives "
               f"{coll_line(counter) if counter['calls'] else 'none'} traced = "
-              f"card; arguments {mem['argument_bytes_per_device'] / 1e9:.4f} GB "
-              f"per rank traced = resident (params {params_rank / 1e9:.4f} GB); "
+              f"card ({coll['total_bytes']} bytes per device); arguments "
+              f"{mem['argument_bytes_per_device'] / 1e9:.4f} GB per rank "
+              f"traced = resident (params {params_rank / 1e9:.4f} GB); "
               f"peak of new bytes traced {peak / 2**20:.1f} MiB, measured "
               f"{rise / 2**20:.1f} MiB (margin {TRACE_PEAK_TOL:.0%} or "
               f"{TRACE_PEAK_FLOOR // 2**20} MiB); trace {acct['trace_s']:.2f} s "
@@ -3951,6 +4024,8 @@ def trace_production(dev, card) -> dict:
     step = steps_mod.make_step(get_config(arch), get_shape(shape), mesh)
     full_args = sharding.predicted_bytes(step.arg_structs, step.in_specs, mesh)
     mem, t = rec["memory"], roof["terms"]
+    share = t["collective_s"] / (t["compute_s"] + t["memory_s"]
+                                 + t["collective_s"])
     print(f"trace production {arch} x {shape} on {rec['mesh']} "
           f"({rec['devices']} ranks, fake {rec['trace_device']} tensors), "
           f"{TRACE_PRODUCTION_LAYERS} of {get_config(arch).n_layers} layers "
@@ -3963,12 +4038,14 @@ def trace_production(dev, card) -> dict:
           f"{rec['collectives']['total_bytes'] / 2**20:.1f} MiB per device "
           f"{rec['collectives']['by_kind']}; roofline compute "
           f"{t['compute_s'] * 1e3:.3f} ms, memory {t['memory_s'] * 1e3:.3f} ms, "
-          f"collective {t['collective_s'] * 1e3:.3f} ms ({t['dominant']}); "
+          f"collective {t['collective_s'] * 1e3:.3f} ms ({t['dominant']}; "
+          f"collectives {share:.1%} of the three terms); "
           f"trace {rec['times']['trace_s']} s for {rec['ops']} ops, "
           f"{wall:.1f} s in all; at full depth the arguments take "
           f"{full_args / 2**30:.3f} GiB per device (the specs) (printed, not "
           f"gated) [{card}]")
     return {"record": rec, "roofline": roof, "wall_s": wall,
+            "collective_share": share,
             "layers": TRACE_PRODUCTION_LAYERS,
             "full_depth_argument_bytes_per_device": full_args}
 

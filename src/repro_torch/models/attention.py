@@ -17,7 +17,11 @@ prefill and training (``n_heads / model`` query heads per rank, the K/V
 heads they read; ``wo`` row-parallel, its partial sums reduced by the
 caller), the reference's flash-decode over a cache split on ``S`` over
 ``model`` (``decode_attend_sharded``), and head-parallel cross-attention
-over encoder K/V with heads on ``model`` (``cross_attend_sharded``).
+over encoder K/V with heads on ``model`` (``cross_attend_sharded``). In a
+weight-stationary decode step (``Policy.decode_mode``) the projections
+contract the residual's ``data`` slice with each rank's own weight shard
+and only activations move (``decode_attend_stationary``,
+``cross_attend_stationary``).
 """
 from __future__ import annotations
 
@@ -34,7 +38,16 @@ from repro_torch.models.common import (
     linear_f32,
     rmsnorm,
 )
-from repro_torch.sharding import MODEL, PerRank, all_gather, module_view, pmax, psum
+from repro_torch.sharding import (
+    MODEL,
+    PerRank,
+    all_gather,
+    gather_batch,
+    module_view,
+    pmax,
+    psum,
+    psum_to_batch,
+)
 
 NEG_INF = -2.0 ** 30  # large-but-finite: keeps masked softmax NaN-free
 
@@ -81,13 +94,18 @@ def _project_qkv(p: Attention, x, n_heads, n_kv_heads, head_dim, positions,
     q = _proj(p.wq, x).reshape(b, s, n_heads, head_dim)
     k = _proj(p.wk, x).reshape(b, s, n_kv_heads, head_dim)
     v = _proj(p.wv, x).reshape(b, s, n_kv_heads, head_dim)
+    return _finish_qk(p, q, k, positions, theta, use_rope) + (v,)
+
+
+def _finish_qk(p: Attention, q, k, positions, theta, use_rope):
+    """The projected q and k (B, S, heads, Dh) through qk-norm and rope."""
     if p.q_norm is not None:  # qwen3-style per-head rms norm
         q = rmsnorm(p.q_norm, q)
         k = rmsnorm(p.k_norm, k)
     if use_rope:
         q = apply_rope(q, positions, theta)
         k = apply_rope(k, positions, theta)
-    return q, k, v
+    return q, k
 
 
 def _mask(q_pos, k_pos, kind, window):
@@ -401,12 +419,8 @@ def decode_attend_sharded(ps, xs, caches, pos, *, mesh, n_heads, n_kv_heads,
     reference's shard_map; per-rank lists, ``ps`` gathered over ``data``).
 
     Each rank projects its heads; an all-gather over ``model`` gives every
-    rank all of q and the new K/V. A rank writes them, and the position,
-    into slot ``pos % cache_len`` only if that slot lies in its slice of
-    the cache (the reference's ``mine`` mask), then scores all heads over
-    its slice (``_decode_attend_local``); the partials combine with a
-    ``pmax`` of ``m`` and ``psum``s of ``l·corr`` and ``acc·corr``. Each
-    rank multiplies its heads of the result by its ``wo`` rows. Returns
+    rank all of q and the new K/V for ``_flash_decode``. Each rank
+    multiplies its heads of the result by its ``wo`` rows. Returns
     (float32 partial sums, for the caller to reduce over ``model``; the
     caches, updated in place)."""
     local = _local_attention(ps, mesh, n_heads, n_kv_heads, head_dim)
@@ -420,6 +434,25 @@ def decode_attend_sharded(ps, xs, caches, pos, *, mesh, n_heads, n_kv_heads,
     qs = all_gather(qs, mesh, MODEL, 2)
     kns = gather_kv_heads(kns, mesh, n_heads, n_kv_heads, 2)
     vns = gather_kv_heads(vns, mesh, n_heads, n_kv_heads, 2)
+    outs = _flash_decode(qs, kns, vns, caches, pos, mesh=mesh,
+                         head_dim=head_dim, window=window)
+    ys = []
+    for r, ((p, hq, _), x, out) in enumerate(zip(local, xs, outs)):
+        c = axis_index(mesh, r, MODEL)
+        out = out[:, c * hq:(c + 1) * hq].reshape(x.shape[0], 1, hq * head_dim)
+        ys.append(linear_f32(out.to(x.dtype), p.wo.weight))
+    return ys, caches
+
+
+def _flash_decode(qs, kns, vns, caches, pos, *, mesh, head_dim, window):
+    """The reference's shard_map body on every rank: ``qs[r]`` (B, 1, H,
+    Dh) and ``kns[r]`` / ``vns[r]`` (B, 1, Hkv, Dh) its batch rows with
+    every head. A rank writes the new K/V, and the position, into slot
+    ``pos % cache_len`` only if that slot lies in its slice of the cache
+    (the reference's ``mine`` mask), then scores all heads over its slice
+    (``_decode_attend_local``); the partials combine with a ``pmax`` of
+    ``m`` and ``psum``s of ``l·corr`` and ``acc·corr`` over ``model``.
+    Returns each rank's attention output (B, H, Dh), float32."""
     scale = head_dim ** -0.5
     accs, ms, ls = [], [], []
     for r, cache in enumerate(caches):
@@ -446,15 +479,53 @@ def decode_attend_sharded(ps, xs, caches, pos, *, mesh, n_heads, n_kv_heads,
     corr = [torch.exp(m - mg) for m, mg in zip(ms, m_g)]
     l_g = psum([l * c for l, c in zip(ls, corr)], mesh, MODEL)
     acc_g = psum([a * c[..., None] for a, c in zip(accs, corr)], mesh, MODEL)
-    ys = []
-    for r, ((p, hq, _), x) in enumerate(zip(local, xs)):
-        b = x.shape[0]
-        out = (acc_g[r] / torch.clamp(l_g[r], min=1e-30)[..., None]).reshape(
-            b, n_heads, head_dim)
-        c = axis_index(mesh, r, MODEL)
-        out = out[:, c * hq:(c + 1) * hq].reshape(b, 1, hq * head_dim)
-        ys.append(linear_f32(out.to(x.dtype), p.wo.weight))
-    return ys, caches
+    return [(a / torch.clamp(l, min=1e-30)[..., None]).flatten(1, 2)
+            for a, l in zip(acc_g, l_g)]
+
+
+def decode_attend_stationary(ps, hs, caches, pos, *, policy, n_heads,
+                             n_kv_heads, head_dim, rope_theta, window,
+                             use_rope=True):
+    """One-token decode with the weights stationary (``Policy.decode_mode``):
+    ``hs[r]`` (rows, 1, d/|data|) the rank's ``data`` slice of the normed
+    residual, ``ps[r]`` rank r's own shards (nothing gathered).
+
+    Each rank multiplies its slice by its rows of ``wq`` / ``wk`` / ``wv``
+    (one float32 partial over ``data``), ``sharding.psum_to_batch`` sums
+    the partials into its batch rows, and one all_gather over ``model``
+    gives it every head of q and of the new K/V; qk-norm and rope follow,
+    then ``_flash_decode`` against the cache (the cache's layout is
+    unchanged). The rank's ``wo`` columns of the output, gathered over the
+    batch rows, meet its ``wo`` shard. Returns (the (rows, 1, d/|data|)
+    float32 partial sums, for the caller to reduce over ``model``; the
+    caches, updated in place)."""
+    mesh = policy.mesh
+    m = axis_size(mesh, MODEL)
+    widths = [n * head_dim // m for n in (n_heads, n_kv_heads, n_kv_heads)]
+    parts = psum_to_batch([torch.cat([linear_f32(h, lin.weight)
+                                      for lin in (p.wq, p.wk, p.wv)], -1)
+                           for p, h in zip(ps, hs)], policy)
+    local = []
+    for p, t in zip(ps, parts):
+        t = [u if lin.bias is None else u + lin.bias.float()
+             for u, lin in zip(t.split(widths, -1), (p.wq, p.wk, p.wv))]
+        local.append(torch.cat(t, -1).to(hs[0].dtype))
+    qs, kns, vns = [], [], []
+    for p, t, pb in zip(ps, all_gather(local, mesh, MODEL, -1), pos):
+        b = t.shape[0]
+        q, k, v = (u.reshape(b, 1, n, head_dim) for u, n in zip(
+            t.reshape(b, 1, m, -1).split(widths, -1),
+            (n_heads, n_kv_heads, n_kv_heads)))
+        q, k = _finish_qk(p, q, k, pb[:, None], rope_theta, use_rope)
+        qs.append(q)
+        kns.append(k)
+        vns.append(v)
+    outs = _flash_decode(qs, kns, vns, caches, pos, mesh=mesh,
+                         head_dim=head_dim, window=window)
+    outs = [o.reshape(o.shape[0], 1, -1).chunk(m, -1)[axis_index(mesh, r, MODEL)]
+            .to(hs[0].dtype) for r, o in enumerate(outs)]
+    return [linear_f32(o, p.wo.weight)
+            for p, o in zip(ps, gather_batch(outs, policy))], caches
 
 
 # ---------------------------------------------------------------------------
@@ -464,11 +535,18 @@ def decode_attend_sharded(ps, xs, caches, pos, *, mesh, n_heads, n_kv_heads,
 
 def _cross_heads(p: Attention, x, enc_kv, *, n_heads, head_dim):
     """``cross_attend`` up to ``wo``: the heads' outputs (B, S, H·Dh)."""
-    b, s, _ = x.shape
-    q = F.linear(x, p.wq.weight.to(x.dtype)).reshape(b, s, n_heads, head_dim)
+    return _cross_sdpa(F.linear(x, p.wq.weight.to(x.dtype)), enc_kv,
+                       n_heads=n_heads, head_dim=head_dim)
+
+
+def _cross_sdpa(q, enc_kv, *, n_heads, head_dim):
+    """Projected queries (B, S, H·Dh) against the encoder K/V, every
+    position allowed: (B, S, H·Dh)."""
+    b, s, _ = q.shape
     k, v = enc_kv
-    mask = torch.ones((b, s, k.shape[1]), dtype=torch.bool, device=x.device)
-    return _sdpa(q, k, v, mask, head_dim ** -0.5).reshape(b, s, n_heads * head_dim)
+    mask = torch.ones((b, s, k.shape[1]), dtype=torch.bool, device=q.device)
+    return _sdpa(q.reshape(b, s, n_heads, head_dim), k, v, mask,
+                 head_dim ** -0.5).reshape(b, s, n_heads * head_dim)
 
 
 def cross_attend(p: Attention, x, enc_kv, *, n_heads, n_kv_heads, head_dim):
@@ -488,6 +566,24 @@ def cross_attend_sharded(ps, hs, enc_kvs, *, head_dim):
     return [linear_f32(_cross_heads(p, h, kv, n_heads=kv[0].shape[2],
                                     head_dim=head_dim), p.wo.weight)
             for p, h, kv in zip(ps, hs, enc_kvs)]
+
+
+def cross_attend_stationary(ps, hs, enc_kvs, *, policy, head_dim):
+    """One decode token's cross-attention with the weights stationary:
+    ``hs[r]`` (rows, 1, d/|data|) the rank's ``data`` slice of the normed
+    residual, ``ps[r]`` rank r's shards. The ``wq`` partials are summed
+    into the rank's batch rows of its heads (``psum_to_batch``), which
+    meet its heads of the encoder K/V (``enc_kvs[r]``, from the cache);
+    the output, gathered over the batch rows, meets its ``wo`` shard.
+    Returns the float32 partial sums, for the caller to reduce over
+    ``model``."""
+    qs = psum_to_batch([linear_f32(h, p.wq.weight) for p, h in zip(ps, hs)],
+                       policy)
+    outs = [_cross_sdpa(q.to(h.dtype), kv, n_heads=kv[0].shape[2],
+                        head_dim=head_dim)
+            for q, h, kv in zip(qs, hs, enc_kvs)]
+    return [linear_f32(o, p.wo.weight)
+            for p, o in zip(ps, gather_batch(outs, policy))]
 
 
 def encoder_kv(p: Attention, enc_out, *, n_kv_heads, head_dim):

@@ -14,7 +14,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from repro_torch.launch.mesh import axis_index
+from repro_torch.launch.mesh import axis_index, axis_size
 from repro_torch.sharding import psum
 
 
@@ -94,6 +94,31 @@ def layernorm(p: LayerNorm, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     mu = x.mean(-1, keepdim=True)
     var = x.var(-1, unbiased=False, keepdim=True)
     return ((x - mu) * torch.rsqrt(var + eps) * p.scale + p.bias).to(dtype)
+
+
+def norm_split(ps, xs, *, mesh, axis, eps: float = 1e-5):
+    """``rmsnorm`` (``ps[r]`` an ``RMSNorm``) or ``layernorm`` (a
+    ``LayerNorm``) of rows whose last dim lies split over ``axis``: rank r
+    holds chunk ``axis_index`` of it and the whole scale (and bias). The
+    moments come from ``psum``s of (…, 1) float32 partials: the sum of
+    squares, or the sum and then the centred sum of squares."""
+    d = xs[0].shape[-1] * axis_size(mesh, axis)
+
+    def local(t, r):
+        return t.chunk(axis_size(mesh, axis))[axis_index(mesh, r, axis)]
+
+    xf = [x.float() for x in xs]
+    if isinstance(ps[0], LayerNorm):
+        mu = psum([x.sum(-1, keepdim=True) for x in xf], mesh, axis)
+        xf = [x - m / d for x, m in zip(xf, mu)]
+    var = psum([x.square().sum(-1, keepdim=True) for x in xf], mesh, axis)
+    out = []
+    for r, (p, x, v) in enumerate(zip(ps, xf, var)):
+        y = x * torch.rsqrt(v / d + eps) * local(p.scale, r)
+        if isinstance(p, LayerNorm):
+            y = y + local(p.bias, r)
+        out.append(y.to(xs[r].dtype))
+    return out
 
 
 # ---------------------------------------------------------------------------

@@ -21,7 +21,10 @@ lie on ``model``: ``w_y`` / ``w_x`` are column-parallel, the conv, Λ, the
 gate biases and both state tensors are local, the gates ``w_a`` / ``w_i``
 take their rows for the rank's channels over the whole d_rnn (so the
 conv output is all-gathered over ``model`` first) and ``w_o`` is
-row-parallel (float32 partial sums, reduced by the caller).
+row-parallel (float32 partial sums, reduced by the caller). A
+weight-stationary decode step (``recurrent_step_stationary``) keeps
+``w_y`` / ``w_x`` / ``w_o`` on their ranks and moves activations; the
+gates are gathered over ``data`` there too.
 """
 from __future__ import annotations
 
@@ -36,7 +39,7 @@ from repro_torch.models.common import (
     linear_f32,
 )
 from repro_torch.models.recurrence import chunked_diag_recurrence
-from repro_torch.sharding import MODEL, all_gather
+from repro_torch.sharding import MODEL, all_gather, gather_batch, psum_to_batch
 
 RG_LRU_C = 8.0
 CONV_W = 4
@@ -121,10 +124,16 @@ def _branches(p: RecurrentBlock, x, tail, decode: bool):
     y = activation("gelu")(_lin(p.w_y, x))
     if not decode:
         return (y,) + _causal_conv_seq(p, _lin(p.w_x, x), tail)
-    hist = torch.cat([tail.to(x.dtype), _lin(p.w_x, x)[:, None]], 1)
-    conv = sum(hist[:, -1 - i] * p.conv_w[CONV_W - 1 - i].to(x.dtype)
-               for i in range(CONV_W)) + p.conv_b.to(x.dtype)
-    return y, conv, hist[:, 1:]
+    return (y,) + _conv_step(p, _lin(p.w_x, x), tail)
+
+
+def _conv_step(p: RecurrentBlock, xw, tail):
+    """The causal conv of one token xw (B, dr) after its tail (B, 3, dr):
+    (the conv output, the new tail)."""
+    hist = torch.cat([tail.to(xw.dtype), xw[:, None]], 1)
+    conv = sum(hist[:, -1 - i] * p.conv_w[CONV_W - 1 - i].to(xw.dtype)
+               for i in range(CONV_W)) + p.conv_b.to(xw.dtype)
+    return conv, hist[:, 1:]
 
 
 def _recur(p: RGLRU, xr, h0, *, chunk, decode: bool, x_gate=None):
@@ -179,6 +188,37 @@ def recurrent_block_sharded(ps, hs, states, *, mesh, chunk, decode=False):
         ys.append(linear_f32(out[:, None] if decode else out, p.w_o.weight))
         new.append({"conv": tail.float(), "h": h_t})
     return ys, (None if train else new)
+
+
+def recurrent_step_stationary(ps, hs, states, *, policy):
+    """``recurrent_block_step`` with the branch weights stationary
+    (``Policy.decode_mode``): ``hs[r]`` (rows, 1, d/|data|) the rank's
+    ``data`` slice of the normed residual; ``ps[r]`` rank r's shards, the
+    gates ``w_a`` / ``w_i`` gathered over ``data`` (as the reference's
+    decode program gathers them); ``states[r]`` its batch rows' conv tail
+    and h on its d_rnn channels. The ``w_y`` / ``w_x`` partials are summed
+    into the rank's batch rows of its channels (``psum_to_batch``), the
+    conv and the RG-LRU run there (the gates read the conv output
+    all-gathered over ``model``), and the gated output, gathered over the
+    batch rows, meets the rank's ``w_o`` shard. Returns (the (B, 1,
+    d/|data|) float32 partial sums, for the caller to reduce over
+    ``model``; per-rank new states)."""
+    mesh = policy.mesh
+    parts = psum_to_batch([torch.cat([linear_f32(h, p.w_y.weight),
+                                      linear_f32(h, p.w_x.weight)], -1)
+                           for p, h in zip(ps, hs)], policy)
+    pre = []
+    for p, t, st in zip(ps, parts, states):
+        y, xw = t[:, 0].to(hs[0].dtype).chunk(2, -1)
+        pre.append((activation("gelu")(y),) + _conv_step(p, xw, st["conv"]))
+    gates_in = all_gather([xr for _, xr, _ in pre], mesh, MODEL, -1)
+    outs, new = [], []
+    for p, (y, xr, tail), xg, st in zip(ps, pre, gates_in, states):
+        h, _ = _recur(p.rglru, xr, st["h"], chunk=None, decode=True, x_gate=xg)
+        outs.append((h.to(y.dtype) * y)[:, None])
+        new.append({"conv": tail.float(), "h": h})
+    return [linear_f32(o, p.w_o.weight)
+            for p, o in zip(ps, gather_batch(outs, policy))], new
 
 
 def griffin_state_shapes(batch, d_rnn):

@@ -1,5 +1,10 @@
 """Dense MLPs: gated SwiGLU (llama family) and the non-gated form (GELU for
-whisper, squared ReLU for minitron). The port's ``repro.models.mlp``."""
+whisper, squared ReLU for minitron). The port's ``repro.models.mlp``.
+
+On a mesh: tensor-parallel over ``model`` with the weights gathered over
+``data`` (``mlp_sharded``), or, in a weight-stationary decode step, each
+rank's own shards against the residual's ``data`` slice
+(``mlp_stationary``)."""
 from __future__ import annotations
 
 import torch
@@ -12,7 +17,7 @@ from repro_torch.models.common import (
     init_linear_,
     linear_f32,
 )
-from repro_torch.sharding import psum, psum_scatter
+from repro_torch.sharding import DATA, MODEL, psum, psum_scatter
 
 
 class MLP(nn.Module):
@@ -62,3 +67,28 @@ def mlp_sharded(ps, hs, *, act: str = "silu", mesh, axis, scatter_dim=None):
     if scatter_dim is None:
         return psum(ys, mesh, axis)
     return psum_scatter(ys, mesh, axis, scatter_dim)
+
+
+def mlp_stationary(ps, hs, *, act: str = "silu", mesh):
+    """``mlp`` of one decode token with the weights stationary: ``hs[r]``
+    (rows, 1, d/|data|) the rank's ``data`` slice of the normed residual,
+    ``ps[r]`` rank r's shards ((f/|model|, d/|data|) of ``w_gate`` /
+    ``w_up``, (d/|data|, f/|model|)
+    of ``w_down``). The gate and up partials are summed over ``data`` in
+    one ``psum`` (float32, every row of the rank's ``f`` slice), the
+    hidden meets the ``w_down`` shard, and a ``psum`` over ``model`` gives
+    each rank its (rows, 1, d/|data|) slice of the output, float32."""
+    fn = activation(act)
+    ups = psum([torch.cat([linear_f32(h, lin.weight) for lin in (p.w_up, p.w_gate)
+                           if lin is not None], -1) for p, h in zip(ps, hs)],
+               mesh, DATA)
+    ys = []
+    for p, h, u in zip(ps, hs, ups):
+        u = u.to(h.dtype)
+        if p.w_gate is not None:
+            up, gate = u.chunk(2, -1)
+            hidden = fn(gate) * up
+        else:
+            hidden = fn(u)
+        ys.append(linear_f32(hidden, p.w_down.weight))
+    return psum(ys, mesh, MODEL)

@@ -62,23 +62,30 @@ from repro_torch.models.common import (
     empty_linear,
     init_linear_,
     layernorm,
+    linear_f32,
+    norm_split,
     rmsnorm,
     truncated_normal_,
     unembed,
 )
-from repro_torch.models.mlp import MLP, init_mlp, mlp, mlp_sharded
+from repro_torch.models.mlp import MLP, init_mlp, mlp, mlp_sharded, mlp_stationary
 from repro_torch.models.moe import MoE, init_moe, moe_block
 from repro_torch.sharding import (
+    DATA,
     MODEL,
     PerRank,
     ShardedModule,
     all_gather,
+    batch_to_stationary,
     cache_partition_specs,
+    gather_batch,
     gather_params,
     local_structs,
     param_specs,
     psum,
     psum_scatter,
+    psum_to_batch,
+    stationary_to_batch,
 )
 
 COMPUTE_DTYPE = torch.bfloat16
@@ -627,12 +634,132 @@ def _rec_block_sharded(blocks, prefix, specs, cfg, policy, kind, xs, states,
     return xs, states
 
 
+# ---------------------------------------------------------------------------
+# Weight-stationary decode (``Policy.decode_mode``): the residual is
+# (rows, 1, d/|data|) on every rank, d on ``data`` as the reference's
+# ``act_residual`` says (the rows those of the rank's batch axes but
+# ``data``); each rank contracts its slice with its own weight shards, so only
+# activation-sized partial sums move (``sharding.psum_to_batch`` and
+# friends). The MoE engine and RWKV-6 keep their gathered weights, as the
+# reference's decode program does, and take the residual in the batch
+# layout; Griffin gathers its two gate matrices over ``data``.
+# ---------------------------------------------------------------------------
+
+_REC_GATES = ("rglru.w_a.weight", "rglru.w_i.weight")
+
+
+def _norm_stationary(cfg, norms, xs, mesh):
+    """``cfg``'s norm of a residual split on d over ``data``."""
+    return norm_split(norms, xs, mesh=mesh, axis=DATA, eps=cfg.norm_eps)
+
+
+def _attn_stationary(blocks, cfg, policy, xs, pos, caches, *, window,
+                     use_rope=True):
+    """``norm1``, ``decode_attend_stationary``, the ``wo`` psum over
+    ``model`` and the residual."""
+    hs = _norm_stationary(cfg, [b.norm1 for b in blocks], xs, policy.mesh)
+    ys, _ = attn_mod.decode_attend_stationary(
+        [b.attn for b in blocks], hs, caches, pos, policy=policy,
+        n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads, head_dim=cfg.head_dim_,
+        rope_theta=cfg.rope_theta, window=window, use_rope=use_rope)
+    return [x + y.to(x.dtype) for x, y in zip(xs, psum(ys, policy.mesh, MODEL))]
+
+
+def _mlp_stationary(blocks, cfg, policy, xs):
+    """``norm2``, ``mlp_stationary`` and the residual."""
+    mesh = policy.mesh
+    hs = _norm_stationary(cfg, [b.norm2 for b in blocks], xs, mesh)
+    return [x + o.to(x.dtype) for x, o in zip(
+        xs, mlp_stationary([b.mlp for b in blocks], hs, act=cfg.act, mesh=mesh))]
+
+
+def _block_stationary(cfg, policy, specs, blocks, prefix, kind, xs, pos,
+                      caches):
+    """One block of a weight-stationary decode step on every rank
+    (``blocks[r]`` rank r's shards, named under ``prefix``; ``caches`` its
+    per-rank cache dicts, written in place). Returns xs."""
+    mesh = policy.mesh
+    if kind == "rwkv":
+        ps = gather_params(blocks, specs, mesh, prefix)
+        xb, new = rwkv_mod.rwkv_block_sharded(
+            ps, stationary_to_batch(xs, policy), caches, mesh=mesh,
+            n_heads=cfg.rwkv_heads, head_dim=cfg.rwkv_head_dim,
+            chunk=cfg.rwkv_chunk, decode=True, sp=False)
+        for cache, n in zip(caches, new):
+            _store(cache, n)
+        return batch_to_stationary(xb, policy)
+    if kind == "rec_mlp":
+        recs = gather_params(
+            [b.rec for b in blocks], specs, mesh, prefix + "rec.",
+            skip=[n for n, _ in blocks[0].rec.named_parameters()
+                  if n not in _REC_GATES])
+        hs = _norm_stationary(cfg, [b.norm1 for b in blocks], xs, mesh)
+        ys, new = griffin_mod.recurrent_step_stationary(recs, hs, caches,
+                                                        policy=policy)
+        for cache, n in zip(caches, new):
+            _store(cache, n)
+        xs = [x + y.to(x.dtype) for x, y in zip(xs, psum(ys, mesh, MODEL))]
+        return _mlp_stationary(blocks, cfg, policy, xs)
+    xs = _attn_stationary(blocks, cfg, policy, xs, pos, caches,
+                          window=_window_for(cfg, kind))
+    if kind == "attn_mlp":
+        return _mlp_stationary(blocks, cfg, policy, xs)
+    # the MoE engine takes its rows whole, in the batch layout
+    _, norm = _norm_fns(cfg)
+    xb = stationary_to_batch(xs, policy)
+    moes = gather_params([b.moe for b in blocks], specs, mesh, prefix + "moe.",
+                         skip=[n.removeprefix("moe.") for n in _ENGINE_PARAMS])
+    os_, _ = moe_block(moes, [norm(b.norm2, x) for b, x in zip(blocks, xb)],
+                       top_k=cfg.top_k, capacity_factor=cfg.capacity_factor,
+                       act=cfg.act, dispatch=cfg.moe_dispatch,
+                       normalize=cfg.normalize_topk, dropless=True,
+                       policy=policy)
+    return batch_to_stationary([x + o.to(x.dtype) for x, o in zip(xb, os_)],
+                               policy)
+
+
+def _embed_stationary(policy, views, token):
+    """The residual's tokens (``gather_batch``) looked up in the rank's
+    shard of the table (its vocabulary rows, its ``data`` slice of d), the
+    other rows masked, summed over ``model``: (rows, 1, d/|data|)."""
+    return embed_sharded([v.embed for v in views], gather_batch(token, policy),
+                         mesh=policy.mesh, axis=MODEL,
+                         compute_dtype=COMPUTE_DTYPE)
+
+
+def _logits_stationary(cfg, policy, views, xs, mask=None):
+    """The final norm and the head (``lm_head`` or the tied table, each
+    (V/|model|, d/|data|) on a rank) on a split residual: the partials are
+    summed into the rank's batch rows (``psum_to_batch``) and rounded to
+    the compute dtype, as ``unembed``'s product is; ``mask(logits,
+    offset)`` then sees the rank's vocabulary slice. Returns (B/|batch|,
+    1, V/|model|) in the compute dtype (``_gather_vocab`` casts after its
+    gather)."""
+    mesh = policy.mesh
+    hs = _norm_stationary(cfg, [v.final_norm for v in views], xs, mesh)
+    heads = [getattr(v, "lm_head", None) for v in views]
+    parts = psum_to_batch([linear_f32(h, v.embed.tokens if lh is None
+                                      else lh.weight)
+                           for v, lh, h in zip(views, heads, hs)], policy)
+    out = [lg.to(h.dtype) for lg, h in zip(parts, hs)]
+    if mask is None:
+        return out
+    return [mask(lg, axis_index(mesh, r, MODEL) * lg.shape[-1])
+            for r, lg in enumerate(out)]
+
+
 def _block_sharded(cfg, policy, specs, blocks, prefix, kind, xs, positions,
                    caches, decode, sp):
     """One block of ``kind`` on every rank (``blocks[r]`` rank r's shards,
     its parameters named under ``prefix``, gathered over ``data`` here and
-    dropped after); ``caches`` its per-rank cache dicts (written in place)
-    or None. Returns (xs, aux per rank)."""
+    dropped after; in a ``decode_mode`` decode step ``_block_stationary``);
+    ``caches`` its per-rank cache dicts (written in place) or None.
+    Returns (xs, aux per rank)."""
+    if decode and policy.decode_mode:
+        xs = _block_stationary(cfg, policy, specs, blocks, prefix, kind, xs,
+                               positions, caches)
+        return xs, [torch.zeros((), dtype=torch.float32, device=x.device)
+                    for x in xs]
     if kind in ("attn_mlp", "attn_moe"):
         mesh = policy.mesh
         ps = gather_params(blocks, specs, mesh, prefix, skip=_ENGINE_PARAMS,
@@ -794,14 +921,23 @@ def prefill_sharded(cfg: ModelConfig, policy, params, tokens, cache_len,
 @torch.no_grad()
 def decode_step_sharded(cfg: ModelConfig, policy, params, token, caches, pos):
     """``decode_step`` on a mesh: token (B/|batch|, 1) and pos per rank;
-    the cache (``prefill_sharded``'s layout) updated in place. Returns
-    (per-rank logits (B/|batch|, V), caches)."""
+    the cache (``prefill_sharded``'s layout) updated in place. With
+    ``policy.decode_mode`` (``steps.make_decode_step``'s policy) the
+    weights stay on their ranks and the residual lies split on d over
+    ``data``; without it each block's weights are gathered over ``data``.
+    Returns (per-rank logits (B/|batch|, V), caches)."""
     views, specs = _sharded_parts(cfg, params)
     mesh = policy.mesh
-    xs = _embed_inputs_sharded(cfg, policy, specs, views, token)
+    if policy.decode_mode:
+        xs = _embed_stationary(policy, views, token)
+    else:
+        xs = _embed_inputs_sharded(cfg, policy, specs, views, token)
     xs, caches, _ = _run_stack_sharded(cfg, policy, specs, views, xs, pos,
                                        caches, True, False)
-    logits = _logits_sharded(cfg, policy, specs, views, xs)
+    if policy.decode_mode:
+        logits = _logits_stationary(cfg, policy, views, xs)
+    else:
+        logits = _logits_sharded(cfg, policy, specs, views, xs)
     return PerRank(l[:, 0] for l in _gather_vocab(logits, mesh)), caches
 
 

@@ -34,7 +34,9 @@ cache's ``cross`` leaves, heads on ``model``); cross-attention is then
 head-local. ``pos_embed`` (d on ``data``) is gathered like a weight. The
 tied head is vocabulary-parallel over the padded table, and the pad
 columns are masked by their global index, so they fall in the last
-``model`` rank's slice.
+``model`` rank's slice. A weight-stationary decode step
+(``Policy.decode_mode``, ``_decode_stationary``) gathers no weight: the
+residual lies split on d over ``data`` and only activations move.
 """
 from __future__ import annotations
 
@@ -65,8 +67,10 @@ from repro_torch.sharding import (
     PerRank,
     ShardedModule,
     all_gather,
+    gather_batch,
     gather_params,
     param_specs,
+    psum,
 )
 
 COMPUTE_DTYPE = torch.bfloat16
@@ -566,12 +570,49 @@ def prefill_sharded(cfg: ModelConfig, policy, params, tokens, frames,
             caches)
 
 
+def _decode_stationary(cfg, policy, views, token, caches, pos):
+    """A weight-stationary decode step (``Policy.decode_mode``): the
+    residual (rows, 1, d/|data|) on every rank; the token rows and the
+    learned positions looked up in each rank's ``data`` slice of d; per
+    layer ``transformer``'s stationary self-attention, the cross-attention
+    against the cached K/V (``cross_attend_stationary``: ``xattn``'s
+    ``wk`` / ``wv`` are never read) and the MLP, no weight gathered; the
+    tied head over the padded vocabulary. Returns per-rank logits
+    (B/|batch|, 1, V_pad/|model|) in the compute dtype."""
+    mesh = policy.mesh
+    xs = transformer._embed_stationary(policy, views, token)
+    xs = [x + v.pos_embed[p.long()][:, None].to(COMPUTE_DTYPE)
+          for v, x, p in zip(views, xs, gather_batch(pos, policy))]
+    for i in range(len(views[0].layers)):
+        blocks = [v.layers[i] for v in views]
+        cache = [{name: t[r][i] for name, t in caches["layers"].items()}
+                 for r in range(len(views))]
+        xs = transformer._attn_stationary(blocks, cfg, policy, xs, pos, cache,
+                                          window=None, use_rope=False)
+        hs = transformer._norm_stationary(cfg, [b.norm_x for b in blocks], xs,
+                                          mesh)
+        ys = attn_mod.cross_attend_stationary(
+            [b.xattn for b in blocks], hs,
+            [(caches["cross"]["k"][r][i], caches["cross"]["v"][r][i])
+             for r in range(len(views))], policy=policy, head_dim=cfg.head_dim_)
+        xs = [x + y.to(x.dtype) for x, y in zip(xs, psum(ys, mesh, MODEL))]
+        xs = transformer._mlp_stationary(blocks, cfg, policy, xs)
+    return transformer._logits_stationary(
+        cfg, policy, views, xs, functools.partial(_mask_pad_logits, cfg))
+
+
 @torch.no_grad()
 def decode_step_sharded(cfg: ModelConfig, policy, params, token, caches, pos):
     """``decode_step`` on a mesh: token (B/|batch|, 1) and pos per rank; the
-    self-attention cache updated in place, the cross K/V read. Returns
-    (per-rank logits (B/|batch|, V_pad), caches)."""
+    self-attention cache updated in place, the cross K/V read; weight
+    stationary with ``policy.decode_mode`` (``_decode_stationary``), else
+    each layer gathered over ``data``. Returns (per-rank logits
+    (B/|batch|, V_pad), caches)."""
     views, specs = _parts(cfg, params)
+    if policy.decode_mode:
+        logits = _decode_stationary(cfg, policy, views, token, caches, pos)
+        return (PerRank(lg[:, 0] for lg in transformer._gather_vocab(
+            logits, policy.mesh)), caches)
     xs = _embed_dec_sharded(cfg, policy, specs, views, token, pos)
     xs = _decoder_sharded(cfg, policy, specs, views, xs, pos, None, caches,
                           True, False)

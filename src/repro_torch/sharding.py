@@ -19,6 +19,11 @@ names each port parameter by that path (the layer index dropped where the
 reference stacks the layers) and transposes the spec of an ``nn.Linear``,
 which the port holds ``(out, in)`` and the reference ``(in, out)``.
 
+A weight-stationary decode step (``Policy.decode_mode``) moves its
+activations between the residual's layout (d on ``data``) and the
+caches' (rows on the batch axes) with ``psum_to_batch``,
+``stationary_to_batch``, ``batch_to_stationary`` and ``gather_batch``.
+
 Collectives are explicit functions over ``PerRank`` lists: ``all_gather``
 (a concatenation in rank order), ``all_to_all`` (each rank's chunks
 exchanged, moving a split from one dim to another), ``psum`` (a sum in
@@ -192,9 +197,13 @@ class Policy:
     ``kv_cache`` / ``logits`` methods return the reference's specs for
     those activations; the sharded stack reads ``act_residual`` to decide
     whether the residual stream is sequence-split over ``model`` between
-    blocks (Megatron-SP). ``decode_mode``'s weight-stationary layout (d on
-    ``data``) is recorded but not realised: decode keeps the batch on the
-    batch axes and d whole."""
+    blocks (Megatron-SP). ``decode_mode`` (``steps.make_decode_step``'s
+    policy) is weight-stationary serving: a decode step's residual lies d
+    on ``data`` (``act_residual``), so every weight product contracts the
+    rank's ``data`` slice with its own shard and only activation-sized
+    partial sums move (``psum_to_batch`` and the layout moves below); no
+    weight is gathered but where the reference's program gathers one
+    (the MoE experts, RWKV-6, Griffin's gates)."""
 
     active: bool = True
     batch_axes: tuple = (DATA,)          # axes sharding the batch dim
@@ -693,3 +702,52 @@ def ppermute(xs, mesh: DeviceMesh, axis: str, perm) -> PerRank:
         for src, dst in perm:
             out[g[dst]] = xs[g[src]].to(mesh.devices[g[dst]], copy=True)
     return out
+
+
+# ---------------------------------------------------------------------------
+# The weight-stationary decode layout (``Policy.decode_mode``)
+# ---------------------------------------------------------------------------
+# A decode step's residual lies as ``act_residual`` says, d on ``data``,
+# replicated over ``model``: every rank holds its ``data`` slice of d for
+# the rows of its batch axes other than ``data`` (``pod``, pure data
+# parallelism: the reference's program, too, computes on a pod's rows).
+# The state a step reads (caches, flash-decode) keeps its rows on all the
+# batch axes. These move an activation between the two layouts, or sum the
+# partial products of weights contracted over their ``data`` rows into the
+# batch layout.
+
+
+def psum_to_batch(xs, policy: Policy) -> PerRank:
+    """Partial sums over ``data`` of the residual's rows → the sums of the
+    rank's batch rows: a reduce-scatter over ``data`` on dim 0 (a psum when
+    the batch does not lie on ``data``)."""
+    if DATA in policy.batch_axes:
+        return psum_scatter(xs, policy.mesh, DATA, 0)
+    return psum(xs, policy.mesh, DATA)
+
+
+def stationary_to_batch(xs, policy: Policy) -> PerRank:
+    """(rows, …, d/|data|) → the rank's batch rows, whole d: an all_to_all
+    over ``data`` (an all_gather of d when the batch does not lie on
+    ``data``)."""
+    if DATA in policy.batch_axes:
+        return all_to_all(xs, policy.mesh, DATA, 0, -1)
+    return all_gather(xs, policy.mesh, DATA, -1)
+
+
+def batch_to_stationary(xs, policy: Policy) -> PerRank:
+    """The inverse of ``stationary_to_batch``."""
+    mesh = policy.mesh
+    if DATA in policy.batch_axes:
+        return all_to_all(xs, mesh, DATA, -1, 0)
+    n = axis_size(mesh, DATA)
+    return PerRank(x.chunk(n, dim=-1)[axis_index(mesh, r, DATA)]
+                   for r, x in enumerate(xs))
+
+
+def gather_batch(xs, policy: Policy) -> PerRank:
+    """The rank's batch rows → the residual's rows (an all_gather over
+    ``data`` when the batch lies on it)."""
+    if DATA in policy.batch_axes:
+        return all_gather(xs, policy.mesh, DATA, 0)
+    return PerRank(xs)

@@ -382,41 +382,47 @@ def test_whisper_indivisible_frames_keep_the_residual_whole(float32_compute):
 
 
 def expected_decode_collectives(cfg, data: int, m: int) -> dict:
-    """Collective calls of one decode step on a (data, m) mesh, m > 1.
+    """Collective calls of one weight-stationary decode step on a (data, m)
+    mesh, m > 1 (the batch on ``data``).
 
-    Every block's FSDP gathers its weight matrices over ``data`` (rwkv 8:
-    five time-mix, three channel-mix; rec_mlp 8: w_y, w_x, w_o, w_a, w_i and
-    the MLP's three; attn_mlp 7; a whisper decoder layer 10: two attention
-    blocks' four and the MLP's two), plus the embedding for the lookup and
-    for a tied head (an untied ``lm_head`` instead) and whisper's
-    ``pos_embed`` rows. Over ``model``: the lookup's psum and the vocab
-    all_gather; per RWKV-6 block the two shift all_gathers, two wkv
-    all_to_alls, the ``w_o`` psum, the channel mix's psum_scatter and
-    all_gather; per Griffin block the gate input's all_gather and two
-    psums (``w_o``, MLP); per flash-decode attention three all_gathers (q,
-    k, v), a pmax and two psums, plus ``wo`` and the MLP's psums, and the
-    MQA's / unsplit K/V heads' two all_gathers of ``wk`` / ``wv``; whisper
-    adds the cross-attention's psum."""
+    Over ``data``, activations only: each RMSNorm's psum of the sum of
+    squares (a LayerNorm's two: the sum, the centred squares), the MLP's
+    gate/up psum, a reduce-scatter of each block's column products (q/k/v,
+    Griffin's w_y/w_x, whisper's cross q) into the batch rows and an
+    all_gather of the rows before each row-parallel product (wo, Griffin's
+    w_o, the cross wo); the tokens' all_gather (whisper's positions too),
+    the final norm and the logits' reduce-scatter. RWKV-6 keeps its eight
+    weight gathers and moves the residual by two all_to_alls; Griffin
+    gathers its two gate matrices. Over ``model``: the lookup's psum and
+    the vocab all_gather; per flash-decode attention one all_gather of
+    q/k/v, a pmax and two psums, plus ``wo`` and the MLP's psums; per
+    Griffin block the gate input's all_gather and two psums (``w_o``,
+    MLP); per RWKV-6 block the two shift all_gathers, two wkv all_to_alls,
+    the ``w_o`` psum, the channel mix's psum_scatter and all_gather;
+    whisper adds the cross-attention's psum."""
     kinds, n_groups, tail = transformer._plan(cfg) if cfg.family != "encdec" \
         else (("dec",), cfg.n_layers, ())
     blocks = list(kinds) * n_groups + list(tail)
-    kv_gather = 0 if cfg.n_kv_heads % m == 0 else 2
-    per = {"rwkv": {"all_gather/data": 8, "all_gather/model": 3,
-                    "all_to_all/model": 2, "psum/model": 1,
-                    "psum_scatter/model": 1},
-           "rec_mlp": {"all_gather/data": 8, "all_gather/model": 1,
+    norm = 2 if cfg.norm == "layernorm" else 1
+    per = {"rwkv": {"all_gather/data": 8, "all_to_all/data": 2,
+                    "all_gather/model": 3, "all_to_all/model": 2,
+                    "psum/model": 1, "psum_scatter/model": 1},
+           "rec_mlp": {"all_gather/data": 3, "psum/data": 2 * norm + 1,
+                       "psum_scatter/data": 1, "all_gather/model": 1,
                        "psum/model": 2},
-           "attn_mlp": {"all_gather/data": 7, "all_gather/model": 3 + kv_gather,
+           "attn_mlp": {"all_gather/data": 1, "psum/data": 2 * norm + 1,
+                        "psum_scatter/data": 1, "all_gather/model": 1,
                         "pmax/model": 1, "psum/model": 4},
-           "dec": {"all_gather/data": 10, "all_gather/model": 3 + kv_gather,
+           "dec": {"all_gather/data": 2, "psum/data": 3 * norm + 1,
+                   "psum_scatter/data": 2, "all_gather/model": 1,
                    "pmax/model": 1, "psum/model": 5}}
-    out = {"all_gather/data": 2 + (cfg.family == "encdec"),
-           "psum/model": 1, "all_gather/model": 1}
+    out = {"all_gather/data": 1 + (cfg.family == "encdec"), "psum/data": norm,
+           "psum_scatter/data": 1, "psum/model": 1, "all_gather/model": 1}
     for kind in blocks:
         for k, n in per[kind].items():
             out[k] = out.get(k, 0) + n
     if data == 1:
-        out.pop("all_gather/data")
+        out = {k: n for k, n in out.items() if not k.endswith("/data")}
     return out
 
 
