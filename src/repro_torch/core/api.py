@@ -18,6 +18,7 @@ from repro_torch.core import indexing, tm
 from repro_torch.core.engines import cache_provider, get_engine, registered_engines
 from repro_torch.core.types import (
     TMConfig, TMState, VoteAccumulator, include_mask, init_tm, resolve_device)
+from repro_torch.spans import span
 
 DEFAULT_ENGINE = "indexed"
 
@@ -122,9 +123,10 @@ def sync_caches(bundle: TMBundle, new_state: TMState,
                 buf: indexing.EventBuffer) -> TMBundle:
     """New bundle whose caches absorbed the buffer's events through their
     providers; the overflow counter accumulates the buffer's."""
-    caches = {key: cache_provider(key).update_cache(
-                  bundle.cfg, cache, new_state, buf.events)
-              for key, cache in bundle.caches.items()}
+    with span("tm.index_sync.apply"):
+        caches = {key: cache_provider(key).update_cache(
+                      bundle.cfg, cache, new_state, buf.events)
+                  for key, cache in bundle.caches.items()}
     overflow = buf.overflow
     if bundle.event_overflow is not None:
         overflow = overflow + bundle.event_overflow
@@ -150,10 +152,12 @@ def train_step(bundle: TMBundle, xs, ys, draws, mask=None, *,
     no update. Returns a new bundle; the input bundle is not modified.
     """
     cfg = bundle.cfg
-    old_inc = include_mask(cfg, bundle.state)
+    with span("tm.index_sync.diff"):
+        old_inc = include_mask(cfg, bundle.state)
     update = (tm.update_batch_parallel if parallel
               else tm.update_batch_sequential)
     new_state = update(cfg, bundle.state, xs, ys, draws, mask=mask)
-    buf = indexing.events_from_transition(
-        old_inc, include_mask(cfg, new_state), max_events)
+    with span("tm.index_sync.diff"):
+        buf = indexing.events_from_transition(
+            old_inc, include_mask(cfg, new_state), max_events)
     return sync_caches(bundle, new_state, buf)

@@ -59,6 +59,7 @@ from repro_torch.core.api import DEFAULT_ENGINE, TMBundle, cache_keys_for
 from repro_torch.core.engines import cache_provider, get_engine
 from repro_torch.core.types import (
     TMConfig, TMState, VoteAccumulator, clause_polarity, include_mask)
+from repro_torch.spans import span
 
 # Sequential-composition rule names (the reference's resolution table).
 COMPOSED_EVEN = "composed_even"      # n_local divides by data_shards
@@ -532,11 +533,13 @@ def make_sharded_train_step(cfg: TMConfig, mesh, *, engines=None,
             def sync(d, dev, c=c):
                 old = bundle.ranks[d][c]
                 st = TMState(ta_state=shards[c].to(dev))
-                buf = indexing.events_from_transition(
-                    include_mask(cfg, old.state), include_mask(cfg, st),
-                    max_events)
-                caches = {k: cache_provider(k).update_cache(
-                    cfg, old.caches[k], st, buf.events) for k in keys}
+                with span("tm.index_sync.diff"):
+                    buf = indexing.events_from_transition(
+                        include_mask(cfg, old.state), include_mask(cfg, st),
+                        max_events)
+                with span("tm.index_sync.apply"):
+                    caches = {k: cache_provider(k).update_cache(
+                        cfg, old.caches[k], st, buf.events) for k in keys}
                 return st, caches, buf.overflow
 
             for d, (st, caches, dropped) in enumerate(

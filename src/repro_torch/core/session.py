@@ -42,6 +42,7 @@ from repro_torch.core.api import DEFAULT_ENGINE, init_bundle
 from repro_torch.core.engines import get_engine, registered_engines
 from repro_torch.core.types import TMConfig, TMState, init_tm, resolve_device
 from repro_torch.launch.mesh import DeviceMesh, make_mesh
+from repro_torch.spans import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -243,23 +244,25 @@ class TMSession:
 
         Under ``async_votes=K`` the step reduces no vote; the session counts
         steps and runs the refresh (one reduction) after every K-th."""
-        xs = _as_input(xs, self.cfg.n_features, self.device)
-        if self._step is None:
-            return api.train_step(bundle, xs, ys, draws, mask,
-                                  parallel=self.parallel,
-                                  max_events=self.max_events)
-        d = self.topology.data_shards
-        if self.parallel and xs.shape[0] % d:
-            raise ValueError(
-                f"batch size {xs.shape[0]} does not divide over "
-                f"data_shards={d} (batch-parallel learning shards the "
-                "batch); pick a divisible batch_size")
-        bundle = self._step(bundle, xs, ys, draws, mask)
-        if self._refresh is not None:
-            self._pending_steps += 1
-            if self._pending_steps >= self.topology.async_votes:
-                bundle = self.refresh_votes(bundle)
-        return bundle
+        with span("tm.train_step"):
+            with span("tm.train_step.input"):
+                xs = _as_input(xs, self.cfg.n_features, self.device)
+            if self._step is None:
+                return api.train_step(bundle, xs, ys, draws, mask,
+                                      parallel=self.parallel,
+                                      max_events=self.max_events)
+            d = self.topology.data_shards
+            if self.parallel and xs.shape[0] % d:
+                raise ValueError(
+                    f"batch size {xs.shape[0]} does not divide over "
+                    f"data_shards={d} (batch-parallel learning shards the "
+                    "batch); pick a divisible batch_size")
+            bundle = self._step(bundle, xs, ys, draws, mask)
+            if self._refresh is not None:
+                self._pending_steps += 1
+                if self._pending_steps >= self.topology.async_votes:
+                    bundle = self.refresh_votes(bundle)
+            return bundle
 
     def refresh_votes(self, bundle):
         """Run the stale-vote refresh now (and restart the K-step count):
@@ -286,10 +289,13 @@ class TMSession:
         """(B, o) inputs → (B, m) int32 class scores through a registry
         engine, on this session's device (sharded: ``B`` must be a
         multiple of ``data_shards``)."""
-        x = _as_input(x, self.cfg.n_features, self.device)
-        if self.mesh is None:
-            return api.bundle_scores(bundle, x, engine=engine)
-        return self._sharded_scores_fn(engine)(bundle, x)
+        with span("tm.scores"):
+            with span("tm.scores.input"):
+                x = _as_input(x, self.cfg.n_features, self.device)
+            with span("tm.scores.engine"):
+                if self.mesh is None:
+                    return api.bundle_scores(bundle, x, engine=engine)
+                return self._sharded_scores_fn(engine)(bundle, x)
 
     def predict(self, bundle, x, *,
                 engine: str = DEFAULT_ENGINE) -> torch.Tensor:

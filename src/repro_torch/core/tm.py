@@ -33,6 +33,7 @@ from repro_torch.core.types import (
     literals_from_input,
 )
 from repro_torch.kernels import backend as kbackend
+from repro_torch.spans import span
 
 
 def dense_clause_outputs(cfg: TMConfig, state: TMState, x: torch.Tensor, *,
@@ -332,53 +333,66 @@ def learn_batch(cfg: TMConfig, groups: list[list[ShardRows]], xs, ys,
     ``reduce`` of the ranks' partial votes (a list in, one total per rank
     out); a single rank needs none.
     """
-    first = groups[0][0].ta
-    xs = torch.as_tensor(xs).to(device=first.device, dtype=torch.uint8)
-    batch = xs.shape[0]
-    if batch % len(groups):
-        raise ValueError(f"batch of {batch} does not split over "
-                         f"{len(groups)} data ranks")
-    per_group = batch // len(groups)
-    lits = literals_from_input(xs)                    # (B, 2o)
-    words = pack_bits(lits)                           # (B, W)
-    on_device = {first.device: (lits, words)}
-    for r in (r for g in groups for r in g):
-        if r.ta.device not in on_device:
-            on_device[r.ta.device] = (lits.to(r.ta.device),
-                                      words.to(r.ta.device))
-    ys = _host_list(ys, batch)
-    valid = ([True] * batch if mask is None
-             else [bool(v) for v in _host_list(mask, batch)])
-    negs, rounds = _batch_draws(cfg, draws, batch)
-    for b in range(batch):
-        d = rounds(b)
-        if not valid[b]:
-            continue
-        rows = groups[b // per_group] if parallel else groups[0]
-        y = ys[b]
-        for cls, full, positive in ((y, d.target, True),
-                                    (_negative_class(y, negs[b]), d.other,
-                                     False)):
-            outs, votes = [], []
-            for r in rows:
-                c_out, v = _round_vote(cfg, r.ta[cls],
-                                       on_device[r.ta.device][1][b:b + 1],
-                                       r.pol)
-                outs.append(c_out)
-                votes.append(v)
-            sums = _vote_sums(rows, votes, cls, reduce)
-            for r, c_out, vote_sum in zip(rows, outs, sums):
-                lit = on_device[r.ta.device][0][b]
-                if not parallel:
-                    _round_feedback(cfg, r.ta[cls], lit, c_out, vote_sum,
-                                    r.rands(full), positive, r.pol,
-                                    clause_mask=r.clause_mask, out=r.ta[cls])
-                    continue
-                new = _round_feedback(cfg, r.ta[cls], lit, c_out, vote_sum,
-                                      r.rands(full), positive, r.pol,
-                                      clause_mask=r.clause_mask,
-                                      out=r.scratch)
-                r.acc[cls].add_(new).sub_(r.ta[cls])
+    with span("tm.learn"):
+        first = groups[0][0].ta
+        xs = torch.as_tensor(xs).to(device=first.device, dtype=torch.uint8)
+        batch = xs.shape[0]
+        if batch % len(groups):
+            raise ValueError(f"batch of {batch} does not split over "
+                             f"{len(groups)} data ranks")
+        per_group = batch // len(groups)
+        lits = literals_from_input(xs)                    # (B, 2o)
+        words = pack_bits(lits)                           # (B, W)
+        on_device = {first.device: (lits, words)}
+        for r in (r for g in groups for r in g):
+            if r.ta.device not in on_device:
+                on_device[r.ta.device] = (lits.to(r.ta.device),
+                                          words.to(r.ta.device))
+        ys = _host_list(ys, batch)
+        valid = ([True] * batch if mask is None
+                 else [bool(v) for v in _host_list(mask, batch)])
+        with span("tm.draws"):
+            negs, rounds = _batch_draws(cfg, draws, batch)
+        for b in range(batch):
+            with span("tm.draws"):
+                d = rounds(b)
+            if not valid[b]:
+                continue
+            rows = groups[b // per_group] if parallel else groups[0]
+            y = ys[b]
+            for cls, full, positive in ((y, d.target, True),
+                                        (_negative_class(y, negs[b]), d.other,
+                                         False)):
+                with span("tm.round"):
+                    _class_round(cfg, rows, cls, full, positive, b,
+                                 on_device, parallel, reduce)
+
+
+def _class_round(cfg: TMConfig, rows: list[ShardRows], cls: int,
+                 full: FeedbackRands, positive: bool, b: int, on_device: dict,
+                 parallel: bool, reduce) -> None:
+    """One class round of sample ``b`` over the ranks ``rows``: every
+    rank's vote half, the round's vote, then every rank's feedback half."""
+    outs, votes = [], []
+    for r in rows:
+        with span("tm.round.vote"):
+            c_out, v = _round_vote(cfg, r.ta[cls],
+                                   on_device[r.ta.device][1][b:b + 1], r.pol)
+        outs.append(c_out)
+        votes.append(v)
+    sums = _vote_sums(rows, votes, cls, reduce)
+    for r, c_out, vote_sum in zip(rows, outs, sums):
+        lit = on_device[r.ta.device][0][b]
+        with span("tm.round.feedback"):
+            if not parallel:
+                _round_feedback(cfg, r.ta[cls], lit, c_out, vote_sum,
+                                r.rands(full), positive, r.pol,
+                                clause_mask=r.clause_mask, out=r.ta[cls])
+                continue
+            new = _round_feedback(cfg, r.ta[cls], lit, c_out, vote_sum,
+                                  r.rands(full), positive, r.pol,
+                                  clause_mask=r.clause_mask, out=r.scratch)
+            r.acc[cls].add_(new).sub_(r.ta[cls])
 
 
 def _rows(cfg: TMConfig, ta: torch.Tensor, pol, clause_start, clause_mask,
