@@ -41,7 +41,10 @@ failure, and at once when no CUDA device is present):
    least once per served batch. Launch counts are set to 0 just before each
    serve and read just after.
 4. **Learning kernels vs plain**, on the card: ``clause_outputs_packed`` at
-   (B, m) = (1, 1), the training round's shape, and (32, 10); ``ta_update``
+   (B, m) = (1, 1) and (32, 10); ``round_vote`` (the learning round's vote
+   half, from the states) on one class row, for a request row and with
+   every literal true (every clause read to its end), timed against the
+   bytes those inputs need and against a read of the whole row; ``ta_update``
    on one (2000, 1568) class row for a target and a negative round, with a
    mix of update gates and a quarter of the uniforms exactly at a float32
    threshold or one ulp from it. Each must equal its plain version bit for
@@ -256,7 +259,7 @@ failure, and at once when no CUDA device is present):
    production mesh, depth cut to ``TRACE_PRODUCTION_LAYERS``, printed,
    not gated. The LM parts launch no TM kernel.
 6. Print ``{"lm": {...}}`` (the numbers of phases 10–15, each beside its bound),
-   ``{"kernels": [...]}`` (all four kernels; ``launches`` from
+   ``{"kernels": [...]}`` (all five kernels; ``launches`` from
    phases 3 and 5, ``sharded_launches`` from phase 7, ``phase8_launches``
    from phase 8, ``phase9_launches`` from phase 9, and ``tm_imdb`` with the
    kernel's shape, error and times at the IMDb width), the card's name and
@@ -913,6 +916,7 @@ def learning_kernels(cfg, ta, inc, gen, dev, card, sms, docs=None) -> dict:
     lit = literals_from_input(x)[0]
     cout = kernel(words_all[:1], packed_literals(x))[0, 0]
     pol = clause_polarity(cfg, dev)
+    rows.update(round_vote_rows(cfg, row, packed_literals(x)[0], pol, card))
     active = torch.rand(n, generator=gen, device=dev) < 0.5
     kw = dict(n_states=cfg.n_states, s=cfg.s,
               boost_true_positive=cfg.boost_true_positive)
@@ -960,6 +964,62 @@ def learning_kernels(cfg, ta, inc, gen, dev, card, sms, docs=None) -> dict:
     return rows
 
 
+def round_vote_rows(cfg, row, words, pol, card) -> dict:
+    """``round_vote`` on one class row against its plain body, for the
+    request row's literal ``words`` (a clause or so true: most clauses are
+    left at their first falsifier) and with every literal true (no
+    falsifier: every clause read to its end). Bounds: the bytes these
+    inputs need (each clause's states up to its first falsifier, the
+    literal words, pol, the outputs and the vote) and those of a whole
+    row's read, ``n·2o·2 + 4W + 5n + 4``. Device ms with the row cold (eight
+    copies cycled) and hot in L2."""
+    from repro_torch.core.bitpack import unpack_bits
+    from repro_torch.kernels import clause_eval
+
+    n, L, w = row.shape[0], row.shape[1], words.shape[0]
+    kw = dict(n_states=cfg.n_states)
+    kernel, plain = clause_eval.round_vote, clause_eval.round_vote_ref
+    full = n * L * 2 + 4 * w + 5 * n + 4
+    rows, req = {}, {}
+    for case, lw in (("request", words), ("full", torch.full_like(words, -1))):
+        (got, vote), (want, want_vote) = kernel(row, lw, pol, **kw), plain(
+            row, lw, pol, **kw)
+        torch.cuda.synchronize()
+        err = int((got.to(torch.int32) - want.to(torch.int32)).abs().max())
+        require(torch.equal(got, want) and torch.equal(vote, want_vote),
+                f"round_vote ({case}): kernel != plain (max |diff| {err}, "
+                f"vote {int(vote)} against {int(want_vote)})")
+        falsifier = (row > cfg.n_states) & ~unpack_bits(lw, L).bool()
+        read = torch.where(falsifier.any(1), falsifier.int().argmax(1) + 1, L)
+        states = int(read.sum())
+        need = states * 2 + 4 * w + 5 * n + 4
+        sets = [(row.clone(), lw, pol) for _ in range(8)]
+        ms = cold_device_ms(lambda *a: kernel(*a, **kw), sets, 8)
+        del sets
+        hot_ms = device_ms(lambda: kernel(row, lw, pol, **kw), 50)
+        plain_ms = device_ms(lambda: plain(row, lw, pol, **kw), 10)
+        wrapper_ms = call_ms(lambda: kernel(row, lw, pol, **kw), 50)
+        bound_ms, bound_by = bound(need, 2 * states)  # a compare and an AND a state
+        full_ms, _ = bound(full, 2 * n * L)
+        true = int(want.sum())
+        plan = clause_eval.round_vote_plan(
+            n, L, L % 8 == 0 and row.data_ptr() % 16 == 0)
+        rows[("round_vote", case)] = dict(
+            max_abs_err=err, ms=ms, hot_ms=hot_ms, plain_ms=plain_ms,
+            bound_ms=bound_ms, bound_by=bound_by, full_bound_ms=full_ms,
+            call_ms=wrapper_ms, true_clauses=true, states_needed=states)
+        if case == "request":
+            req = dict(request_ms=ms, request_bound_ms=bound_ms)
+        print(f"round_vote ({n}, {L}), {case}: {true} of {n} clauses true, "
+              f"{states} of {n * L} states needed; equal to plain; device ms: "
+              f"kernel {ms:.4f} cold, {hot_ms:.4f} hot, plain {plain_ms:.4f}; "
+              f"bound {bound_ms:.5f} ({bound_by}, {need / 1e6:.3f} MB; whole "
+              f"row {full_ms:.5f}, {full / 1e6:.3f} MB); per call from Python "
+              f"{wrapper_ms:.4f} ms; {plan} [{card}]")
+    rows[("round_vote", "full")].update(req)
+    return rows
+
+
 def profile_step(session, bundle, xb, yb, dev, card) -> None:
     """Trace one sequential train step with ``torch.profiler``: the device's
     busy share of the step (kernel-level events only), device time by
@@ -1001,14 +1061,15 @@ def profile_step(session, bundle, xb, yb, dev, card) -> None:
 
 
 class Counts:
-    """The four kernels' launch counters: ``reset`` sets them to 0 just
+    """The five kernels' launch counters: ``reset`` sets them to 0 just
     before a run of the main path, ``read`` takes them just after (and adds
     them to the phase's totals)."""
 
     def __init__(self):
         from repro_torch.kernels import clause_eval, indexed, ta_update
         self.kernels = (indexed.indexed_votes, clause_eval.clause_votes_packed,
-                        clause_eval.clause_outputs_packed, ta_update.ta_update)
+                        clause_eval.clause_outputs_packed, clause_eval.round_vote,
+                        ta_update.ta_update)
         self.total = {k.__name__: 0 for k in self.kernels}
 
     def reset(self) -> None:
@@ -1020,6 +1081,16 @@ class Counts:
         for name, v in got.items():
             self.total[name] += v
         return got
+
+
+def require_launched(launched: dict, where: str,
+                     unused=("clause_outputs_packed",)) -> None:
+    """Every kernel in ``launched`` launched but those ``unused``, which
+    launched none: no learning round packs include words for
+    ``clause_outputs_packed`` (the kernel of ``ops.tm_clause_outputs``)."""
+    for name, n in launched.items():
+        require((n == 0) if name in unused else (n > 0),
+                f"{where} launched {name} {n} times")
 
 
 def train(cfg, inc, gen, dev, card) -> dict:
@@ -1066,11 +1137,13 @@ def train(cfg, inc, gen, dev, card) -> dict:
         torch.cuda.synchronize()
         seq_s.append(time.perf_counter() - t0)
         events.append(int((include_mask(cfg, machine.state) != before).sum()))
-    require(clause_eval.clause_outputs_packed.launches
-            == ta_update.ta_update.launches == 2 * b_size * SEQ_STEPS,
-            f"sequential steps: {clause_eval.clause_outputs_packed.launches} "
-            f"clause_outputs and {ta_update.ta_update.launches} ta_update "
-            f"launches, want {2 * b_size * SEQ_STEPS} each")
+    require(clause_eval.round_vote.launches == ta_update.ta_update.launches
+            == 2 * b_size * SEQ_STEPS
+            and clause_eval.clause_outputs_packed.launches == 0,
+            f"sequential steps: {clause_eval.round_vote.launches} round_vote, "
+            f"{ta_update.ta_update.launches} ta_update and "
+            f"{clause_eval.clause_outputs_packed.launches} clause_outputs "
+            f"launches, want {2 * b_size * SEQ_STEPS}, as many and 0")
     batch_parallel.bundle = machine.bundle
     before = include_mask(cfg, machine.state)
     torch.cuda.synchronize()
@@ -1081,8 +1154,9 @@ def train(cfg, inc, gen, dev, card) -> dict:
     events.append(int((include_mask(cfg, batch_parallel.state) != before).sum()))
     accuracy = batch_parallel.evaluate(x_test, y_test, engine="indexed")
     launches = counts.read()
-    require(launches["clause_outputs_packed"] == launches["ta_update"]
-            == 2 * b_size * (SEQ_STEPS + 1),
+    require(launches["round_vote"] == launches["ta_update"]
+            == 2 * b_size * (SEQ_STEPS + 1)
+            and launches["clause_outputs_packed"] == 0,
             f"training launches {launches}: want 2·B per step")
     require(launches["indexed_votes"] >= 1,
             f"evaluate(engine='indexed') launched no indexed_votes: {launches}")
@@ -1246,6 +1320,12 @@ def shard_kernels(cfg, bundle1, ta0, x, gen, dev, card) -> None:
                   clause_eval.clause_outputs_ref(w, lw[:b]), f"(B, m)=({b}, {mm})")
         row = ta[0].contiguous()
         cout = clause_eval.clause_outputs_packed(learn_words[:1], lw[:1])[0, 0]
+        out, vote = clause_eval.round_vote(row, lw[0], pol, n_states=cfg.n_states)
+        want_out, want_vote = clause_eval.round_vote_ref(row, lw[0], pol,
+                                                         n_states=cfg.n_states)
+        check("round_vote", out, want_out, "outputs")
+        check("round_vote", vote, want_vote, "vote")
+        check("round_vote", out, cout, "outputs against clause_outputs_packed")
         active = (torch.rand(n, generator=gen, device=dev) < 0.5) & ~pad
         u = edge_uniforms((n, L), thresholds, gen, dev)
         changed = 0
@@ -1260,7 +1340,7 @@ def shard_kernels(cfg, bundle1, ta0, x, gen, dev, card) -> None:
             changed += int((got != row).sum())
         require(changed > 0, f"ta_update at n={n}: neither round changed a cell")
         print(f"shard kernels n={n} ({SHARD_PAD_ROWS} padding rows: polarity "
-              f"0, inactive): all four equal to plain, max |diff| {errs}; "
+              f"0, inactive): all five equal to plain, max |diff| {errs}; "
               f"votes at B=1, {SHARD_ROWS // 3}, {SHARD_ROWS}; clause outputs "
               f"at (B, m)=(1, 1), (32, {cfg.n_classes}); ta_update on "
               f"({n}, {L}), padding rows unchanged [{card}]")
@@ -1369,7 +1449,8 @@ def sharded(cfg, state, inc, trained, gen, dev, card) -> dict:
         _shard_caches_match(cfg, machine.bundle, m1.bundle, where)
         ranks = c if parallel or not s.geometry.composes else c * d
         want = 2 * b_size * ranks * SHARD_STEPS
-        require(got["clause_outputs_packed"] == got["ta_update"] == want,
+        require(got["round_vote"] == got["ta_update"] == want
+                and got["clause_outputs_packed"] == 0,
                 f"{where}: launches {got}, want {want} of each learning kernel "
                 f"(2·B per step on each of {ranks} ranks)")
         comp = "batch_parallel" if parallel else s.geometry.composition
@@ -1459,8 +1540,7 @@ def sharded(cfg, state, inc, trained, gen, dev, card) -> dict:
               f"equal to Topology(1) dense, {n_launch} kernel launches; bucket "
               f"B={top} {ms:.4f} ms per call vs Topology(1) {ms1:.4f} ms "
               f"({c * d} shards on one card) [{card}]")
-    for name, n in counts.total.items():
-        require(n > 0, f"phase 7 never launched {name}")
+    require_launched(counts.total, "phase 7")
     return counts.total
 
 
@@ -1532,7 +1612,8 @@ def train_steps(cfg, ta0, batches, max_events, counts, seed, dev):
         steps.append(before + (include_mask(cfg, machine.state),))
     launched = counts.read()
     want = 2 * TRAIN_BATCH * len(batches)
-    require(launched["clause_outputs_packed"] == launched["ta_update"] == want,
+    require(launched["round_vote"] == launched["ta_update"] == want
+            and launched["clause_outputs_packed"] == 0,
             f"training launches {launched}: want {want} of each learning kernel")
     return machine, times, launched, steps
 
@@ -1685,6 +1766,7 @@ def imdb(gen, counts, dev, card, sms) -> dict:
     for key, shape in ((("indexed_votes", TRAIN_BATCH), f"B={TRAIN_BATCH}, lists ({m}, {L}, {bundle.index.capacity}), pos ({m}, {n}, {L})"),
                        (("clause_votes_packed", TRAIN_BATCH), f"B={TRAIN_BATCH}, words ({m}, {n}, {w}), {plan.n_chunks} chunks"),
                        (("clause_outputs_packed", 1), f"(1, 1, {n}, {w})"),
+                       (("round_vote", "full"), f"({n}, {L}), every literal true"),
                        (("ta_update", True), f"({n}, {L}), target round")):
         rows[key]["shape"] = shape
 
@@ -1830,7 +1912,7 @@ def round_vs_numpy_oracle(counts, dev, card) -> None:
                 row = torch.from_numpy(ta[cls]).to(dev)
                 tlit = torch.from_numpy(lit).to(dev)
                 cout, vote = tm._round_vote(cfg, row,
-                                            bitpack.pack_bits(tlit[None]), pol)
+                                            bitpack.pack_bits(tlit), pol)
                 got = tm._round_feedback(
                     cfg, row, tlit, cout, vote,
                     tm.FeedbackRands(torch.from_numpy(gate).to(dev),
@@ -1871,7 +1953,7 @@ def round_vs_numpy_oracle(counts, dev, card) -> None:
         require(np.array_equal(votes[i], ref.votes_ref(outs[1][i])),
                 f"clause_votes != votes_ref (sample {i})")
     require(np.unique(scores).size > 1, "oracle scores all equal")
-    for kname in ("indexed_votes", "clause_outputs_packed", "ta_update"):
+    for kname in ("indexed_votes", "round_vote", "ta_update"):
         require(launched[kname] > 0, f"phase 9 (b) never launched {kname}")
     n_empty = int((~(ta > cfg.n_states).any(-1)).sum())
     print(f"numpy oracle (m, n, o)=({m}, {n}, {o}), 2o={2 * o} (partial last "
@@ -1912,8 +1994,10 @@ def examples(counts, card) -> None:
             wall = time.perf_counter() - t0
             launched = counts.read()
             peak = torch.cuda.max_memory_allocated() - resident
-        for kname in ("clause_outputs_packed", "ta_update", "indexed_votes"):
+        for kname in ("round_vote", "ta_update", "indexed_votes"):
             require(launched[kname] > 0, f"{name} never launched {kname}")
+        require(launched["clause_outputs_packed"] == 0,
+                f"{name} packed include words: {launched}")
         out[name].update(wall_s=wall, peak_gb=peak / 1e9, launches=launched)
     q, t = out["torch_quickstart"], out["torch_tm_mnist"]
     require(q["event_overflow"] == 0, "quickstart: event buffer overflowed")
@@ -2032,8 +2116,7 @@ def phase9(cfg, state, inc, trained, gen, dev, card) -> dict:
     round_vs_numpy_oracle(counts, dev, card)
     examples(counts, card)
     task_engines(cfg, trained, counts, dev, card)
-    for kname, launched in counts.total.items():
-        require(launched > 0, f"phase 9 never launched {kname}")
+    require_launched(counts.total, "phase 9", unused=())
     print(f"phase 9 launches: {counts.total}")
     return counts.total
 
@@ -2676,7 +2759,7 @@ def phase11(dev, card) -> dict:
             f"the LM path launched a TM kernel: {launched}")
     lm["phase11_tm_kernel_launches"] = launched
     print(f"phase 11 launches: {launched} (the MoE, RWKV and Griffin paths "
-          f"reach no Pallas kernel of the reference, so none of the four; "
+          f"reach no Pallas kernel of the reference, so none of the five; "
           f"{resident:.3f} GB resident before it)")
     return lm
 
@@ -3084,7 +3167,7 @@ def phase12(dev, card) -> dict:
             f"the LM path launched a TM kernel: {launched}")
     lm["phase12_tm_kernel_launches"] = launched
     print(f"phase 12 launches: {launched} (whisper and LM training reach no "
-          f"Pallas kernel of the reference, so none of the four; "
+          f"Pallas kernel of the reference, so none of the five; "
           f"{resident:.3f} GB resident before it)")
     return lm
 
@@ -3781,7 +3864,7 @@ def phase13(dev, card) -> dict:
     require(not any(counts.total.values()),
             f"the sharded LM path launched a TM kernel: {counts.total}")
     print(f"phase 13 launches: {counts.total} (the sharded LM path reaches no "
-          f"Pallas kernel of the reference, so none of the four; "
+          f"Pallas kernel of the reference, so none of the five; "
           f"{resident:.3f} GB resident before it)")
     return {"phase13": out}
 
@@ -3838,8 +3921,7 @@ def trace_tm_routes(counts, dev, card) -> dict:
                 recorded[k] += v
     require(launched == recorded, f"TM kernel launches {launched} against "
             f"the records' {recorded}")
-    require(all(v > 0 for v in launched.values()),
-            f"a TM kernel never launched in the dry-run checks: {launched}")
+    require_launched(launched, "the dry-run checks")
     counts.reset()
     arec = dryrun.run_tm_async_checks(device=dev.type, save=False)
     async_launched = counts.read()
@@ -4087,7 +4169,7 @@ def phase10(dev, card) -> dict:
             f"the LM path launched a TM kernel: {launched}")
     lm["tm_kernel_launches"] = launched
     print(f"phase 10 launches: {launched} (the LM path reaches no Pallas "
-          f"kernel of the reference, so none of the four)")
+          f"kernel of the reference, so none of the five)")
     return lm
 
 
@@ -4222,8 +4304,7 @@ def main() -> int:
                   card)
     open_loop(cfg, counts, dev, card)
     imdb_rows = imdb(gen, counts, dev, card, sms)
-    for kname, launched in counts.total.items():
-        require(launched > 0, f"phase 8 never launched {kname}")
+    require_launched(counts.total, "phase 8")
     print(f"phase 8 launches: {counts.total}")
 
     # -- 9. oracles, wrappers, examples ------------------------------------------
@@ -4269,7 +4350,8 @@ def main() -> int:
         return {k: r[k] for k in ("shape", "max_abs_err", "ms", "plain_ms",
                                   "bound_ms", "bound_by", "call_ms",
                                   "yardstick_ms", "pos_form_ms",
-                                  "pos_stream_bound_ms") if k in r}
+                                  "pos_stream_bound_ms", "hot_ms",
+                                  "request_ms", "request_bound_ms") if k in r}
 
     kernels = []
     for kname, engine, src, replaces in (
@@ -4300,7 +4382,12 @@ def main() -> int:
                         "tm_imdb": imdb_row((kname, top))})
     # the learning kernels at the training round's shapes
     for kname, key, src, replaces in (
+            # the counterpart of _outputs_kernel on ops.tm_clause_outputs only
             ("clause_outputs_packed", ("clause_outputs_packed", 1),
+             "src/repro_torch/csrc/clause_eval.cu",
+             "src/repro/kernels/clause_eval.py:121"),
+            # the learning round's pack + _outputs_kernel + vote
+            ("round_vote", ("round_vote", "full"),
              "src/repro_torch/csrc/clause_eval.cu",
              "src/repro/kernels/clause_eval.py:121"),
             ("ta_update", ("ta_update", True), "src/repro_torch/csrc/ta_update.cu",

@@ -3,8 +3,8 @@
 
 Forward: ``dense_clause_outputs``, ``clause_votes``, ``scores``,
 ``predict``, ``accuracy``. Learning: Type I / Type II feedback, one class
-round at a time in two halves (``_round_vote``: clause outputs through the
-``clause_outputs`` primitive and the rows' partial vote; ``_round_feedback``:
+round at a time in two halves (``_round_vote``: the rows' clause outputs
+and partial vote through the ``round_vote`` primitive; ``_round_feedback``:
 the clamped vote gates the ``ta_update`` primitive), per sample
 (``update_sample``) and per batch, sequentially as the paper learns
 (``update_batch_sequential``) or batch-parallel (``update_batch_parallel``),
@@ -150,19 +150,6 @@ def draw_sample_draws(cfg: TMConfig, generator: torch.Generator,
     return SampleDraws(neg_raw=neg, target=stack(0), other=stack(1))
 
 
-def _round_clause_outputs(cfg: TMConfig, ta_row: torch.Tensor,
-                          lit_words: torch.Tensor) -> torch.Tensor:
-    """(n,) int8 clause outputs of one class row (learning semantics: an
-    empty clause gives 1) through the ``clause_outputs`` primitive.
-
-    The row's include mask is packed on every round, as the reference's
-    kernel route does (``pack_bits`` makes an int64 ``(n, W, 32)``
-    temporary). ``lit_words`` is the sample's ``(1, W)`` packed literals.
-    """
-    inc_words = pack_bits(ta_row > cfg.n_states)[None]            # (1, n, W)
-    return kbackend.resolve("clause_outputs")(inc_words, lit_words)[0, 0]
-
-
 def _reciprocal_2t(t: float) -> float:
     """float32 ``1 / (2t)``. XLA folds the reference's division by the
     constant ``2t`` into a product with this reciprocal (float32 division of
@@ -191,10 +178,14 @@ def _slice_rands(rands: FeedbackRands, start: int, n_local: int) -> FeedbackRand
 
 def _round_vote(cfg: TMConfig, ta_row: torch.Tensor, lit_words: torch.Tensor,
                 pol: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """A class round's first half: the rows' (n,) int8 clause outputs and
-    their partial vote, a 0-d int32 tensor (no host sync)."""
-    clause_out = _round_clause_outputs(cfg, ta_row, lit_words)
-    return clause_out, (clause_out.to(torch.int32) * pol).sum(dtype=torch.int32)
+    """A class round's first half: the rows' (n,) int8 clause outputs
+    (learning semantics: an empty clause gives 1) and their partial vote, a
+    0-d int32 tensor (no host sync), through the ``round_vote`` primitive.
+    ``lit_words`` is the sample's ``(W,)`` packed literals. On the CPU the
+    row's include mask is packed every round, as the reference's round
+    does; the kernel reads the states themselves."""
+    return kbackend.resolve("round_vote")(ta_row.to(torch.int16), lit_words,
+                                          pol, n_states=cfg.n_states)
 
 
 def _round_feedback(cfg: TMConfig, ta_row: torch.Tensor, lit: torch.Tensor,
@@ -376,8 +367,8 @@ def _class_round(cfg: TMConfig, rows: list[ShardRows], cls: int,
     outs, votes = [], []
     for r in rows:
         with span("tm.round.vote"):
-            c_out, v = _round_vote(cfg, r.ta[cls],
-                                   on_device[r.ta.device][1][b:b + 1], r.pol)
+            c_out, v = _round_vote(cfg, r.ta[cls], on_device[r.ta.device][1][b],
+                                   r.pol)
         outs.append(c_out)
         votes.append(v)
     sums = _vote_sums(rows, votes, cls, reduce)

@@ -13,7 +13,9 @@ fallback from the kernel to the plain body. ``TMConfig.backend`` survives
 for config and checkpoint compatibility and takes only ``'auto'``.
 
 Registered: ``clause_votes`` and ``indexed_votes`` (serving),
-``clause_outputs`` and ``ta_update`` (the learning round), and
+``clause_outputs`` (the reference's learning-round kernel, which
+``kernels/ops.py`` calls), ``ta_update`` and ``round_vote`` (the learning
+round's two halves), and
 ``index_update`` (the index's event replay), whose one PyTorch body serves
 both devices: the reference registers one XLA body on both of its routes
 too, because the replay is scatter-bound, and no kernel exists for it, so
@@ -21,9 +23,9 @@ the CUDA route is that body by design and not a fallback.
 
 Sharded topologies (``core/distributed.py``) call the same primitives on
 each rank's clause rows. Padding rows need no kernel change: the two vote
-primitives take polarity 0 for them, ``ta_update`` takes them with
-``active`` False (the clause mask), and ``clause_outputs`` is handed the
-rank's rows by its caller.
+primitives and ``round_vote`` take polarity 0 for them, ``ta_update``
+takes them with ``active`` False (the clause mask), and ``clause_outputs``
+is handed the rank's rows by its caller.
 """
 from __future__ import annotations
 
@@ -113,6 +115,14 @@ register_primitive(Primitive(
     name="ta_update",
     plain=ta_update.ta_update_ref,
     kernel=ta_update.ta_update,
+))
+
+# A class round's first half: (n,) int8 clause outputs and the 0-d int32
+# vote of one class row, from its TA states: (ta_row, lit_words, pol).
+register_primitive(Primitive(
+    name="round_vote",
+    plain=clause_eval.round_vote_ref,
+    kernel=clause_eval.round_vote,
 ))
 
 # Batched event replay into the falsification index: the same PyTorch body

@@ -23,6 +23,14 @@ for B ≥ 3 and direct for B ≤ 2, with two epilogues (see the source for
 the design). The launch geometry is chosen here, by the pure function
 :func:`launch_plan`, so that the CPU tests can check it. CPU tensors take
 the plain bodies.
+
+A third primitive, the learning round's vote half, replaces no TPU kernel:
+:func:`round_vote_ref` packs a class row's include mask and runs
+:func:`clause_outputs_ref` and the polarity sum, as the reference's round
+does; :func:`round_vote` (``round_vote_launch`` in the same source) reads
+the row's int16 states instead, and gives the clause outputs and the vote
+in one launch, a clause read only until a falsifier turns up. Its geometry
+is :func:`round_vote_plan`'s.
 """
 from __future__ import annotations
 
@@ -312,3 +320,110 @@ def clause_outputs_packed(include_packed: torch.Tensor,
 
 
 clause_outputs_packed.launches = 0
+
+
+# -- the learning round's vote half, straight from the TA states ------------
+
+VOTE_THREADS = 256
+VOTE_UNROLL = 8               # loads a lane issues before it tests them (kRoundUnroll)
+
+
+@dataclasses.dataclass(frozen=True)
+class VotePlan:
+    """Geometry of one ``round_vote_launch``: ``ks`` lanes share a clause
+    row, ``threads // ks`` clauses a block, ``grid`` blocks cover the ``n``
+    rows; ``vec`` reads 8 states a load (else one)."""
+
+    vec: bool
+    ks: int
+    threads: int
+    grid: int
+
+
+@functools.lru_cache(maxsize=256)
+def round_vote_plan(n: int, L: int, vec: bool) -> VotePlan:
+    """The launch geometry of :func:`round_vote` for ``n`` rows of ``L``
+    states (pure). A unit is 8 states on the vector route, one otherwise;
+    ``ks`` is the least power of two (at most 32) whose ``VOTE_UNROLL``
+    loads a lane cover a row's units, so a short row shares a warp with
+    others and a long one takes a warp (32 lanes) alone."""
+    if n < 1 or L < 0 or (vec and L % 8):
+        raise ValueError(f"round_vote_plan: no plan for (n, L, vec)={(n, L, vec)}")
+    units = L // 8 if vec else L
+    ks = 1
+    while ks < 32 and ks * VOTE_UNROLL < units:
+        ks *= 2
+    return VotePlan(vec=vec, ks=ks, threads=VOTE_THREADS,
+                    grid=-(-n // (VOTE_THREADS // ks)))
+
+
+def round_vote_ref(ta_row: torch.Tensor, lit_words: torch.Tensor,
+                   pol: torch.Tensor, *,
+                   n_states: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """(n, 2o) TA states + (W,) packed literal words + (n,) int32 polarity →
+    ((n,) int8 clause outputs, 0-d int32 vote) (plain PyTorch): the row's
+    include mask packed, :func:`clause_outputs_ref`, the polarity sum."""
+    # imported here: repro_torch.core imports this module's registry
+    from repro_torch.core.bitpack import pack_bits
+
+    inc_words = pack_bits(ta_row > n_states)[None]                # (1, n, W)
+    clause_out = clause_outputs_ref(inc_words, lit_words[None])[0, 0]
+    return clause_out, (clause_out.to(torch.int32) * pol).sum(dtype=torch.int32)
+
+
+@functools.cache
+def _vote_launcher():
+    p, i = ctypes.c_void_p, ctypes.c_int
+    return _build.entry("clause_eval", "round_vote_launch",
+                        [p, p, p, p, p, i, i, i, i, i, i, i, p])
+
+
+def round_vote(ta_row: torch.Tensor, lit_words: torch.Tensor,
+               pol: torch.Tensor, *,
+               n_states: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """CUDA kernel: the same contract as :func:`round_vote_ref`, in one
+    launch that reads the states themselves (nothing packed).
+
+    Takes ``ta_row`` (n, 2o) int16, ``lit_words`` (ceil(2o/32),) int32 and
+    ``pol`` (n,) int32, all contiguous on one CUDA device, and raises on
+    anything else. A row off 16-byte alignment, or 2o not a multiple of 8,
+    takes the scalar route. Launches on the current stream (a 4-byte fill,
+    then the kernel) without synchronising.
+    """
+    if not ta_row.is_cuda:
+        raise ValueError(f"round_vote: ta_row must be a CUDA tensor, got "
+                         f"{ta_row.device}")
+    dev = ta_row.device
+    if ta_row.dtype != torch.int16 or ta_row.dim() != 2:
+        raise ValueError(f"round_vote: ta_row must be (n, 2o) int16, got "
+                         f"{tuple(ta_row.shape)} {ta_row.dtype}")
+    n, L = ta_row.shape
+    if lit_words.device != dev or pol.device != dev:
+        raise ValueError(f"round_vote: operands on different devices: ta_row "
+                         f"{dev}, literals {lit_words.device}, pol {pol.device}")
+    if lit_words.dtype != torch.int32 or lit_words.shape != ((L + 31) // 32,):
+        raise ValueError(f"round_vote: literal words must be ({(L + 31) // 32},) "
+                         f"int32, got {tuple(lit_words.shape)} {lit_words.dtype}")
+    if pol.dtype != torch.int32 or pol.shape != (n,):
+        raise ValueError(f"round_vote: pol must be ({n},) int32, got "
+                         f"{tuple(pol.shape)} {pol.dtype}")
+    if not (ta_row.is_contiguous() and lit_words.is_contiguous()
+            and pol.is_contiguous()):
+        raise ValueError("round_vote: operands must be contiguous")
+    out = torch.empty(n, dtype=torch.int8, device=dev)
+    if n == 0:
+        return out, torch.zeros((), dtype=torch.int32, device=dev)
+    vote = torch.empty((), dtype=torch.int32, device=dev)
+    plan = round_vote_plan(n, L, L % 8 == 0 and ta_row.data_ptr() % 16 == 0)
+    launch = _vote_launcher()
+    with torch.cuda.device(dev):
+        code = launch(ta_row.data_ptr(), lit_words.data_ptr(), pol.data_ptr(),
+                      out.data_ptr(), vote.data_ptr(), n, L, n_states,
+                      int(plan.vec), plan.ks.bit_length() - 1, plan.threads,
+                      plan.grid, torch.cuda.current_stream().cuda_stream)
+    _build.check(code, "clause_eval")
+    round_vote.launches += 1
+    return out, vote
+
+
+round_vote.launches = 0

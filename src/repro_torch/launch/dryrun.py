@@ -159,12 +159,13 @@ def _kernel_counters():
     from repro_torch.kernels import clause_eval, indexed, ta_update
 
     return (indexed.indexed_votes, clause_eval.clause_votes_packed,
-            clause_eval.clause_outputs_packed, ta_update.ta_update)
+            clause_eval.clause_outputs_packed, clause_eval.round_vote,
+            ta_update.ta_update)
 
 
 @contextlib.contextmanager
 def kernel_launches():
-    """The four TM kernels' launches while the context is open (each
+    """The five TM kernels' launches while the context is open (each
     wrapper's count, restored after)."""
     counters = _kernel_counters()
     before = {k.__name__: k.launches for k in counters}
@@ -282,9 +283,10 @@ def run_tm_checks(*, data: int = 2, model: int = 4, n_clauses: int = 256,
                 fails.append(f"{key}: expected composition rule "
                              f"{expect_composition!r}, fired {composition!r}")
     record["train_kernel_launches"] = dict(launched)
-    learning = ("clause_outputs_packed", "ta_update")
+    learning = ("round_vote", "ta_update")
     if on_card != all(launched[k] > 0 for k in learning) or (
-            not on_card and any(launched.values())):
+            not on_card and any(launched.values())) or (
+            launched["clause_outputs_packed"] > 0):
         fails.append(f"train steps on {mesh.devices[0]}: kernel launches "
                      f"{launched}")
 

@@ -7,7 +7,9 @@ Run on a machine with an NVIDIA GPU:
 Each kernel is held against its plain PyTorch version on the same CUDA
 tensors, bit for bit (integer results, tolerance 0), over unaligned shapes,
 batches past one 32-sample word and the MNIST width and the IMDb width;
-the list walk ``indexed_votes`` on real indexes (``build_index``) against
+the learning round's ``round_vote`` on both of its routes, aligned and
+not, with empty, all-included and padding rows, and in learning steps; the
+list walk ``indexed_votes`` on real indexes (``build_index``) against
 the plain walk and the position form, also overflowing, after replays that
 leave holes and unsorted lists, over several clause windows and cluster
 sizes, and replayed from a CUDA graph; the session's
@@ -381,6 +383,143 @@ def test_learning_kernels_refuse_what_they_do_not_take(cuda_device):
         ta_update.ta_update(*args[:5], args[5].cpu(), **kw)
     with pytest.raises(ValueError, match="contiguous"):
         ta_update.ta_update(*args[:5], torch.zeros((L, n), device=dev).T, **kw)
+
+
+# --- round_vote: the learning round's vote half, from the TA states --------
+
+# (n, L): the MNIST and IMDb widths, 2o off a multiple of 8 (the scalar
+# route: 34, 1570), n off a multiple of the clauses a block takes (13, 130,
+# 2001, 67), rows of one unit and of none
+VOTE_SHAPES = [(2000, 1568), (2000, 10000), (13, 34), (130, 1570),
+               (2001, 1568), (67, 2), (9, 0), (33, 96), (5, 8)]
+
+
+def vote_row(n, L, seed, dev, all_true=False, n_states=127):
+    """A class row of int16 states on ``dev`` (about 2% included; a third
+    of the clauses, or all with ``all_true``, include only true literals;
+    clause 0 empty, clause 1 all-included; states at N and N + 1), the
+    sample's (W,) literal words and pol ±1 with the last 3 rows 0."""
+    rng = np.random.default_rng(seed)
+    x = rng.integers(0, 2, L // 2).astype(np.uint8)
+    lit = np.concatenate([x, 1 - x]).astype(bool)
+    include = rng.uniform(size=(n, L)) < 0.02
+    true_rows = np.ones(n, bool) if all_true else rng.uniform(size=n) < 1 / 3
+    include[true_rows] &= lit[None]
+    include[0] = False
+    if n > 1:
+        include[1] = True
+    ta = np.where(include, rng.integers(n_states + 1, 2 * n_states + 1, (n, L)),
+                  rng.integers(1, n_states + 1, (n, L)))
+    ta[include & (rng.uniform(size=(n, L)) < 0.3)] = n_states + 1
+    ta[~include & (rng.uniform(size=(n, L)) < 0.3)] = n_states
+    pol = np.where(np.arange(n) < n // 2, 1, -1).astype(np.int32)
+    pol[max(0, n - 3):] = 0
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    words = bitpack.pack_bits(torch.from_numpy(lit.astype(np.uint8)))
+    return t(ta.astype(np.int16)), words.to(dev), t(pol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("all_true", [False, True], ids=["mixed", "all_true"])
+@pytest.mark.parametrize("offset", [0, 1], ids=["aligned", "unaligned"])
+@pytest.mark.parametrize("n,L", VOTE_SHAPES)
+def test_round_vote_kernel_equals_plain_version(cuda_device, n, L, offset,
+                                                all_true):
+    """Outputs and vote bit for bit against the plain body, one launch a
+    call; ``unaligned`` views the row 2 bytes into a buffer, so the kernel
+    takes the scalar route at every width."""
+    ta, words, pol = vote_row(n, L, n + L + offset, cuda_device, all_true)
+    if offset:
+        flat = torch.empty(n * L + offset, dtype=torch.int16, device=cuda_device)
+        row = flat[offset:].view(n, L)
+        row.copy_(ta)
+        ta = row
+    before = clause_eval.round_vote.launches
+    out, vote = clause_eval.round_vote(ta, words, pol, n_states=127)
+    assert clause_eval.round_vote.launches == before + 1
+    want_out, want_vote = clause_eval.round_vote_ref(ta, words, pol, n_states=127)
+    assert out.dtype == torch.int8 and vote.dtype == torch.int32
+    assert tuple(out.shape) == (n,) and vote.dim() == 0
+    torch.testing.assert_close(out, want_out, rtol=0, atol=0)
+    torch.testing.assert_close(vote, want_vote, rtol=0, atol=0)
+    if L > 2:
+        assert int(out[0]) == 1 and int(out[1]) == 0
+        assert 0 < int(out.sum()) < n
+        if all_true:
+            assert int(out[2:].sum()) == n - 2
+
+
+@pytest.mark.cuda
+def test_round_vote_refuses_what_it_does_not_take(cuda_device):
+    dev, n, L = cuda_device, 8, 40
+    ta = torch.ones((n, L), dtype=torch.int16, device=dev)
+    words = torch.zeros(2, dtype=torch.int32, device=dev)
+    pol = torch.ones(n, dtype=torch.int32, device=dev)
+    kw = dict(n_states=3)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        clause_eval.round_vote(ta.cpu(), words.cpu(), pol.cpu(), **kw)
+    for bad, match in (((ta.to(torch.int32), words, pol), "int16"),
+                       ((ta[0], words, pol), "int16"),
+                       ((ta, words.to(torch.int64), pol), "literal words"),
+                       ((ta, words[:1], pol), "literal words"),
+                       ((ta, words[None], pol), "literal words"),
+                       ((ta, words, pol.to(torch.int64)), "pol"),
+                       ((ta, words, pol[:-1]), "pol"),
+                       ((ta, words.cpu(), pol), "devices"),
+                       ((ta, words, pol.cpu()), "devices"),
+                       ((ta.T.contiguous().T, words, pol), "contiguous"),
+                       ((ta, torch.zeros(4, dtype=torch.int32, device=dev)[::2],
+                         pol), "contiguous")):
+        before = clause_eval.round_vote.launches
+        with pytest.raises(ValueError, match=match):
+            clause_eval.round_vote(*bad, **kw)
+        assert clause_eval.round_vote.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("parallel", [False, True], ids=["sequential", "parallel"])
+@pytest.mark.parametrize("shards", [1, 3])
+def test_learning_rounds_on_card_launch_round_vote(cuda_device, parallel, shards):
+    """A small learning step on the card equals the CPU's state bit for
+    bit; every valid round launches ``round_vote`` once per rank (padding
+    rows at polarity 0 on the ragged 3-shard split) and no round packs
+    include words for ``clause_outputs_packed``."""
+    from repro_torch.core.session import Topology
+    from repro_torch.launch.mesh import make_mesh
+
+    cfg = TMConfig(n_classes=4, n_clauses=64, n_features=100, n_states=20,
+                   s=3.9, threshold=8)
+    rng = np.random.default_rng(11)
+    ta = torch.from_numpy(rng.integers(1, 2 * cfg.n_states + 1,
+                                       (4, 64, 200)).astype(np.int16))
+    xs = rng.integers(0, 2, (6, 100)).astype(np.uint8)
+    ys = rng.integers(0, 4, 6)
+    mask = np.array([1, 1, 0, 1, 1, 1], bool)
+    draws = tm.draw_sample_draws(
+        cfg, torch.Generator(device=cuda_device).manual_seed(12), 6)
+    update = tm.update_batch_parallel if parallel else tm.update_batch_sequential
+    want = update(cfg, TMState(ta_state=ta), xs, ys, tm.SampleDraws(
+        draws.neg_raw.cpu(), *(tm.FeedbackRands(*(f.cpu() for f in d))
+                               for d in draws[1:])), mask=mask).ta_state
+    assert not torch.equal(want, ta)
+    counters = (clause_eval.round_vote, clause_eval.clause_outputs_packed,
+                ta_update.ta_update)
+    before = [k.launches for k in counters]
+    if shards == 1:
+        got = update(cfg, TMState(ta_state=ta.to(cuda_device)), xs, ys, draws,
+                     mask=mask).ta_state
+    else:
+        session = TMSession(cfg, Topology(clause_shards=shards),
+                            mesh=make_mesh(1, shards,
+                                           devices=["cuda:0"] * shards),
+                            engines=("indexed",), parallel=parallel,
+                            max_events=16384)
+        bundle = session.train_step(session.prepare(TMState(ta_state=ta)),
+                                    xs, ys, draws, mask)
+        got = session.unpad_state(bundle.state).ta_state
+    assert torch.equal(got.cpu(), want)
+    rounds = 2 * int(mask.sum()) * shards
+    assert [k.launches - b for k, b in zip(counters, before)] == [rounds, 0, rounds]
 
 
 @pytest.mark.cuda
@@ -1091,7 +1230,8 @@ def test_dryrun_tm_checks_on_card(cuda_device, mesh, n_clauses, rule):
     from repro_torch.launch import dryrun
 
     kernels = (indexed.indexed_votes, clause_eval.clause_votes_packed,
-               clause_eval.clause_outputs_packed, ta_update.ta_update)
+               clause_eval.clause_outputs_packed, clause_eval.round_vote,
+               ta_update.ta_update)
     before = {k.__name__: k.launches for k in kernels}
     rec = dryrun.run_tm_checks(data=mesh[0], model=mesh[1], n_clauses=n_clauses,
                                expect_composition=rule, device="cuda",
@@ -1104,7 +1244,8 @@ def test_dryrun_tm_checks_on_card(cuda_device, mesh, n_clauses, rule):
         want = {k: (ranks if k == kernel else 0) for k in eng["kernel_launches"]}
         assert eng["kernel_launches"] == want, name
     assert all(rec["train_kernel_launches"][k] > 0
-               for k in ("clause_outputs_packed", "ta_update"))
+               for k in ("round_vote", "ta_update"))
+    assert rec["train_kernel_launches"]["clause_outputs_packed"] == 0
     total = {k: rec["train_kernel_launches"][k] + sum(
         e["kernel_launches"][k] for e in rec["engines"].values()) for k in before}
     assert {k.__name__: k.launches - before[k.__name__] for k in kernels} == total

@@ -137,13 +137,14 @@ def test_empty_clauses_vote_as_true_in_both_forms():
 def test_registry_routes_cpu_tensors_to_plain_body():
     assert backend.registered_primitives() == (
         "clause_votes", "indexed_votes", "clause_outputs", "ta_update",
-        "index_update")
+        "round_vote", "index_update")
     include, x, _, pol = make_case(3, 8, 17, 9, seed=5)
     cfg = TMConfig(n_classes=3, n_clauses=8, n_features=17)
     index = indexing.build_index(cfg, TMState(torch.from_numpy(np.where(
         include, cfg.n_states + 1, cfg.n_states).astype(np.int16))), 8)
     before = (indexed.indexed_votes.launches,
-              clause_eval.clause_votes_packed.launches)
+              clause_eval.clause_votes_packed.launches,
+              clause_eval.round_vote.launches)
     lit = torch.from_numpy(literals(x))
     got = backend.resolve("indexed_votes")(*index, lit, torch.from_numpy(pol))
     want = indexed.indexed_votes_ref(index.pos, lit, torch.from_numpy(pol))
@@ -151,8 +152,16 @@ def test_registry_routes_cpu_tensors_to_plain_body():
     backend.resolve("clause_votes")(
         bitpack.pack_bits(torch.from_numpy(include)),
         bitpack.packed_literals(torch.from_numpy(x)), torch.from_numpy(pol))
+    row = torch.from_numpy(np.where(include[0], cfg.n_states + 1,
+                                    cfg.n_states).astype(np.int16))
+    words = bitpack.packed_literals(torch.from_numpy(x[0]))
+    out, vote = backend.resolve("round_vote")(row, words, torch.from_numpy(pol),
+                                              n_states=cfg.n_states)
+    assert torch.equal(out, clause_eval.clause_outputs_ref(
+        bitpack.pack_bits(torch.from_numpy(include[:1])), words[None])[0, 0])
     after = (indexed.indexed_votes.launches,
-             clause_eval.clause_votes_packed.launches)
+             clause_eval.clause_votes_packed.launches,
+             clause_eval.round_vote.launches)
     assert after == before                   # no kernel launch on the CPU
 
 
@@ -190,7 +199,8 @@ def test_every_kernel_source_is_a_registered_primitive_body():
                + "." + backend.get_primitive(name).kernel.__name__
                for name in backend.registered_primitives()}
     assert {"clause_eval.clause_outputs_packed", "clause_eval.clause_votes_packed",
-            "indexed.indexed_votes", "ta_update.ta_update"} <= kernels
+            "clause_eval.round_vote", "indexed.indexed_votes",
+            "ta_update.ta_update"} <= kernels
 
 
 def test_learning_kernel_wrappers_refuse_cpu_tensors():
@@ -198,6 +208,10 @@ def test_learning_kernel_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA tensor"):
         clause_eval.clause_outputs_packed(torch.zeros((1, n, 1), dtype=torch.int32),
                                           torch.zeros((1, 1), dtype=torch.int32))
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        clause_eval.round_vote(torch.ones((n, L), dtype=torch.int16),
+                               torch.zeros(1, dtype=torch.int32),
+                               torch.ones(n, dtype=torch.int32), n_states=3)
     with pytest.raises(ValueError, match="CUDA tensor"):
         ta_update.ta_update(
             torch.ones((n, L), dtype=torch.int16), torch.zeros(L, dtype=torch.uint8),
@@ -349,3 +363,155 @@ def test_launch_plan_rejects_what_the_kernel_does_not_take():
         clause_eval.launch_plan(32, 10, 2000, 2500, wc=2500)
     with pytest.raises(ValueError, match="no work"):
         clause_eval.launch_plan(0, 10, 2000, 49)
+
+
+# ---------------------------------------------------------------------------
+# round_vote (csrc/clause_eval.cu round_vote_launch): its plain body is the
+# reference's round, its geometry round_vote_plan's; emulate_round_vote
+# mirrors the kernel's loops, loads and bit tests on the CPU
+# ---------------------------------------------------------------------------
+
+# (n, L): the paper's widths, 2o off a multiple of 8 (the scalar route), a
+# row of one unit, and n off a multiple of the clauses a block takes
+VOTE_SHAPES = [(2000, 1568), (2000, 10000), (13, 34), (130, 1570), (5, 8),
+               (67, 2), (9, 0), (33, 96)]
+
+
+def vote_case(n, L, seed, n_states=127):
+    """A class row of int16 states whose clauses are mixed: about 2% of
+    the literals included, a third of the clauses true (includes only on
+    true literals), clause 0 empty, clause 1 all-included, states at N and
+    N + 1 among them; a sample's (L,) literals; pol ±1 with the last rows
+    0 (padding)."""
+    rng = np.random.default_rng(seed)
+    x = rng.integers(0, 2, L // 2).astype(np.uint8)
+    lit = np.concatenate([x, 1 - x]) if L % 2 == 0 else rng.integers(0, 2, L)
+    include = rng.uniform(size=(n, L)) < 0.02
+    true_rows = rng.uniform(size=n) < 1 / 3
+    include[true_rows] &= lit[None].astype(bool)
+    include[0] = False
+    if n > 1:
+        include[1] = True
+    ta = np.where(include, rng.integers(n_states + 1, 2 * n_states + 1, (n, L)),
+                  rng.integers(1, n_states + 1, (n, L)))
+    ta[include & (rng.uniform(size=(n, L)) < 0.3)] = n_states + 1
+    ta[~include & (rng.uniform(size=(n, L)) < 0.3)] = n_states
+    pol = np.where(np.arange(n) < n // 2, 1, -1).astype(np.int32)
+    pol[max(0, n - 3):] = 0
+    words = bitpack.pack_bits(torch.from_numpy(lit.astype(np.uint8)))
+    return (torch.from_numpy(ta.astype(np.int16)), words,
+            torch.from_numpy(pol), include, lit)
+
+
+def signed16(v):
+    """The low halfword of ``v`` as a signed 16-bit integer."""
+    v &= 0xFFFF
+    return v - 0x10000 if v & 0x8000 else v
+
+
+def emulate_round_vote(ta, words, pol, n_states, plan):
+    """The kernel's arithmetic, lane by lane: each warp's clause groups of
+    ``ks`` lanes, ``VOTE_UNROLL`` units a lane per pass, a unit's 8 states
+    as four 32-bit words compared a halfword at a time (``__vcmpgts2``)
+    against the literal byte ``u`` of the packed words, the group's ballot,
+    the warp's exit once each group has a falsifier; the vote summed."""
+    n, L = ta.shape
+    ks, unroll = plan.ks, clause_eval.VOTE_UNROLL
+    units = L // 8 if plan.vec else L
+    lit_bytes = words.numpy().view(np.uint8)
+    state_words = (ta.numpy().view(np.uint32) if plan.vec else None)
+    nn = (n_states & 0xFFFF) * 0x10001
+    out = np.zeros(n, np.int8)
+    per_warp = 32 // ks
+    for w0 in range(0, plan.grid * plan.threads // ks, per_warp):
+        clauses = range(w0, w0 + per_warp)
+        done = {j: j >= n for j in clauses}
+        for u0 in range(0, units, ks * unroll):
+            for j in clauses:
+                if done[j]:
+                    continue
+                hit = 0
+                for t in range(unroll):
+                    for kp in range(ks):
+                        u = u0 + t * ks + kp
+                        if u >= units:
+                            continue
+                        lb = int(lit_bytes[u >> 3 if not plan.vec else u])
+                        if plan.vec:
+                            bits = 0
+                            for h in range(4):
+                                v = int(state_words[j, 4 * u + h])
+                                c = sum(0xFFFF << (16 * q) for q in range(2)
+                                        if signed16(v >> (16 * q))
+                                        > signed16(nn))
+                                bits |= ((c & 1) | ((c >> 15) & 2)) << (2 * h)
+                            hit |= bits & ~lb
+                        else:
+                            hit |= (int(ta[j, u]) > n_states) & ~(lb >> (u & 7)) & 1
+                done[j] = done[j] or hit != 0
+            if all(done.values()):
+                break
+        for j in clauses:
+            if j < n:
+                out[j] = 0 if done[j] else 1
+    out = torch.from_numpy(out)
+    return out, (out.to(torch.int32) * pol).sum(dtype=torch.int32)
+
+
+@pytest.mark.parametrize("n,L", VOTE_SHAPES)
+def test_round_vote_ref_is_the_references_round(n, L):
+    """The plain body against the reference's packed route: its XLA clause
+    outputs of the packed include mask, and the polarity sum."""
+    from repro.kernels.backend import _clause_outputs_xla
+
+    ta, words, pol, include, lit = vote_case(n, L, seed=n + L)
+    out, vote = clause_eval.round_vote_ref(ta, words, pol, n_states=127)
+    want = np.asarray(_clause_outputs_xla(
+        jbitpack.pack_bits(jnp.asarray(include[None].astype(np.uint8))),
+        jnp.asarray(words.numpy()[None].view(np.uint32))))[0, 0]
+    assert out.dtype == torch.int8 and vote.dtype == torch.int32
+    assert vote.dim() == 0
+    np.testing.assert_array_equal(out.numpy(), want)
+    assert int(vote) == int((want.astype(np.int64) * pol.numpy()).sum())
+    if n > 2 and L > 2:
+        assert out[0] == 1 and out[1] == 0 and 0 < int(out.sum()) < n
+
+
+@pytest.mark.parametrize("offset", [0, 1], ids=["aligned", "unaligned"])
+@pytest.mark.parametrize("n,L", [s for s in VOTE_SHAPES if s[0] * s[1] < 50_000]
+                         + [(40, 1568), (24, 10000)])
+def test_round_vote_kernel_arithmetic_is_the_plain_body(n, L, offset):
+    """The kernel's loops and bit tests, emulated on the CPU, on both
+    routes (the vector route where 2o % 8 == 0 and the row is aligned)."""
+    ta, words, pol, _, _ = vote_case(n, L, seed=3 * n + L)
+    vec = L % 8 == 0 and offset == 0
+    plan = clause_eval.round_vote_plan(n, L, vec)
+    got = emulate_round_vote(ta, words, pol, 127, plan)
+    want = clause_eval.round_vote_ref(ta, words, pol, n_states=127)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("n,L", VOTE_SHAPES)
+@pytest.mark.parametrize("vec", [True, False])
+def test_round_vote_plan_covers_every_row_and_adapts_to_the_width(n, L, vec):
+    if vec and L % 8:
+        with pytest.raises(ValueError, match="no plan"):
+            clause_eval.round_vote_plan(n, L, vec)
+        return
+    plan = clause_eval.round_vote_plan(n, L, vec)
+    per_block = plan.threads // plan.ks
+    assert plan.threads % 32 == 0 and plan.ks in (1, 2, 4, 8, 16, 32)
+    assert (plan.grid - 1) * per_block < n <= plan.grid * per_block
+    units = L // 8 if vec else L
+    # the least ks whose passes of VOTE_UNROLL loads cover a row, at most 32
+    assert plan.ks == 32 or plan.ks * clause_eval.VOTE_UNROLL >= units
+    assert plan.ks == 1 or (plan.ks // 2) * clause_eval.VOTE_UNROLL < units
+    if (L, vec) in ((1568, True), (10000, True)):
+        assert plan.ks == 32                 # the paper's widths: a warp a clause
+
+
+def test_round_vote_plan_rejects_what_the_kernel_does_not_take():
+    with pytest.raises(ValueError, match="no plan"):
+        clause_eval.round_vote_plan(0, 1568, True)
+    with pytest.raises(ValueError, match="no plan"):
+        clause_eval.round_vote_plan(10, 34, True)

@@ -179,7 +179,7 @@ def test_class_round_equals_numpy_oracle(positive, boost):
         type_i = rng.uniform(size=(n, 2 * o)).astype(np.float32)
         row, tlit = torch.from_numpy(ta[cls]), torch.from_numpy(lit)
         clause_out, vote = tm._round_vote(
-            cfg, row, bitpack.pack_bits(tlit[None]), pol)
+            cfg, row, bitpack.pack_bits(tlit), pol)
         got = tm._round_feedback(
             cfg, row, tlit, clause_out, vote,
             tm.FeedbackRands(torch.from_numpy(gate), torch.from_numpy(type_i)),

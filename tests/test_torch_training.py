@@ -205,7 +205,7 @@ def test_class_round_matches_reference(kw, boost):
             row, tlit = torch.from_numpy(ta[cls]), torch.from_numpy(lit)
             pol = clause_polarity(tcfg, "cpu")
             clause_out, vote = tm._round_vote(
-                tcfg, row, bitpack.pack_bits(tlit[None]), pol)
+                tcfg, row, bitpack.pack_bits(tlit), pol)
             got = tm._round_feedback(
                 tcfg, row, tlit, clause_out, vote,
                 tm.FeedbackRands(torch.from_numpy(gate[0]),
