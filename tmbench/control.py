@@ -9,9 +9,7 @@ runs the cell once per seed in one process, with the program's path as
 
 * ``program`` — the program as it is (the lower readings);
 * ``control`` — the reference put in the program's place in the precision
-  below the configuration's: TA states held in int8 where they are stated
-  int16 (scoring cells), uniforms in bfloat16 where they are stated
-  float32 (training cells);
+  below the configuration's;
 * ``unchanged`` — a training step that does its work and returns the
   bundle it was given;
 * ``half_batch`` — half of each batch left out (training: masked; scoring:
@@ -19,136 +17,52 @@ runs the cell once per seed in one process, with the program's path as
 * ``altered`` — one answer altered where it is produced (one score, or one
   TA state after each step).
 
-``--mode probe_events`` instead runs training steps and prints the
-boundary crossings of each step, counted from the states.
+The cell's family puts the program's path in each mode: its module
+``tmbench/families/<family>.py`` gives ``mode(kind, which)``, a context
+manager, and a family without one has no control and is refused. The
+faults a cell can have are its traffic kind's ``FAULTS``.
+
+``--mode probe_events`` instead runs training steps of a TM cell and
+prints the boundary crossings of each step, counted from the states.
 """
 from __future__ import annotations
 
 import argparse
-import contextlib
-import dataclasses
 import json
 import sys
 import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
-SCORING = ("open_loop", "offline_score")
 MODES = ("program", "control", "unchanged", "half_batch", "altered")
 PROBE_EVENTS = 1 << 18    # the probe's buffer: its crossings are counted from the states
 
 
-def faults_for(kind: str) -> tuple[str, ...]:
+def faults_for(kind: str, root: Path = ROOT) -> tuple[str, ...]:
     """The planted faults a cell of this traffic kind can have."""
-    if kind in SCORING:
-        return ("half_batch", "altered")
-    return ("unchanged", "half_batch", "altered")
+    from tmbench import harness
 
-
-@contextlib.contextmanager
-def patched(obj, name: str, value):
-    """``obj.name = value`` for the block."""
-    old = getattr(obj, name)
-    setattr(obj, name, value)
-    try:
-        yield
-    finally:
-        setattr(obj, name, old)
-
-
-@contextlib.contextmanager
-def mode(kind: str, which: str):
-    """The program's path as ``which`` says, for the block."""
-    from repro_torch.core import engines, session, tm
-    from repro_torch.core.types import TMState
-
-    from tmbench.reference import tm as ref
-
-    if which == "program":
-        yield
-        return
-    if which not in MODES:
-        raise ValueError(f"mode {which!r}; one of {MODES} or probe_events")
-    if kind in SCORING:
-        scores = engines.IndexedEngine.scores
-        if which == "control":
-            held = {}
-            prepare = session.TMSession.prepare
-
-            def keep(self, state):
-                held["ta"] = state.ta_state.clone()
-                return prepare(self, state)
-
-            def control(self, cfg, cache, x):
-                inc = ref.include_of(held["ta"], cfg.n_states, control=True)
-                return ref.scores(inc, x)
-
-            with patched(session.TMSession, "prepare", keep), \
-                    patched(engines.IndexedEngine, "scores", control):
-                yield
-            return
-
-        def broken(self, cfg, cache, x):
-            out = scores(self, cfg, cache, x).clone()
-            if which == "altered":
-                out[0, 0] += 1
-            else:
-                out[out.shape[0] // 2:] = 0
-            return out
-
-        with patched(engines.IndexedEngine, "scores", broken):
-            yield
-        return
-
-    step = session.TMSession.train_step
-    if which == "control":
-        def control_round(cfg, state, xs, ys, draws, *, mask=None, **kw):
-            ta = state.ta_state.clone()
-            d = ref.Draws(cfg.n_classes, cfg.n_clauses, cfg.n_literals, 0,
-                          ta.device, generator=draws)
-            hp = {"n_states": cfg.n_states, "s": cfg.s,
-                  "threshold": cfg.threshold,
-                  "boost_true_positive": cfg.boost_true_positive}
-            ref.learn_step(ta, xs, [int(v) for v in tm._host_list(ys, len(xs))],
-                           d, hp, control=True)
-            return TMState(ta_state=ta)
-
-        with patched(tm, "update_batch_sequential", control_round):
-            yield
-        return
-    if which == "unchanged":
-        def unchanged(self, bundle, xs, ys, draws, mask=None):
-            step(self, bundle, xs, ys, draws, mask)     # the step's work...
-            return bundle                               # ...and its input back
-        new_step = unchanged
-    elif which == "half_batch":
-        def half(self, bundle, xs, ys, draws, mask=None):
-            import numpy as np
-            b = len(ys)
-            return step(self, bundle, xs, ys, draws,
-                        mask=np.arange(b) < b // 2)
-        new_step = half
-    else:
-        def altered(self, bundle, xs, ys, draws, mask=None):
-            out = step(self, bundle, xs, ys, draws, mask)
-            ta = out.state.ta_state
-            n_states = out.cfg.n_states
-            ta[0, 0, 0] = n_states + 1 if int(ta[0, 0, 0]) <= n_states else n_states
-            return out
-        new_step = altered
-    with patched(session.TMSession, "train_step", new_step):
-        yield
+    return tuple(harness.kind_module(kind, root).FAULTS)
 
 
 def run(cell_name: str, which: str, seeds, seconds: float, device,
         root: Path = ROOT, cell=None):
-    """Yield ``(seed, result line)`` of the cell run once per seed."""
+    """Yield ``(seed, result line)`` of the cell run once per seed, with
+    the program's path as its family's ``mode`` puts it for ``which``."""
     from tmbench import harness
 
+    if which not in MODES:
+        raise ValueError(f"mode {which!r}; one of {MODES} or probe_events")
     cell = (harness.cell_from_files(cell_name, root) if cell is None
             else cell)
+    family = harness.family_of(cell.config)
+    module = harness.family_module(family, root)
+    if not hasattr(module, "mode"):
+        raise ValueError(f"{cell.name}: family {family!r} has no control: "
+                         f"tmbench/families/{family}.py gives no "
+                         "mode(kind, which)")
     for seed in seeds:
-        with mode(cell.kind, which):
+        with module.mode(cell.kind, which):
             line = harness.run_cell(cell, seed, seconds, False, device,
                                     time.perf_counter(), root)
         yield seed, line
@@ -165,7 +79,12 @@ def probe_events(cell, seeds, steps: int, device) -> list[dict]:
     from tmbench import gen as G
     from tmbench import harness
 
-    cfg = harness.tm_config(cell.config)
+    family = harness.family_of(cell.config)
+    if family != "tm":
+        raise SystemExit(f"tmbench.control: {cell.name} is a cell of family "
+                         f"{family!r}; --mode probe_events runs family 'tm' "
+                         "only")
+    cfg = harness.family_module(family).config(cell.config)
     out = []
     for seed in seeds:
         ctx = harness.Context(cell=cell, cfg=cfg, seed=seed, seconds=0,

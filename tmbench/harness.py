@@ -6,9 +6,19 @@ the names in ``BENCHMARK.json``:
 
 * ``tmbench/workloads/<cell>.json`` — the cell's configuration name, its
   traffic mix's name, the traffic kind and that kind's parameters;
-* ``tmbench/configs/<config>.json`` — the TM's sizes and dtypes;
+* ``tmbench/configs/<config>.json`` — the configuration's sizes and
+  dtypes, its source, what was cut (``reduced``, with the ``published``
+  value of each key cut), and its ``family`` (``tm`` where it names none);
+* ``tmbench/families/<family>.py`` — one module per kind of model, with
+  ``config(conf) -> object`` (what traffic kinds get as ``ctx.cfg``),
+  ``TINY`` (its cut for the CPU tests), ``check(conf, entry)`` (its own
+  invariants, on top of every configuration's contract, which the tests
+  hold) and ``mode(kind, which)`` (the program's path under the control
+  and each planted fault, for ``tmbench.control``);
 * ``tmbench/traffic/<kind>.py`` — one general generator and driver per
-  traffic kind, with ``run(ctx) -> record``;
+  traffic kind, with ``run(ctx) -> record``, ``FAULTS`` (the planted
+  faults its cells can have) and ``TINY_PARAMS`` (its parameters for the
+  CPU tests);
 * ``tmbench/metrics/<metric>.py`` — one reader per metric, with
   ``read(record) -> float | None`` (None: nothing to read here).
 
@@ -31,7 +41,6 @@ ROOT = Path(__file__).resolve().parents[1]
 PKG = "tmbench"
 # modules that must not be loaded in the process that prints a result
 FORBIDDEN = ("jax", "jaxlib", "flax", "repro")
-STATE_DTYPES = ("int16",)
 
 
 def process_age_s() -> float | None:
@@ -137,29 +146,25 @@ def reader(metric: str, root: Path = ROOT):
     return load_module(path, f"{PKG}_metric_{metric.replace('.', '__')}_{_tag(path)}")
 
 
-def tm_config(config: dict):
-    """The ``TMConfig`` a configuration file states."""
-    import torch
+def family_of(config: dict) -> str:
+    """A configuration's family: its ``family`` key, else ``tm``."""
+    return config.get("family", "tm")
 
-    from repro_torch.core.types import TMConfig
 
-    if config["state_dtype"] not in STATE_DTYPES:
-        raise ValueError(f"state_dtype {config['state_dtype']!r} is not one "
-                         f"of {STATE_DTYPES}")
-    return TMConfig(n_classes=config["n_classes"],
-                    n_clauses=config["n_clauses"],
-                    n_features=config["n_features"],
-                    n_states=config["n_states"], s=float(config["s"]),
-                    threshold=config["threshold"],
-                    boost_true_positive=config["boost_true_positive"],
-                    empty_clause_output=config["empty_clause_output"],
-                    state_dtype=getattr(torch, config["state_dtype"]))
+def family_module(family: str, root: Path = ROOT):
+    """The family's module ``tmbench/families/<family>.py``."""
+    path = root / PKG / "families" / f"{family}.py"
+    if not path.is_file():
+        raise FileNotFoundError(f"configuration family {family!r} has no "
+                                f"module: no file {path}")
+    return load_module(path, f"{PKG}_family_{family}_{_tag(path)}")
 
 
 @dataclasses.dataclass
 class Context:
-    """What a traffic kind gets: the cell, its TMConfig, the run's seed,
-    window and trace flag, and the device."""
+    """What a traffic kind gets: the cell, its configuration object (as
+    its family builds it), the run's seed, window and trace flag, and the
+    device."""
 
     cell: Cell
     cfg: object
@@ -219,9 +224,10 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, device,
     last)."""
     import torch
 
-    ctx = Context(cell=cell, cfg=tm_config(cell.config), seed=seed,
-                  seconds=seconds, trace=trace, device=torch.device(device),
-                  started=started)
+    family = family_module(family_of(cell.config), root)
+    ctx = Context(cell=cell, cfg=family.config(cell.config),
+                  seed=seed, seconds=seconds, trace=trace,
+                  device=torch.device(device), started=started)
     rec = kind_module(cell.kind, root).run(ctx)
     rec["setup_s"] = ctx.setup_s
     compared = {k: {"value": v, "limit": lim}

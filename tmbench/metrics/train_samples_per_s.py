@@ -1,5 +1,6 @@
-"""``train_samples_per_s``: samples learned by ``partial_fit`` in the
-window over the window's length (to the last step's end on the device)."""
+"""``train_samples_per_s``: samples learned by the cell's training step
+in the window over the window's length (to the last step's end on the
+device)."""
 
 
 def read(run: dict) -> float | None:

@@ -53,8 +53,13 @@ def main(argv=None) -> int:
     from tmbench.traffic import open_loop
 
     cell = harness.cell_from_files(args.workload)
+    family = harness.family_of(cell.config)
+    if family != "tm":
+        raise SystemExit(f"tmbench.sweep_knee: {cell.name} is a cell of "
+                         f"family {family!r}; this tool runs family 'tm' only")
     dev = torch.device(args.device)
-    ctx = harness.Context(cell=cell, cfg=harness.tm_config(cell.config),
+    ctx = harness.Context(cell=cell,
+                          cfg=harness.family_module(family).config(cell.config),
                           seed=args.seed, seconds=args.step_seconds,
                           trace=False, device=dev, started=time.perf_counter())
     p = cell.params

@@ -1,9 +1,13 @@
 """The benchmark's files and dispatch on the CPU: every cell, configuration,
 traffic kind and metric is found by name; ``BENCHMARK.json`` keeps the
-benchmark contract; a cell added as files only runs; the result line has
-the contract's keys; nothing under ``tmbench/`` imports JAX or the JAX
-package, and the reference imports nothing of the program."""
+benchmark contract; a cell added as files only runs, of the TM family or
+of another, which brings its control and faults as files too; the TM
+configurations and the tests' cuts are the ones the benchmark has run;
+the result line has the contract's keys; nothing under
+``tmbench/`` imports JAX or the JAX package, and the reference imports
+nothing of the program."""
 import ast
+import dataclasses
 import json
 import math
 import os
@@ -17,7 +21,7 @@ from pathlib import Path
 import pytest
 import torch
 
-from tmbench import harness, testing
+from tmbench import control, harness, testing
 from tmbench import trace as trace_mod
 
 ROOT = harness.ROOT
@@ -63,19 +67,78 @@ def test_cell_files_load_and_are_found_by_name(name):
     assert harness.kind_module(cell.kind).run
     for m in cell.end_to_end + cell.per_layer:
         assert harness.reader(m["name"]).read
-    harness.tm_config(cell.config)
+    harness.family_module(harness.family_of(cell.config)).config(cell.config)
     assert "setup_s" in {m["name"] for m in cell.end_to_end}
     assert len(cell.end_to_end) >= 2 and cell.per_layer
 
 
+def check_config(entry: dict, bench: dict, root: Path = ROOT) -> None:
+    """The contract of every configuration in ``BENCHMARK.json``
+    (``entry``), whatever its family, then its family's own ``check``:
+    the file's name, source and ``reduced`` are the entry's, a workload
+    uses it, and every key it cut is a key of the file whose published
+    value its ``published`` object gives. Raises ValueError."""
+    conf = harness.load_json(root / entry["file"])
+    name = entry["name"]
+    for key in ("name", "source", "reduced"):
+        if conf.get(key) != entry[key]:
+            raise ValueError(f"{name}: the file's {key} is {conf.get(key)!r}, "
+                             f"BENCHMARK.json's {entry[key]!r}")
+    if not any(w["config"] == name for w in bench["workloads"]):
+        raise ValueError(f"{name}: no workload uses this configuration")
+    published = conf.get("published", {})
+    for key in entry["reduced"]:
+        if key not in conf:
+            raise ValueError(f"{name}: reduced names {key!r}, which the "
+                             "file does not state")
+        if key not in published:
+            raise ValueError(f"{name}: reduced names {key!r}, but the "
+                             "file's published object gives no value for it")
+    harness.family_module(harness.family_of(conf), root).check(conf, entry)
+
+
 @pytest.mark.parametrize("conf", BENCH["configs"], ids=lambda c: c["name"])
 def test_config_files_state_their_source(conf):
-    data = json.loads((ROOT / conf["file"]).read_text())
-    assert data["name"] == conf["name"]
-    assert data["source"] == conf["source"]
-    assert data["reduced"] == conf["reduced"] == []
-    assert data["state_dtype"] == "int16" and data["vote_dtype"] == "int32"
-    assert any(w["config"] == conf["name"] for w in BENCH["workloads"])
+    check_config(conf, BENCH)
+
+
+def _tm_mnist_entry():
+    return dict(next(c for c in BENCH["configs"] if c["name"] == "tm_mnist"))
+
+
+@pytest.mark.parametrize("change, match", [
+    ({"reduced": ["n_clauses"]}, "published"),
+    ({"reduced": ["n_clauses"], "published": {"n_states": 127}}, "published"),
+    ({"reduced": ["n_layers"], "published": {"n_layers": 4}}, "does not state"),
+    ({"reduced": ["n_clauses"], "published": {"n_clauses": 2000}}, "reduced is"),
+    ({"source": "https://example.org/elsewhere"}, "source"),
+    ({"state_dtype": "int8"}, "int16"),
+], ids=["no_published", "published_lacks_the_key", "key_not_in_file",
+        "tm_cut", "source", "tm_state_dtype"])
+def test_a_config_that_breaks_the_contract_is_refused(tmp_path, change, match):
+    conf = json.loads((ROOT / "tmbench/configs/tm_mnist.json").read_text())
+    conf.update(change)
+    entry = _tm_mnist_entry()
+    entry.update({k: v for k, v in change.items() if k == "reduced"},
+                 file="tmbench/configs/tm_mnist.json")
+    (tmp_path / "tmbench/configs").mkdir(parents=True)
+    (tmp_path / entry["file"]).write_text(json.dumps(conf))
+    shutil.copytree(ROOT / "tmbench/families", tmp_path / "tmbench/families",
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    with pytest.raises(ValueError, match=match):
+        check_config(entry, BENCH, root=tmp_path)
+
+
+def test_a_config_of_an_unknown_family_names_the_missing_module(tmp_path):
+    conf = {**harness.load_json(ROOT / "tmbench/configs/tm_mnist.json"),
+            "family": "no_such_family"}
+    path = ROOT / "tmbench" / "families" / "no_such_family.py"
+    with pytest.raises(FileNotFoundError, match=re.escape(str(path))):
+        harness.family_module(harness.family_of(conf))
+    cell = dataclasses.replace(harness.cell_from_files("imdb_score"), config=conf)
+    with pytest.raises(FileNotFoundError, match=re.escape(str(path))):
+        harness.run_cell(cell, 1, 0.1, False, torch.device("cpu"),
+                         time.perf_counter())
 
 
 def test_benchmark_json_keeps_the_contract():
@@ -149,7 +212,7 @@ def _root_with(tmp_path, edit):
 
 def test_a_cell_added_as_files_only_runs(tmp_path):
     conf = json.loads((ROOT / "tmbench/configs/tm_mnist.json").read_text())
-    conf.update(testing.TINY, name="tm_small")
+    conf.update(harness.family_module("tm").TINY, name="tm_small")
     spec = {"config": "tm_small", "traffic": "test_set_b32", "kind": "offline_score",
             "params": {"pool_rows": 100, "base": "data", "batch": 32,
                        "trace_batches": 2},
@@ -174,6 +237,276 @@ def test_a_cell_added_as_files_only_runs(tmp_path):
                             time.perf_counter(), root=root)
     assert line["correct"] is True
     assert set(line["metrics"]) == {"score_rows_per_s", "setup_s"}
+
+
+# A family that is no Tsetlin Machine, added as files only: one linear
+# layer learned by SGD from the seed, judged against a plain recomputation.
+TOY_FILES = {
+    "tmbench/families/toy.py": '''
+"""One linear layer, learned by SGD."""
+import contextlib
+import types
+
+import torch
+
+TINY = {"n_in": 8}
+
+
+def config(conf):
+    return types.SimpleNamespace(n_in=conf["n_in"], n_out=conf["n_out"],
+                                 lr=conf["lr"], dtype=conf["dtype"])
+
+
+def check(conf, entry):
+    if conf["n_out"] < 1 or conf["lr"] <= 0:
+        raise ValueError(f"{conf['name']}: a layer with no output or no step")
+
+
+@contextlib.contextmanager
+def mode(kind, which):
+    """control: the forward pass in float32 for float64; unchanged: a step
+    that leaves the layer as it was; altered: one weight off by one."""
+    forward, step = torch.nn.Linear.forward, torch.optim.SGD.step
+    if which == "control":
+        def low(self, x):
+            return torch.nn.functional.linear(
+                x.float(), self.weight.float(), self.bias.float()).to(x.dtype)
+        torch.nn.Linear.forward = low
+    elif which == "unchanged":
+        torch.optim.SGD.step = lambda self, closure=None: None
+    elif which == "altered":
+        def altered(self, closure=None):
+            step(self, closure)
+            with torch.no_grad():
+                self.param_groups[0]["params"][0][0, 0] += 1
+        torch.optim.SGD.step = altered
+    try:
+        yield
+    finally:
+        torch.nn.Linear.forward, torch.optim.SGD.step = forward, step
+''',
+    "tmbench/traffic/toy_sgd.py": '''
+"""SGD steps of an ``nn.Linear`` on rows from the seed for the window,
+then the same steps recomputed by hand from the same start."""
+import time
+
+import torch
+
+from tmbench.trace import Slice
+
+FAULTS = ("unchanged", "altered")
+TINY_PARAMS = {"batch": 4}
+
+
+def run(ctx):
+    cfg, p, dev = ctx.cfg, ctx.cell.params, ctx.device
+    dtype = getattr(torch, cfg.dtype)
+    g = torch.Generator().manual_seed(ctx.seed)
+    x = torch.randn(p["pool_rows"], cfg.n_in, generator=g, dtype=dtype)
+    y = torch.randn(p["pool_rows"], cfg.n_out, generator=g, dtype=dtype)
+    lin = torch.nn.Linear(cfg.n_in, cfg.n_out, dtype=dtype).to(dev)
+    with torch.no_grad():
+        lin.weight.copy_(torch.randn(cfg.n_out, cfg.n_in, generator=g,
+                                     dtype=dtype))
+        lin.bias.zero_()
+    w, b0 = lin.weight.detach().cpu().clone(), lin.bias.detach().cpu().clone()
+    opt = torch.optim.SGD(lin.parameters(), lr=cfg.lr)
+    b, n = p["batch"], p["pool_rows"] // p["batch"]
+    x_dev, y_dev = x.to(dev), y.to(dev)
+
+    def step(s):
+        a = (s % n) * b
+        opt.zero_grad()
+        ((lin(x_dev[a:a + b]) - y_dev[a:a + b]) ** 2).mean().backward()
+        opt.step()
+
+    step(0)
+    steps = 1
+    t0 = ctx.open_window()
+    while time.perf_counter() - t0 < ctx.seconds:
+        step(steps)
+        steps += 1
+    window_s = time.perf_counter() - t0
+    samples = (steps - 1) * b
+    trace = None
+    if ctx.trace:
+        with Slice(dev) as sl:
+            for _ in range(2):
+                step(steps)
+                steps += 1
+        trace = sl.summary()
+    peak = ctx.peak()
+    for s in range(steps):
+        a = (s % n) * b
+        xb, yb = x[a:a + b], y[a:a + b]
+        r = 2 * (xb @ w.T + b0 - yb) / yb.numel()
+        w -= cfg.lr * r.T @ xb
+        b0 -= cfg.lr * r.sum(0)
+    gap = max(float((lin.weight.detach().cpu() - w).abs().max()),
+              float((lin.bias.detach().cpu() - b0).abs().max()))
+    return {"attempted": samples, "failed": 0,
+            "compared": {"param_gap": (gap, 1e-9)},
+            "memory_peak_bytes": peak,
+            "data": {"samples": samples, "window_s": window_s,
+                     "step_ms": 1e3 * window_s / max(steps - 1, 1)},
+            "trace": trace}
+''',
+    "tmbench/metrics/toy.step_ms.py": '''
+def read(run):
+    return run["data"]["step_ms"]
+''',
+    "tmbench/configs/toy_linear.json": json.dumps({
+        "name": "toy_linear", "family": "toy",
+        "source": "https://pytorch.org/docs/stable/generated/torch.nn.Linear.html",
+        "n_in": 64, "n_out": 4, "n_layers": 1, "lr": 0.01, "dtype": "float64",
+        "reduced": ["n_layers"], "published": {"n_layers": 3}}),
+    "tmbench/workloads/toy_train.json": json.dumps({
+        "config": "toy_linear", "traffic": "sgd_b16", "kind": "toy_sgd",
+        "params": {"pool_rows": 256, "batch": 16},
+        "why": "a throwaway cell of another family"}),
+}
+TM_KEYS = ("n_classes", "n_clauses", "n_features", "n_states", "s",
+           "threshold", "boost_true_positive", "empty_clause_output",
+           "state_dtype")
+
+
+def _toy_root(tmp_path, family=None):
+    """A copy of the benchmark with the toy family's files and entries
+    added (its family module's text replaced by ``family``)."""
+    root = _root_with(tmp_path, _add_toy)
+    for rel, text in TOY_FILES.items():
+        assert not (root / rel).exists()
+        if family is not None and rel == "tmbench/families/toy.py":
+            text = family
+        (root / rel).write_text(text)
+    return root
+
+
+def _add_toy(bench):
+    conf = json.loads(TOY_FILES["tmbench/configs/toy_linear.json"])
+    bench["configs"].append({"name": "toy_linear", "source": conf["source"],
+                             "file": "tmbench/configs/toy_linear.json",
+                             "reduced": ["n_layers"],
+                             "why": "a throwaway config of another family"})
+    bench["workloads"].append({"name": "toy_train", "config": "toy_linear",
+                               "traffic": "sgd_b16", "chips": 1,
+                               "why": "a throwaway cell of another family"})
+    next(m for m in bench["end_to_end"]
+         if m["name"] == "train_samples_per_s")["workloads"].append("toy_train")
+    bench["per_layer"].append({"name": "toy.step_ms", "unit": "ms",
+                               "better": "lower", "source": "host_clock",
+                               "layer": "whole step",
+                               "moves": "train_samples_per_s",
+                               "workloads": ["toy_train"]})
+
+
+@pytest.mark.parametrize("trace", [False, True], ids=["trace0", "trace1"])
+def test_a_cell_of_another_family_added_as_files_only_runs(tmp_path, trace):
+    root = _toy_root(tmp_path)
+    bench = harness.load_json(root / "BENCHMARK.json")
+    entry = next(c for c in bench["configs"] if c["name"] == "toy_linear")
+    check_config(entry, bench, root)
+    cell = harness.find_cell("toy_train", root=root)
+    assert harness.family_of(cell.config) == "toy"
+    assert not set(cell.config) & set(TM_KEYS) and cell.config["reduced"]
+    cell = testing.tiny(cell, root)
+    assert cell.config["n_in"] == 8 and cell.params["batch"] == 4
+    line = harness.run_cell(cell, 2**31 + 23, 0.2, trace, torch.device("cpu"),
+                            time.perf_counter(), root=root)
+    assert line["correct"] is True and line["attempted"] > 0
+    assert list(line["compared"]) == ["param_gap"]
+    want = {"toy.step_ms"} if trace else {"train_samples_per_s", "setup_s"}
+    assert set(line["metrics"]) == want
+    assert all(v["value"] > 0 for v in line["metrics"].values())
+    if trace:
+        assert {"busy_s", "window_s"} <= set(line["device"])
+    for path in (ROOT / "tmbench").rglob("*"):
+        if path.is_file() and "__pycache__" not in path.parts:
+            copy = root / path.relative_to(ROOT)
+            assert copy.read_bytes() == path.read_bytes(), path
+
+
+@pytest.mark.parametrize("mode", ["program", "control", "unchanged", "altered"])
+def test_a_family_brings_its_control_and_faults_as_files(tmp_path, mode):
+    root = _toy_root(tmp_path)
+    assert control.faults_for("toy_sgd", root) == ("unchanged", "altered")
+    cell = testing.tiny(harness.find_cell("toy_train", root=root), root)
+    (_, line), = control.run("toy_train", mode, [2**31 + 41], 0.2,
+                             torch.device("cpu"), root, cell=cell)
+    assert line["correct"] is (mode == "program"), line["compared"]
+    assert torch.nn.Linear.forward.__name__ == "forward"
+
+
+def test_a_family_without_a_control_is_refused_by_name(tmp_path):
+    text = TOY_FILES["tmbench/families/toy.py"]
+    root = _toy_root(tmp_path, family=text[:text.index("@contextlib")])
+    cell = testing.tiny(harness.find_cell("toy_train", root=root), root)
+    with pytest.raises(ValueError, match="family 'toy' has no control"):
+        next(control.run("toy_train", "program", [1], 0.1,
+                         torch.device("cpu"), root, cell=cell))
+    with pytest.raises(SystemExit, match="family 'toy'"):
+        control.probe_events(cell, [1], 1, torch.device("cpu"))
+
+
+# The TMConfig each TM configuration file gave the traffic kinds before the
+# configuration families, field for field.
+PINNED_TM = {
+    "tm_mnist": dict(n_classes=10, n_clauses=2000, n_features=784,
+                     n_states=127, s=10.0, threshold=50,
+                     boost_true_positive=False, empty_clause_output=1,
+                     state_dtype=torch.int16),
+    "tm_imdb": dict(n_classes=2, n_clauses=2000, n_features=5000,
+                    n_states=127, s=27.0, threshold=40,
+                    boost_true_positive=False, empty_clause_output=1,
+                    state_dtype=torch.int16),
+}
+
+
+@pytest.mark.parametrize("config", sorted(PINNED_TM))
+def test_run_cell_hands_the_kinds_the_pinned_tm_config(config, monkeypatch):
+    from repro_torch.core.types import TMConfig
+
+    name = next(w["name"] for w in BENCH["workloads"] if w["config"] == config)
+    seen = []
+
+    class Kind:
+        @staticmethod
+        def run(ctx):
+            seen.append(ctx.cfg)
+            return {"attempted": 1, "failed": 0, "compared": {}, "data": {},
+                    "memory_peak_bytes": 0}
+
+    monkeypatch.setattr(harness, "kind_module", lambda kind, root=ROOT: Kind)
+    cell = dataclasses.replace(harness.find_cell(name), end_to_end=[],
+                               per_layer=[])
+    harness.run_cell(cell, 1, 0.0, False, torch.device("cpu"),
+                     time.perf_counter())
+    assert seen == [TMConfig(**PINNED_TM[config])]
+
+
+# What the tests' cut of each cell was before the configuration families:
+# the TM family's TINY over the configuration, the kind's parameters over
+# the cell's.
+TM_TINY = {"n_classes": 3, "n_clauses": 32, "n_features": 16, "threshold": 5,
+           "avg_clause_len": 4}
+PINNED_TINY_PARAMS = {
+    "imdb_score": {"pool_rows": 300, "batch": 64, "trace_batches": 3},
+    "imdb_train": {"pool_rows": 200, "batch": 8, "max_events_per_batch": 4096,
+                   "tail_steps": 1, "trace_steps": 2},
+    "mnist_serve": {"rate_rps": 300, "pool_rows": 64, "warm_seconds": 0.1,
+                    "trace_seconds": 0.2},
+    "mnist_train": {"pool_rows": 200, "batch": 8, "max_events_per_batch": 4096,
+                    "tail_steps": 1, "trace_steps": 2},
+}
+
+
+@pytest.mark.parametrize("name", sorted(PINNED_TINY_PARAMS))
+def test_the_tests_cut_of_each_cell_is_pinned(name):
+    spec = harness.load_json(ROOT / "tmbench/workloads" / f"{name}.json")
+    conf = harness.load_json(ROOT / "tmbench/configs" / f"{spec['config']}.json")
+    cell = testing.tiny(harness.cell_from_files(name))
+    assert cell.config == {**conf, **TM_TINY}
+    assert cell.params == {**spec["params"], **PINNED_TINY_PARAMS[name]}
 
 
 @pytest.mark.parametrize("trace", [False, True], ids=["trace0", "trace1"])

@@ -1,24 +1,18 @@
 """Cells cut to a size the CPU tests can run (never used by a benchmark
-run): the cell's own traffic kind and files, at a few clauses and
-features, a short pool and small batches."""
+run): the cell's own traffic kind and files, with its family's ``TINY``
+merged into the configuration and its kind's ``TINY_PARAMS`` into the
+parameters."""
 from __future__ import annotations
 
 import dataclasses
+from pathlib import Path
 
-TINY = {"n_classes": 3, "n_clauses": 32, "n_features": 16, "threshold": 5,
-        "avg_clause_len": 4}
-TINY_PARAMS = {
-    "open_loop": {"rate_rps": 300, "pool_rows": 64, "warm_seconds": 0.1,
-                  "trace_seconds": 0.2},
-    "offline_score": {"pool_rows": 300, "batch": 64, "trace_batches": 3},
-    "online_train": {"pool_rows": 200, "batch": 8,
-                     "max_events_per_batch": 4096, "tail_steps": 1,
-                     "trace_steps": 2},
-}
+from tmbench import harness
 
 
-def tiny(cell):
-    """``cell`` at the tests' size."""
-    config = {**cell.config, **TINY}
-    params = {**cell.params, **TINY_PARAMS.get(cell.kind, {})}
-    return dataclasses.replace(cell, config=config, params=params)
+def tiny(cell, root: Path = harness.ROOT):
+    """``cell`` at the tests' size (its files found under ``root``)."""
+    family = harness.family_module(harness.family_of(cell.config), root)
+    kind = harness.kind_module(cell.kind, root)
+    return dataclasses.replace(cell, config={**cell.config, **family.TINY},
+                               params={**cell.params, **kind.TINY_PARAMS})

@@ -23,6 +23,11 @@ from tmbench import gen as G
 from tmbench.reference import tm as ref
 from tmbench.trace import Slice, per_second
 
+# the planted faults a cell of this kind can have (tmbench/control.py)
+FAULTS = ("half_batch", "altered")
+# the CPU tests' parameters (tmbench/testing.py)
+TINY_PARAMS = {"pool_rows": 300, "batch": 64, "trace_batches": 3}
+
 
 def batch_starts(pool_rows: int, batch: int) -> list[int]:
     """First row of every batch of one pass (the last may be ragged)."""

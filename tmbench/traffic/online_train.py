@@ -36,6 +36,13 @@ from tmbench import judge
 from tmbench.reference import tm as ref
 from tmbench.trace import Slice, per_second
 
+# the planted faults a cell of this kind can have (tmbench/control.py)
+FAULTS = ("unchanged", "half_batch", "altered")
+# the CPU tests' parameters (tmbench/testing.py)
+TINY_PARAMS = {"pool_rows": 200, "batch": 8,
+               "max_events_per_batch": 4096, "tail_steps": 1,
+               "trace_steps": 2}
+
 
 def hyper(cfg) -> dict:
     """The reference's hyper-parameters from the configuration."""

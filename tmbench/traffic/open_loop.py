@@ -34,6 +34,12 @@ from tmbench.trace import Slice
 
 WAIT_S = 60.0        # how long past the window an answer may come
 
+# the planted faults a cell of this kind can have (tmbench/control.py)
+FAULTS = ("half_batch", "altered")
+# the CPU tests' parameters (tmbench/testing.py)
+TINY_PARAMS = {"rate_rps": 300, "pool_rows": 64, "warm_seconds": 0.1,
+               "trace_seconds": 0.2}
+
 
 def schedule(rate: float, seconds: float, tenants: dict, pool_rows: int,
              seed: int) -> dict:
