@@ -2,7 +2,9 @@
 ``repro.configs``) and, in ``configs/tm.py``, the paper's TM configurations.
 
 Every architecture's config is data and is registered here;
-``SKIPPED_CELLS`` reads every config.
+``SKIPPED_CELLS`` reads every config. ``ARCHS`` is the reference's list;
+``PORT_ARCHS`` are architectures only the port runs (``MLAConfig``), which
+``get_config`` and the launch CLIs accept too.
 """
 from __future__ import annotations
 
@@ -15,6 +17,7 @@ from repro_torch.configs.base import (
     LONG_500K,
     PREFILL_32K,
     TRAIN_4K,
+    MLAConfig,
     ModelConfig,
     ShapeSpec,
 )
@@ -34,13 +37,22 @@ _ARCH_MODULES = {
 
 ARCHS = tuple(_ARCH_MODULES)
 
+# architectures the port runs that the reference has no config for
+_PORT_ARCH_MODULES = {
+    "deepseek-v2-lite": "deepseek_v2_lite",
+}
+
+PORT_ARCHS = tuple(_PORT_ARCH_MODULES)
+
 
 def get_config(name: str) -> ModelConfig:
-    """The published config of architecture ``name``."""
-    if name not in _ARCH_MODULES:
-        raise KeyError(f"unknown arch {name!r}; known: {sorted(_ARCH_MODULES)}")
-    mod = importlib.import_module(f"repro_torch.configs.{_ARCH_MODULES[name]}")
-    return mod.CONFIG
+    """The published config of architecture ``name`` (``ARCHS`` or
+    ``PORT_ARCHS``)."""
+    module = _ARCH_MODULES.get(name) or _PORT_ARCH_MODULES.get(name)
+    if module is None:
+        raise KeyError(f"unknown arch {name!r}; known: "
+                       f"{sorted(_ARCH_MODULES) + sorted(_PORT_ARCH_MODULES)}")
+    return importlib.import_module(f"repro_torch.configs.{module}").CONFIG
 
 
 def get_shape(name: str) -> ShapeSpec:
@@ -75,6 +87,13 @@ def reduce_config(cfg: ModelConfig) -> ModelConfig:
         upd.update(n_layers=2)
     if cfg.sliding_window:
         upd["sliding_window"] = 8
+    if isinstance(cfg, MLAConfig):
+        # every kind of layer: a dense block, MoE blocks holding half of
+        # the router's experts, a value head dim unlike the query/key one
+        upd.update(n_layers=3, n_dense_layers=1, n_kv_heads=4, head_dim=8,
+                   kv_lora_rank=32, qk_nope_head_dim=16, qk_rope_head_dim=8,
+                   v_head_dim=8, n_experts=8, top_k=2, n_shared_experts=2,
+                   d_ff_shared=None, experts_held=4)
     return dataclasses.replace(cfg, **upd)
 
 

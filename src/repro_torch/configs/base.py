@@ -154,3 +154,93 @@ class ModelConfig:
     def has_decoder(self) -> bool:
         """Every assigned arch has a decode path (whisper's is enc-dec)."""
         return True
+
+
+@dataclasses.dataclass(frozen=True)
+class MLAConfig(ModelConfig):
+    """A DeepSeek-V2-style MoE decoder (arXiv:2405.04434 §2.1): multi-head
+    latent attention with YaRN rope, ``n_dense_layers`` leading dense
+    blocks (width ``d_ff``), then MoE blocks (experts of ``d_ff_expert``).
+    A port-only config type: ``ModelConfig``'s fields, and so every other
+    architecture's config, stay as they are.
+
+    Attention per token: ``q = wq h`` split per head into ``qk_nope_head_dim``
+    + ``qk_rope_head_dim``; ``[c; k_R] = wkv_a h`` with ``c`` the
+    ``kv_lora_rank``-wide latent (RMS-normed) and ``k_R`` one rope key shared
+    by every head; ``[k_C; v] = wkv_b c`` per head. ``n_kv_heads`` is
+    ``n_heads`` and ``head_dim`` the value head dim.
+
+    YaRN (arXiv:2309.00071): ``rope_factor`` > 1 blends each rope frequency
+    between its extrapolated and its ``1/rope_factor`` interpolated value over
+    the frequency indices set by ``beta_fast`` / ``beta_slow`` at
+    ``original_max_positions``; the softmax scale is ``qk_head_dim^-0.5 ·
+    m(mscale_all_dim)^2`` and the cos/sin multiplier ``m(mscale) /
+    m(mscale_all_dim)``, with ``m(s) = 0.1·s·ln(rope_factor) + 1``.
+
+    The shared experts' output is added ungated (DeepSeek's; Qwen's
+    ``ModelConfig`` MoE gates it). ``experts_held``: how many of the
+    router's ``n_experts`` this layer holds and computes (experts 0 to
+    ``experts_held - 1``, as rank 0 of an expert-parallel deployment holds
+    them; None: all); the router and its top-k stay over all
+    ``n_experts``."""
+
+    kv_lora_rank: int = 512
+    qk_nope_head_dim: int = 128
+    qk_rope_head_dim: int = 64
+    v_head_dim: int = 128
+    rope_factor: float = 1.0
+    beta_fast: float = 32.0
+    beta_slow: float = 1.0
+    mscale: float = 1.0
+    mscale_all_dim: float = 1.0
+    original_max_positions: int = 4096
+    n_dense_layers: int = 0
+    experts_held: Optional[int] = None
+
+    @property
+    def qk_head_dim(self) -> int:
+        """Query/key head dim: the non-rope part plus the rope part."""
+        return self.qk_nope_head_dim + self.qk_rope_head_dim
+
+    @property
+    def n_held(self) -> int:
+        """Experts this layer holds (all unless ``experts_held`` is set)."""
+        return self.n_experts if self.experts_held is None else self.experts_held
+
+    def _mla_params(self) -> int:
+        """One MLA block's projection weights (no norms)."""
+        d, h = self.d_model, self.n_heads
+        r, dr = self.kv_lora_rank, self.qk_rope_head_dim
+        return (d * h * self.qk_head_dim + d * (r + dr)
+                + r * h * (self.qk_nope_head_dim + self.v_head_dim)
+                + h * self.v_head_dim * d)
+
+    def _norms(self) -> int:
+        """Norm scales: two a block and the latent's, and the final one."""
+        return self.n_layers * (2 * self.d_model + self.kv_lora_rank) + self.d_model
+
+    def _shared(self) -> int:
+        ffe = self.d_ff_expert or self.d_ff
+        return 3 * self.d_model * (self.d_ff_shared or self.n_shared_experts * ffe)
+
+    def param_count(self) -> int:
+        """Parameters held: embeddings, every block (a MoE block's router
+        over all experts, its held experts only), norms included."""
+        d, ffe = self.d_model, self.d_ff_expert or self.d_ff
+        emb = self.vocab * d * (1 if self.tie_embeddings else 2)
+        n_moe = self.n_layers - self.n_dense_layers
+        moe = (d * self.n_experts + self.n_held * 3 * d * ffe
+               + (self._shared() if self.n_shared_experts else 0))
+        return (emb + self.n_layers * self._mla_params()
+                + self.n_dense_layers * 3 * d * self.d_ff + n_moe * moe
+                + self._norms())
+
+    def active_param_count(self) -> int:
+        """Parameters touched per token: ``top_k`` routed experts of the
+        router's ``n_experts`` (wherever they are held), the shared ones,
+        the router, attention, the dense blocks, embeddings and norms."""
+        d, ffe = self.d_model, self.d_ff_expert or self.d_ff
+        held = self.n_held * 3 * d * ffe
+        return (self.param_count()
+                - (self.n_layers - self.n_dense_layers)
+                * (held - self.top_k * 3 * d * ffe))

@@ -4,6 +4,8 @@ KV cache, then a greedy decode loop, on random weights.
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-1.7b \
         --batch 4 --prompt-len 128 --gen 32
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --reduced
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch deepseek-v2-lite \
+        --device cpu --reduced
 
 Unlike the reference, which always serves ``reduce_config`` on the CPU, it
 builds the published config at full width unless ``--reduced`` is given,
@@ -22,7 +24,7 @@ import time
 import numpy as np
 import torch
 
-from repro_torch.configs import get_config, reduce_config
+from repro_torch.configs import ARCHS, PORT_ARCHS, get_config, reduce_config
 from repro_torch.core.types import resolve_device
 from repro_torch.models.model import build
 
@@ -52,7 +54,8 @@ def main(argv=None) -> dict:
     """Parse ``argv``, serve one batch, print the reference's lines and
     return the numbers (``generations`` as a (batch, gen) array)."""
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--arch", default="qwen3-1.7b")
+    ap.add_argument("--arch", default="qwen3-1.7b",
+                    help="one of: " + ", ".join(ARCHS + PORT_ARCHS))
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--gen", type=int, default=16)

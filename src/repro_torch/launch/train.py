@@ -5,6 +5,8 @@ weights.
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-1.7b \\
         --steps 50 --batch 8 --seq 128
     PYTHONPATH=src python -m repro_torch.launch.train --reduced --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.train --arch deepseek-v2-lite \
+        --reduced --device cpu
 
 Unlike the reference, which always trains ``reduce_config`` on the CPU, it
 builds the published config at full width unless ``--reduced`` is given
@@ -29,7 +31,7 @@ import time
 import torch
 
 from repro_torch.checkpoint.checkpointer import Checkpointer
-from repro_torch.configs import get_config, reduce_config
+from repro_torch.configs import ARCHS, PORT_ARCHS, get_config, reduce_config
 from repro_torch.configs.base import ShapeSpec
 from repro_torch.core.types import resolve_device
 from repro_torch.data.pipeline import TokenBatcher
@@ -49,7 +51,8 @@ def main(argv=None) -> dict:
     """Parse ``argv``, train, print the reference's lines and return the
     numbers (``metrics_log``, ``end_step``, ``tok_s``, ``state``, …)."""
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--arch", default="qwen3-1.7b")
+    ap.add_argument("--arch", default="qwen3-1.7b",
+                    help="one of: " + ", ".join(ARCHS + PORT_ARCHS))
     ap.add_argument("--steps", type=int, default=30)
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seq", type=int, default=128)

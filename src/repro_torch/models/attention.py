@@ -12,6 +12,17 @@ dtype, scores masked with ``NEG_INF`` and softmaxed in float32, the weights
 cast back to the compute dtype. ``decode_attend`` writes the new token into
 the cache it is given, in place, and returns that same cache.
 
+Multi-head latent attention (``MLAttention``, DeepSeek-V2's MLA, for an
+``MLAConfig``): queries from ``wq``; one joint low-rank projection
+``wkv_a`` to the latent ``c`` (RMS-normed, ``kv_norm``) and a rope key
+``k_R`` shared by every head; ``wkv_b`` expands ``c`` into each head's
+``k_C`` and ``v``. Keys are ``[k_C; k_R]``, so the query/key head dim
+(``qk_nope + qk_rope``) differs from the value head dim, which the dense
+and blockwise cores take. Its decode cache is the latent only:
+``{"c": (B, S, kv_lora_rank), "kr": (B, S, qk_rope), "pos": (B, S)}``;
+decode absorbs ``wkv_b`` into the query and the output, so no per-head K
+or V is ever stored. MLA runs on one device only.
+
 On a mesh (``*_sharded``, per-rank lists): head-parallel ``attend`` for
 prefill and training (``n_heads / model`` query heads per rank, the K/V
 heads they read; ``wo`` row-parallel, its partial sums reduced by the
@@ -37,6 +48,9 @@ from repro_torch.models.common import (
     init_linear_,
     linear_f32,
     rmsnorm,
+    rotate,
+    yarn_freqs,
+    yarn_mscale,
 )
 from repro_torch.sharding import (
     MODEL,
@@ -48,6 +62,8 @@ from repro_torch.sharding import (
     psum,
     psum_to_batch,
 )
+
+from repro_torch.spans import span
 
 NEG_INF = -2.0 ** 30  # large-but-finite: keeps masked softmax NaN-free
 
@@ -130,7 +146,8 @@ def _repeat_kv(k, g):
 
 
 def _sdpa(q, k, v, mask, scale):
-    """Dense attention. q: (B,Sq,H,Dh), k/v: (B,Sk,Hkv,Dh), mask (B,Sq,Sk)."""
+    """Dense attention. q: (B,Sq,H,Dh), k: (B,Sk,Hkv,Dh), v: (B,Sk,Hkv,Dv)
+    (Dv may differ from Dh), mask (B,Sq,Sk) → (B,Sq,H,Dv)."""
     g = q.shape[2] // k.shape[2]
     k = _repeat_kv(k, g)
     v = _repeat_kv(v, g)
@@ -142,7 +159,8 @@ def _sdpa(q, k, v, mask, scale):
 
 def _blockwise_sdpa(q, k, v, q_pos, k_pos, kind, window, scale, kv_block=512):
     """Flash-style attention: a loop over KV blocks with running (max,
-    denom, acc) in float32, so live memory is O(Sq · kv_block), not O(Sq²)."""
+    denom, acc) in float32, so live memory is O(Sq · kv_block), not O(Sq²).
+    The value head dim may differ from the query/key one."""
     b, sq, h, dh = q.shape
     g = h // k.shape[2]
     k = _repeat_kv(k, g)
@@ -153,7 +171,8 @@ def _blockwise_sdpa(q, k, v, q_pos, k_pos, kind, window, scale, kv_block=512):
         v = F.pad(v, (0, 0, 0, 0, 0, pad))
         k_pos = F.pad(k_pos, (0, pad), value=-1)
 
-    acc = torch.zeros((b, sq, h, dh), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((b, sq, h, v.shape[-1]), dtype=torch.float32,
+                      device=q.device)
     m = torch.full((b, h, sq), NEG_INF, dtype=torch.float32, device=q.device)
     l = torch.zeros((b, h, sq), dtype=torch.float32, device=q.device)
     for start in range(0, k.shape[1], kv_block):
@@ -310,6 +329,158 @@ def decode_attend(p: Attention, x, cache, pos, *, n_heads, n_kv_heads,
     out = acc / torch.clamp(l, min=1e-30)[..., None]
     out = out.reshape(b, 1, n_heads * head_dim).to(x.dtype)
     return F.linear(out, p.wo.weight.to(x.dtype)), cache
+
+
+# ---------------------------------------------------------------------------
+# Multi-head latent attention (MLA) and its latent cache
+# ---------------------------------------------------------------------------
+
+
+class MLAttention(nn.Module):
+    """``wq`` (d → H·(qk_nope + qk_rope)), ``wkv_a`` (d → kv_lora_rank +
+    qk_rope), ``kv_norm`` (the latent's RMS scale), ``wkv_b`` (kv_lora_rank
+    → H·(qk_nope + v)), ``wo`` (H·v → d); no biases."""
+
+    def __init__(self, cfg, device=None):
+        super().__init__()
+        d, h = cfg.d_model, cfg.n_heads
+        self.wq = empty_linear(d, h * cfg.qk_head_dim, device=device)
+        self.wkv_a = empty_linear(d, cfg.kv_lora_rank + cfg.qk_rope_head_dim,
+                                  device=device)
+        self.kv_norm = RMSNorm(cfg.kv_lora_rank, device)
+        self.wkv_b = empty_linear(
+            cfg.kv_lora_rank, h * (cfg.qk_nope_head_dim + cfg.v_head_dim),
+            device=device)
+        self.wo = empty_linear(h * cfg.v_head_dim, d, device=device)
+
+
+def init_mla(gen: torch.Generator, cfg) -> MLAttention:
+    """An ``MLAttention`` on the generator's device: ``dense_init`` weights,
+    a unit latent norm."""
+    p = MLAttention(cfg, device=gen.device)
+    for lin in (p.wq, p.wkv_a, p.wkv_b, p.wo):
+        init_linear_(gen, lin)
+    return p
+
+
+def mla_scale(cfg) -> float:
+    """The softmax scale: ``qk_head_dim^-0.5 · m(mscale_all_dim)²``."""
+    m = yarn_mscale(cfg.rope_factor, cfg.mscale_all_dim)
+    return cfg.qk_head_dim ** -0.5 * m * m
+
+
+def mla_rope(cfg, t, positions):
+    """YaRN rope of ``t`` (B, S, heads, qk_rope): the config's blended
+    frequencies, cos/sin times ``m(mscale) / m(mscale_all_dim)``."""
+    freqs = yarn_freqs(cfg.qk_rope_head_dim, cfg.rope_theta, cfg.rope_factor,
+                       cfg.beta_fast, cfg.beta_slow,
+                       cfg.original_max_positions, t.device)
+    mult = (yarn_mscale(cfg.rope_factor, cfg.mscale)
+            / yarn_mscale(cfg.rope_factor, cfg.mscale_all_dim))
+    return rotate(t, positions, freqs, mult)
+
+
+def _mla_query(p: MLAttention, cfg, x, positions):
+    """x (B, S, d) → (q_C (B, S, H, qk_nope), q_R (B, S, H, qk_rope) roped)."""
+    b, s, _ = x.shape
+    q = _proj(p.wq, x).reshape(b, s, cfg.n_heads, cfg.qk_head_dim)
+    q_c, q_r = q.split([cfg.qk_nope_head_dim, cfg.qk_rope_head_dim], -1)
+    return q_c, mla_rope(cfg, q_r, positions)
+
+
+def mla_latent(p: MLAttention, cfg, x, positions):
+    """x (B, S, d) → (c (B, S, kv_lora_rank) RMS-normed, k_R (B, S,
+    qk_rope) roped): what the decode cache holds."""
+    c, k_r = _proj(p.wkv_a, x).split(
+        [cfg.kv_lora_rank, cfg.qk_rope_head_dim], -1)
+    c = rmsnorm(p.kv_norm, c, cfg.norm_eps)
+    return c, mla_rope(cfg, k_r[:, :, None], positions)[:, :, 0]
+
+
+def mla_attend(p: MLAttention, cfg, x, positions):
+    """Full-sequence causal MLA (training / prefill). x: (B, S, D) →
+    (y (B, S, D), (c, k_R)), the latent for the cache."""
+    b, s, _ = x.shape
+    h, dn, dv = cfg.n_heads, cfg.qk_nope_head_dim, cfg.v_head_dim
+    with span("lm.mla"):
+        q_c, q_r = _mla_query(p, cfg, x, positions)
+        c, k_r = mla_latent(p, cfg, x, positions)
+        k_c, v = _proj(p.wkv_b, c).reshape(b, s, h, dn + dv).split([dn, dv], -1)
+        q = torch.cat([q_c, q_r], -1)
+        k = torch.cat([k_c, k_r[:, :, None].expand(b, s, h, -1)], -1)
+        pos2 = _broadcast_positions(positions, x.shape[:2])
+        with span("lm.mla.core"):
+            if s <= cfg.dense_attn_max:
+                out = _sdpa(q, k, v, _mask(pos2, pos2, "causal", None),
+                            mla_scale(cfg))
+            else:
+                out = _blockwise_sdpa(q, k, v, pos2, pos2, "causal", None,
+                                      mla_scale(cfg), cfg.kv_block)
+        y = F.linear(out.reshape(b, s, h * dv), p.wo.weight.to(x.dtype))
+    return y, (c, k_r)
+
+
+def init_mla_cache(batch, cache_len, kv_lora_rank, rope_dim,
+                   dtype=torch.bfloat16, device=None):
+    """An empty latent cache: ``c`` (B, S, kv_lora_rank), ``kr`` (B, S,
+    rope_dim), ``pos`` (B, S) -1."""
+    return {
+        "c": torch.zeros((batch, cache_len, kv_lora_rank), dtype=dtype,
+                         device=device),
+        "kr": torch.zeros((batch, cache_len, rope_dim), dtype=dtype,
+                          device=device),
+        "pos": torch.full((batch, cache_len), -1, dtype=torch.int32,
+                          device=device),
+    }
+
+
+def mla_cache_from_prefill(c, k_r, positions, cache_len):
+    """The prefill's latent (B, S, ·) in the first S of ``cache_len`` slots
+    (no window: MLA attends to every earlier position)."""
+    s = c.shape[1]
+    if s > cache_len:
+        raise ValueError(f"a prefill of {s} positions into a latent cache of "
+                         f"{cache_len}")
+    pos2 = _broadcast_positions(positions, c.shape[:2]).to(torch.int32)
+    pad = cache_len - s
+    return {"c": F.pad(c, (0, 0, 0, pad)), "kr": F.pad(k_r, (0, 0, 0, pad)),
+            "pos": F.pad(pos2, (0, pad), value=-1)}
+
+
+def mla_decode_attend(p: MLAttention, cfg, x, cache, pos):
+    """One-token MLA against the latent cache: x (B, 1, D); pos (B,) or
+    (B, 1). Writes the token's ``c``, ``k_R`` and position into slot ``pos
+    % cache_len`` in place. ``wkv_b``'s key half is absorbed into the query
+    (scores against ``c`` itself) and its value half applied to the
+    attended latent, so the cache stays the latent. Returns
+    ``(y (B, 1, D), cache)``."""
+    b = x.shape[0]
+    h, dn, dv = cfg.n_heads, cfg.qk_nope_head_dim, cfg.v_head_dim
+    positions = pos[:, None] if pos.ndim == 1 else pos
+    with span("lm.mla"):
+        q_c, q_r = _mla_query(p, cfg, x, positions)
+        c_new, kr_new = mla_latent(p, cfg, x, positions)
+        pos_b = positions[:, 0]
+        slot = (pos_b % cache["c"].shape[1]).long()
+        bidx = torch.arange(b, device=x.device)
+        cache["c"][bidx, slot] = c_new[:, 0].to(cache["c"].dtype)
+        cache["kr"][bidx, slot] = kr_new[:, 0].to(cache["kr"].dtype)
+        cache["pos"][bidx, slot] = pos_b.to(torch.int32)
+        w_b = p.wkv_b.weight.to(x.dtype).reshape(h, dn + dv, -1)
+        q_lat = torch.einsum("bhd,hdr->bhr", q_c[:, 0], w_b[:, :dn])
+        q_r = q_r[:, 0].to(cache["kr"].dtype)
+        with span("lm.mla.core"):
+            s = (_dot_f32(q_lat.to(cache["c"].dtype), cache["c"].transpose(1, 2))
+                 + _dot_f32(q_r, cache["kr"].transpose(1, 2))) * mla_scale(cfg)
+            ok = (cache["pos"] >= 0) & (cache["pos"] <= pos_b[:, None])
+            s = torch.where(ok[:, None], s, NEG_INF)          # (B, H, S)
+            m = s.amax(-1, keepdim=True)
+            w = torch.exp(s - m)
+            lat = _dot_f32(w.to(cache["c"].dtype), cache["c"])  # (B, H, r)
+            lat = lat / torch.clamp(w.sum(-1, keepdim=True), min=1e-30)
+        out = torch.einsum("bhr,hvr->bhv", lat.to(x.dtype), w_b[:, dn:])
+        y = F.linear(out.reshape(b, 1, h * dv), p.wo.weight.to(x.dtype))
+    return y, cache
 
 
 # ---------------------------------------------------------------------------

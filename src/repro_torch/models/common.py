@@ -132,20 +132,62 @@ def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
     return 1.0 / (theta ** exps)
 
 
-def apply_rope(x: torch.Tensor, positions: torch.Tensor,
-               theta: float) -> torch.Tensor:
-    """x: (B, S, H, Dh); positions: (B, S) or (S,). Rotates the (first half,
-    second half) pairs in float32 (the llama/qwen convention)."""
-    dh = x.shape[-1]
-    freqs = rope_freqs(dh, theta, x.device)
+def yarn_mscale(factor: float, mscale: float) -> float:
+    """YaRN's attention multiplier ``0.1·mscale·ln(factor) + 1`` (1 for
+    ``factor`` <= 1)."""
+    return 1.0 if factor <= 1 else 0.1 * mscale * math.log(factor) + 1.0
+
+
+def yarn_range(dim: int, theta: float, beta_fast: float, beta_slow: float,
+               original_max: int) -> tuple[int, int]:
+    """``(low, high)``: the frequency indices between which YaRN's ramp runs
+    from extrapolated to interpolated (the index at which a frequency turns
+    ``beta_fast`` and ``beta_slow`` times over ``original_max`` positions),
+    clamped to ``[0, dim - 1]``."""
+    def index(turns):
+        return (dim * math.log(original_max / (turns * 2 * math.pi))
+                / (2 * math.log(theta)))
+    low = math.floor(index(beta_fast))
+    high = math.ceil(index(beta_slow))
+    return max(low, 0), min(high, dim - 1)
+
+
+def yarn_freqs(dim: int, theta: float, factor: float, beta_fast: float,
+               beta_slow: float, original_max: int, device=None) -> torch.Tensor:
+    """``(dim/2,)`` float32 YaRN inverse frequencies: ``rope_freqs``
+    (extrapolated) below ``low``, divided by ``factor`` (interpolated) above
+    ``high``, a linear blend between; plain ``rope_freqs`` for ``factor`` <= 1."""
+    extra = rope_freqs(dim, theta, device)
+    if factor <= 1:
+        return extra
+    low, high = yarn_range(dim, theta, beta_fast, beta_slow, original_max)
+    ramp = ((torch.arange(dim // 2, dtype=torch.float32, device=device) - low)
+            / max(high - low, 1e-3)).clamp(0, 1)
+    return extra / factor * ramp + extra * (1 - ramp)
+
+
+def rotate(x: torch.Tensor, positions: torch.Tensor, freqs: torch.Tensor,
+           mult: float = 1.0) -> torch.Tensor:
+    """x: (B, S, H, Dh); positions: (B, S) or (S,); ``freqs`` (Dh/2,).
+    Rotates the (first half, second half) pairs in float32 (the llama/qwen
+    convention), cos and sin scaled by ``mult``."""
     if positions.ndim == 1:
         positions = positions[None, :]
     angles = positions[..., None].float() * freqs          # (B, S, Dh/2)
     cos = torch.cos(angles)[:, :, None, :]
     sin = torch.sin(angles)[:, :, None, :]
+    if mult != 1.0:
+        cos, sin = cos * mult, sin * mult
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float) -> torch.Tensor:
+    """x: (B, S, H, Dh); positions: (B, S) or (S,). Plain rope of base
+    ``theta`` (``rotate`` with ``rope_freqs``)."""
+    return rotate(x, positions, rope_freqs(x.shape[-1], theta, x.device))
 
 
 def sinusoidal_positions(n_pos: int, d: int, device=None) -> torch.Tensor:

@@ -8,12 +8,23 @@ dispatch tables) is per group.
 Dispatch engines (identical outputs, drops included):
   * ``einsum`` — GShard one-hot dispatch/combine einsums (O(T_g·E·C) extra
     work);
-  * ``sort``   — capacity-slot scatter/gather (O(T_g·k·d) data movement).
+  * ``sort``   — capacity-slot ``index_select`` / ``index_add`` (O(E·C·d)
+    data movement).
 
 Capacity: C = max(1, int(cf·T_g·k/E)) per group; ``dropless`` sets C = T_g,
 which is what inference uses. Expert weights stay stacked ``(E, d, f)`` /
 ``(E, f, d)`` parameters and the products are ``torch.einsum`` (batched
 GEMMs over the expert axis).
+
+Held experts: a layer may hold a contiguous range of the router's E experts
+(``MoE(n_held=…)``, the range starting at ``moe_block(base=…)``), as one
+rank of an expert-parallel deployment does. The router keeps all E outputs
+and its top-k over them; capacity still counts all E; the layer computes
+its held experts' share of the routed output and leaves out assignments to
+experts held elsewhere (only the ``sort`` engine, whose full layer is the
+range of all E). Shared experts are
+computed once, behind a sigmoid ``shared_gate`` or, without one, added
+ungated. ``spans.count`` tallies the assignments kept, dropped and absent.
 
 On a mesh (an active ``Policy``, per-rank lists), ``moe_block`` runs
 ``_moe_shard_map``, the reference's explicit-collective engine: groups on
@@ -33,44 +44,53 @@ from repro_torch.models.common import (
     init_linear_,
     truncated_normal_,
 )
+from repro_torch import spans
 from repro_torch.launch.mesh import axis_size
 from repro_torch.models.mlp import MLP, mlp, mlp_sharded
 from repro_torch.sharding import DATA, all_gather, module_view, pmean, psum
+from repro_torch.spans import span
 
 
 class MoE(nn.Module):
     """``router`` (d, E) and the stacked experts ``w_gate`` / ``w_up``
-    (E, d, f) and ``w_down`` (E, f, d), in the reference's layout; with
-    shared experts also ``shared`` (a gated ``MLP``) and ``shared_gate``
-    (d, 1)."""
+    (E_held, d, f) and ``w_down`` (E_held, f, d), in the reference's layout
+    (E_held = ``n_held``, default E); with shared experts also ``shared`` (a
+    gated ``MLP``) and, when ``shared_gate``, the gate's (d, 1) weight
+    ``shared_gate``."""
 
     def __init__(self, d_model: int, d_ff_expert: int, n_experts: int, *,
-                 n_shared: int = 0, d_ff_shared=None, device=None):
+                 n_shared: int = 0, d_ff_shared=None, device=None,
+                 n_held=None, shared_gate: bool = True):
         super().__init__()
 
         def empty(*shape):
             return nn.Parameter(torch.empty(shape, device=device))
 
+        held = n_experts if n_held is None else n_held
         self.router = empty(d_model, n_experts)
-        self.w_gate = empty(n_experts, d_model, d_ff_expert)
-        self.w_up = empty(n_experts, d_model, d_ff_expert)
-        self.w_down = empty(n_experts, d_ff_expert, d_model)
+        self.w_gate = empty(held, d_model, d_ff_expert)
+        self.w_up = empty(held, d_model, d_ff_expert)
+        self.w_down = empty(held, d_ff_expert, d_model)
         self.shared = self.shared_gate = None
         if n_shared:
             d_sh = d_ff_shared or n_shared * d_ff_expert
             self.shared = MLP(d_model, d_sh, gated=True, device=device)
-            self.shared_gate = empty(d_model, 1)
+            if shared_gate:
+                self.shared_gate = empty(d_model, 1)
 
 
 @torch.no_grad()
 def init_moe(gen: torch.Generator, d_model: int, d_ff_expert: int,
-             n_experts: int, *, n_shared: int = 0, d_ff_shared=None) -> MoE:
+             n_experts: int, *, n_shared: int = 0, d_ff_shared=None,
+             n_held=None, shared_gate: bool = True) -> MoE:
     """A ``MoE`` on the generator's device with the reference's
     distributions: fan-in scaled truncated normals, where the stacked
     experts' fan-in is ``E·d`` (gate, up) and ``E·f`` (down), as the
-    reference draws them flat and reshapes."""
+    reference draws them flat and reshapes (E the router's width, also
+    when the layer holds fewer)."""
     p = MoE(d_model, d_ff_expert, n_experts, n_shared=n_shared,
-            d_ff_shared=d_ff_shared, device=gen.device)
+            d_ff_shared=d_ff_shared, device=gen.device, n_held=n_held,
+            shared_gate=shared_gate)
     truncated_normal_(p.router, gen, d_model ** -0.5)
     truncated_normal_(p.w_gate, gen, (n_experts * d_model) ** -0.5)
     truncated_normal_(p.w_up, gen, (n_experts * d_model) ** -0.5)
@@ -78,7 +98,8 @@ def init_moe(gen: torch.Generator, d_model: int, d_ff_expert: int,
     if n_shared:
         for lin in (p.shared.w_up, p.shared.w_down, p.shared.w_gate):
             init_linear_(gen, lin)
-        truncated_normal_(p.shared_gate, gen, d_model ** -0.5)
+        if shared_gate:
+            truncated_normal_(p.shared_gate, gen, d_model ** -0.5)
     return p
 
 
@@ -144,33 +165,54 @@ def moe_einsum(p: MoE, x, *, top_k, capacity, act="silu", normalize=True):
     return torch.einsum("gtec,gecd->gtd", comb, out_e), aux
 
 
-def moe_sort(p: MoE, x, *, top_k, capacity, act="silu", normalize=True):
-    """Capacity-slot scatter dispatch (no O(T·E·C) einsum). x: (G, T, d)."""
+def _count(keep, held) -> None:
+    """Tally the (token, k) assignments kept, dropped and absent."""
+    if not spans.counters_open():
+        return
+    spans.count("lm.moe.kept", (keep & held).sum())
+    spans.count("lm.moe.dropped", (held & ~keep).sum())
+    spans.count("lm.moe.absent", (~held).sum())
+
+
+def moe_sort(p: MoE, x, *, top_k, capacity, act="silu", normalize=True,
+             base=0):
+    """Capacity-slot dispatch (no O(T·E·C) einsum) over the held experts
+    ``[base, base + E_held)`` (all E by default). x: (G, T, d).
+
+    Slot-centred: a (G, E_held·C) table gives each slot its token and its
+    gate, the experts' inputs are one ``index_select`` of the tokens and
+    the combine one ``index_add`` of the gated outputs, so neither pass
+    nor its backward visits an assignment that is not computed here. An
+    empty slot reads the token its index names modulo T and adds zero to
+    it, so empty slots spread over the rows instead of piling onto one."""
     g, t, d = x.shape
     e = p.router.shape[-1]
-    gates, experts, aux = _route(p, x, top_k, normalize=normalize)
+    n = p.w_gate.shape[0]
+    with span("lm.moe.route"):
+        gates, experts, aux = _route(p, x, top_k, normalize=normalize)
     slot, keep = _slots(experts, top_k, e, capacity)
+    local = experts - base
+    held = (local >= 0) & (local < n)
+    mine = keep & held
+    _count(keep, held)
     dev = x.device
-    gi = torch.arange(g, device=dev)[:, None]
-
-    exp_f = experts.reshape(g, t * top_k)
-    slot_f = torch.where(keep, slot, capacity).reshape(g, t * top_k)
+    nc = n * capacity
+    # each computed assignment's slot in the flat (E_held·C) table; every
+    # other one writes column ``nc``, which is sliced off
+    pos = torch.where(mine, local * capacity + slot, nc).reshape(g, t * top_k)
     tok_f = torch.arange(t, device=dev).repeat_interleave(top_k)[None]
-    # token ids into per-group (E, C+1) slot tables; every dropped token
-    # writes column ``capacity``, which is sliced off, so only the kept
-    # (unique) slots matter
-    table = torch.full((g, e, capacity + 1), t, dtype=torch.int64, device=dev)
-    table[gi, exp_f, slot_f] = tok_f.expand(g, -1)
-    table = table[..., :capacity]                         # (G, E, C)
-    x_pad = torch.cat([x, x.new_zeros(g, 1, d)], dim=1)   # row t is zeros
-    h = x_pad[gi, table.reshape(g, e * capacity)].reshape(g, e, capacity, d)
-    out_e = _expert_ffn(p, h, activation(act))
-    out_pad = torch.cat([out_e.reshape(g, e * capacity, d),
-                         out_e.new_zeros(g, 1, d)], dim=1)
-    lin = torch.where(keep, experts * capacity + slot,
-                      e * capacity).reshape(g, t * top_k)
-    per_k = out_pad[gi, lin].reshape(g, t, top_k, d)
-    return torch.einsum("gtkd,gtk->gtd", per_k, gates.to(x.dtype)), aux
+    spread = torch.arange(nc + 1, device=dev) % t
+    table = spread.expand(g, -1).clone()
+    table.scatter_(1, pos, tok_f.expand(g, -1))
+    rows = (table[:, :nc]
+            + t * torch.arange(g, device=dev)[:, None]).reshape(g * nc)
+    gate_slot = gates.new_zeros(g, nc + 1).scatter(
+        1, pos, gates.reshape(g, t * top_k))[:, :nc]       # 0: an empty slot
+    h = x.reshape(g * t, d).index_select(0, rows).reshape(g, n, capacity, d)
+    out_e = _expert_ffn(p, h, activation(act)).reshape(g * nc, d)
+    out = x.new_zeros(g * t, d, dtype=torch.float32).index_add(
+        0, rows, out_e.float() * gate_slot.reshape(g * nc, 1))
+    return out.to(x.dtype).reshape(g, t, d), aux
 
 
 def _moe_shard_map(ps, xgs, *, top_k, capacity, act, policy, dispatch,
@@ -237,9 +279,18 @@ def _moe_block_sharded(ps, xs, *, top_k, capacity_factor, act, policy,
     return outs, aux
 
 
+def shared_out(p: MoE, x, *, act="silu"):
+    """The shared experts' output, behind ``shared_gate`` when the layer
+    has one."""
+    sh = mlp(p.shared, x, act=act)
+    if p.shared_gate is None:
+        return sh
+    return torch.sigmoid(x @ p.shared_gate.to(x.dtype)) * sh
+
+
 def moe_block(p: MoE, x, *, top_k, capacity_factor, act="silu",
               dispatch="sort", normalize=True, num_groups=None,
-              dropless=False, policy=None):
+              dropless=False, policy=None, base=0):
     """x: (B, S, d) → (out, aux). Groups are batch rows (GShard); shared
     experts, if any, are always active.
 
@@ -247,6 +298,10 @@ def moe_block(p: MoE, x, *, top_k, capacity_factor, act="silu",
     token overflows its expert. Inference runs dropless (a prefill that
     drops tokens could never agree with step-by-step decode, where each
     single-token group fits); training keeps the capacity drops.
+
+    A layer holding fewer experts than its router's (``p.w_gate``'s E_held
+    < E) computes experts ``[base, base + E_held)``; only the ``sort``
+    engine, on one device.
 
     With an active ``policy`` (a mesh with a model axis), ``p`` and ``x``
     are per-rank lists and the block runs ``_moe_shard_map``; returns
@@ -264,13 +319,18 @@ def moe_block(p: MoE, x, *, top_k, capacity_factor, act="silu",
     tg = (b * s) // g
     e = p.router.shape[-1]
     capacity = tg if dropless else max(1, int(capacity_factor * tg * top_k / e))
-    fn = {"einsum": moe_einsum, "sort": moe_sort}[dispatch]
-    out, (me, ce) = fn(p, x.reshape(g, tg, d), top_k=top_k, capacity=capacity,
-                       act=act, normalize=normalize)
-    aux = e * torch.sum(me * ce)                  # Switch load-balance loss
-    out = out.reshape(b, s, d)
-    if p.shared is not None:
-        sh = mlp(p.shared, x, act=act)
-        sg = torch.sigmoid(x @ p.shared_gate.to(x.dtype))
-        out = out + sg * sh
+    with span("lm.moe"):
+        if p.w_gate.shape[0] != e and dispatch != "sort":
+            raise NotImplementedError(
+                f"a layer holding {p.w_gate.shape[0]} of {e} experts runs the "
+                f"sort engine, not {dispatch!r}")
+        kw = {"base": base} if dispatch == "sort" else {}
+        fn = {"einsum": moe_einsum, "sort": moe_sort}[dispatch]
+        out, (me, ce) = fn(p, x.reshape(g, tg, d), top_k=top_k,
+                           capacity=capacity, act=act, normalize=normalize,
+                           **kw)
+        aux = e * torch.sum(me * ce)              # Switch load-balance loss
+        out = out.reshape(b, s, d)
+        if p.shared is not None:
+            out = out + shared_out(p, x, act=act)
     return out, aux

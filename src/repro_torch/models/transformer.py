@@ -18,6 +18,13 @@ Block kinds: ``attn_mlp`` and ``attn_moe`` (attention with an MLP or a
 MoE mixer), ``rwkv`` (RWKV-6), ``rec_mlp`` (a Griffin recurrent block
 and an MLP).
 
+An ``MLAConfig`` (DeepSeek-V2) builds its attention blocks with
+``MLAttention`` and starts with ``n_dense_layers`` ``attn_mlp`` blocks in
+``head`` (unrolled, like ``tail``; empty for every other config), then
+``attn_moe`` groups. Its cache holds the latent per layer (``{"c": (L, B,
+S, kv_lora_rank), "kr": (L, B, S, qk_rope), "pos"}``, the head's under
+``head``). It runs on one device: its sharded functions raise.
+
 On a mesh (``*_sharded``: an active ``Policy`` and a ``ShardedModule``
 or its per-rank views; activations, caches and tokens as ``PerRank``
 lists) the stack runs every block kind, the tail too, in the Megatron
@@ -47,7 +54,7 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import MLAConfig, ModelConfig
 from repro_torch.core.types import resolve_device
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import griffin as griffin_mod
@@ -70,6 +77,7 @@ from repro_torch.models.common import (
 )
 from repro_torch.models.mlp import MLP, init_mlp, mlp, mlp_sharded, mlp_stationary
 from repro_torch.models.moe import MoE, init_moe, moe_block
+from repro_torch.spans import span
 from repro_torch.sharding import (
     DATA,
     MODEL,
@@ -107,8 +115,7 @@ class AttnBlock(nn.Module):
     mixer, ``mlp`` (``attn_mlp``) or ``moe`` (``attn_moe``); the norms
     start at ones (and zeros)."""
 
-    def __init__(self, cfg: ModelConfig, attn: attn_mod.Attention,
-                 mixer: nn.Module):
+    def __init__(self, cfg: ModelConfig, attn: nn.Module, mixer: nn.Module):
         super().__init__()
         norm_cls, _ = _norm_fns(cfg)
         device = attn.wq.weight.device
@@ -140,16 +147,39 @@ def _moe_args(cfg: ModelConfig):
     return (cfg.d_model, cfg.d_ff_expert or cfg.d_ff, cfg.n_experts)
 
 
+def _is_mla(cfg: ModelConfig) -> bool:
+    return isinstance(cfg, MLAConfig)
+
+
+def _moe_kw(cfg: ModelConfig) -> dict:
+    """``MoE`` keywords: shared experts and, for an ``MLAConfig``, the held
+    share and ungated shared experts."""
+    kw = dict(n_shared=cfg.n_shared_experts, d_ff_shared=cfg.d_ff_shared)
+    if _is_mla(cfg):
+        kw.update(n_held=cfg.n_held, shared_gate=False)
+    return kw
+
+
+def _no_mesh(cfg: ModelConfig) -> None:
+    """Raise for a config that has no sharded path (MLA)."""
+    if _is_mla(cfg):
+        raise NotImplementedError(
+            f"{cfg.name}: multi-head latent attention (MLA) runs on one "
+            "device; it has no sharded path")
+
+
 def _empty_block(cfg: ModelConfig, kind: str, device) -> nn.Module:
     """A block of ``kind`` with uninitialised weights."""
     if kind in ("attn_mlp", "attn_moe"):
-        attn = attn_mod.Attention(
-            cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_,
-            qkv_bias=cfg.qkv_bias, qk_norm=cfg.qk_norm, device=device)
+        if _is_mla(cfg):
+            attn = attn_mod.MLAttention(cfg, device=device)
+        else:
+            attn = attn_mod.Attention(
+                cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_,
+                qkv_bias=cfg.qkv_bias, qk_norm=cfg.qk_norm, device=device)
         if kind == "attn_moe":
-            return AttnBlock(cfg, attn, MoE(
-                *_moe_args(cfg), n_shared=cfg.n_shared_experts,
-                d_ff_shared=cfg.d_ff_shared, device=device))
+            return AttnBlock(cfg, attn, MoE(*_moe_args(cfg), device=device,
+                                            **_moe_kw(cfg)))
         return AttnBlock(cfg, attn, MLP(cfg.d_model, cfg.d_ff,
                                         gated=(cfg.act == "silu"),
                                         device=device))
@@ -166,13 +196,15 @@ def _empty_block(cfg: ModelConfig, kind: str, device) -> nn.Module:
 def _init_attn_block(gen: torch.Generator, cfg: ModelConfig, *,
                      mixer: str) -> AttnBlock:
     """mixer: 'mlp' or 'moe'."""
-    attn = attn_mod.init_attention(
-        gen, cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_,
-        qkv_bias=cfg.qkv_bias, qk_norm=cfg.qk_norm)
+    if _is_mla(cfg):
+        attn = attn_mod.init_mla(gen, cfg)
+    else:
+        attn = attn_mod.init_attention(
+            gen, cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_,
+            qkv_bias=cfg.qkv_bias, qk_norm=cfg.qk_norm)
     if mixer == "moe":
-        return AttnBlock(cfg, attn, init_moe(
-            gen, *_moe_args(cfg), n_shared=cfg.n_shared_experts,
-            d_ff_shared=cfg.d_ff_shared))
+        return AttnBlock(cfg, attn, init_moe(gen, *_moe_args(cfg),
+                                             **_moe_kw(cfg)))
     return AttnBlock(cfg, attn, init_mlp(gen, cfg.d_model, cfg.d_ff,
                                          gated=(cfg.act == "silu")))
 
@@ -198,7 +230,16 @@ def _attn_block_seq(p: AttnBlock, cfg, x, positions, cache, *, window,
     the returned cache is a new one built from this pass's K/V."""
     _, norm = _norm_fns(cfg)
     h = norm(p.norm1, x)
-    if decode:
+    if _is_mla(cfg):
+        if decode:
+            o, cache = attn_mod.mla_decode_attend(p.attn, cfg, h, cache,
+                                                  positions)
+        else:
+            o, (c, k_r) = attn_mod.mla_attend(p.attn, cfg, h, positions)
+            if cache is not None:
+                cache = attn_mod.mla_cache_from_prefill(
+                    c, k_r, positions, cache["c"].shape[1])
+    elif decode:
         o, cache = attn_mod.decode_attend(
             p.attn, h, cache, positions, n_heads=cfg.n_heads,
             n_kv_heads=cfg.n_kv_heads, head_dim=cfg.head_dim_,
@@ -224,7 +265,8 @@ def _attn_block_seq(p: AttnBlock, cfg, x, positions, cache, *, window,
             normalize=cfg.normalize_topk,
             dropless=decode or cache is not None)
     else:
-        o = mlp(p.mlp, h, act=cfg.act)
+        with span("lm.mlp"):
+            o = mlp(p.mlp, h, act=cfg.act)
     return x + o, cache, aux
 
 
@@ -253,7 +295,7 @@ def _plan(cfg: ModelConfig):
     if cfg.family in ("dense", "vlm"):
         return ("attn_mlp",), cfg.n_layers, ()
     if cfg.family == "moe":
-        return ("attn_moe",), cfg.n_layers, ()
+        return ("attn_moe",), cfg.n_layers - len(_head_kinds(cfg)), ()
     if cfg.family == "ssm":
         return ("rwkv",), cfg.n_layers, ()
     if cfg.family == "hybrid":
@@ -265,6 +307,11 @@ def _plan(cfg: ModelConfig):
                      "encoder-decoder family is models/whisper.py)")
 
 
+def _head_kinds(cfg: ModelConfig) -> tuple:
+    """Unrolled leading blocks: an ``MLAConfig``'s dense layers."""
+    return ("attn_mlp",) * cfg.n_dense_layers if _is_mla(cfg) else ()
+
+
 def _window_for(cfg: ModelConfig, kind: str):
     """The attention window: hybrids use ``local_window``, the others
     ``sliding_window`` (None for full attention)."""
@@ -274,7 +321,8 @@ def _window_for(cfg: ModelConfig, kind: str):
 
 
 class LM(nn.Module):
-    """``embed``, ``layers`` (groups of blocks), ``tail`` (trailing blocks,
+    """``embed``, ``head`` (leading blocks, empty but for an ``MLAConfig``'s
+    dense layers), ``layers`` (groups of blocks), ``tail`` (trailing blocks,
     empty unless the plan has some), ``final_norm`` and, unless the
     embeddings are tied, ``lm_head`` (``nn.Linear``, weight (V, d)). Built
     with uninitialised weights (``convert.lm_params_from_reference`` copies
@@ -287,6 +335,7 @@ class LM(nn.Module):
         make_block = make_block or (lambda kind: _empty_block(cfg, kind, device))
         norm_cls, _ = _norm_fns(cfg)
         self.embed = Embed(cfg.vocab, cfg.d_model, device)
+        self.head = nn.ModuleList(make_block(kind) for kind in _head_kinds(cfg))
         self.layers = nn.ModuleList(
             nn.ModuleDict({f"b{i}_{kind}": make_block(kind)
                            for i, kind in enumerate(kinds)})
@@ -319,6 +368,10 @@ def _block_cache_shapes(cfg: ModelConfig, kind: str, batch: int,
     """One block's cache as ``{name: (shape, dtype)}``. ``dtype`` is that
     of the K/V cache and of RWKV's token shifts; RWKV's ``wkv`` and
     Griffin's state are float32."""
+    if kind in ("attn_mlp", "attn_moe") and _is_mla(cfg):
+        return {"c": ((batch, cache_len, cfg.kv_lora_rank), dtype),
+                "kr": ((batch, cache_len, cfg.qk_rope_head_dim), dtype),
+                "pos": ((batch, cache_len), torch.int32)}
     if kind in ("attn_mlp", "attn_moe"):
         window = _window_for(cfg, kind)
         clen = min(cache_len, window) if window else cache_len
@@ -337,9 +390,10 @@ def cache_shapes(cfg: ModelConfig, batch: int, cache_len: int,
                  dtype=torch.bfloat16) -> dict:
     """The cache's ``(shape, dtype)`` per tensor, allocating nothing: the
     groups' blocks stacked ``(n_groups, …)`` under ``layers``, the tail's
-    unstacked under ``tail``. With the default bf16 it is the reference's
-    ``init_cache``."""
+    (and an MLA config's head's) unstacked under ``tail`` (``head``). With
+    the default bf16 it is the reference's ``init_cache``."""
     kinds, n_groups, tail = _plan(cfg)
+    head = _head_kinds(cfg)
     out = {"layers": {
         f"b{i}_{kind}": {name: ((n_groups,) + shape, dt) for name, (shape, dt)
                          in _block_cache_shapes(cfg, kind, batch, cache_len,
@@ -348,6 +402,9 @@ def cache_shapes(cfg: ModelConfig, batch: int, cache_len: int,
     if tail:
         out["tail"] = [_block_cache_shapes(cfg, kind, batch, cache_len, dtype)
                        for kind in tail]
+    if head:
+        out["head"] = [_block_cache_shapes(cfg, kind, batch, cache_len, dtype)
+                       for kind in head]
     return out
 
 
@@ -366,8 +423,9 @@ def init_cache(cfg: ModelConfig, batch: int, cache_len: int,
     shapes = cache_shapes(cfg, batch, cache_len, dtype)
     out = {"layers": {key: _alloc(block, dev)
                       for key, block in shapes["layers"].items()}}
-    if "tail" in shapes:
-        out["tail"] = [_alloc(block, dev) for block in shapes["tail"]]
+    for part in ("tail", "head"):
+        if part in shapes:
+            out[part] = [_alloc(block, dev) for block in shapes[part]]
     return out
 
 
@@ -434,10 +492,22 @@ def maybe_checkpoint(fn, cfg, *args):
 def _run_stack(cfg, params: LM, x, positions, caches, decode):
     """Walk the layer stack and the tail; returns (x, caches, aux summed
     over the blocks). With ``caches``, each block reads and writes its
-    slice of the cache in place. In training (no caches) each group goes
-    through ``maybe_checkpoint``; the tail is not recomputed."""
+    slice of the cache in place. In training (no caches) each head block and
+    each group goes through ``maybe_checkpoint``; the tail is not
+    recomputed."""
     kinds, _, tail = _plan(cfg)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i, kind in enumerate(_head_kinds(cfg)):
+        if caches is None:
+            x, a = maybe_checkpoint(_train_group, cfg,
+                                    {f"b0_{kind}": params.head[i]}, cfg,
+                                    (kind,), x, positions)
+        else:
+            cache = caches["head"][i]
+            x, new, a = _apply_block(params.head[i], cfg, kind, x, positions,
+                                     cache, decode)
+            _store(cache, new)
+        aux = aux + a
     if caches is None:
         for group in params.layers:
             x, a = maybe_checkpoint(_train_group, cfg, group, cfg, kinds, x,
@@ -478,10 +548,12 @@ def apply_train(cfg: ModelConfig, params: LM, tokens, vision_embeds=None):
     """tokens: (B, S_text) int → (logits (B, S, V) float32, aux), aux the
     Switch load-balance loss summed over the MoE blocks (0 without). A
     forward pass with autograd on (the training slice builds on it)."""
-    x = _embed_inputs(cfg, params, tokens, vision_embeds)
+    with span("lm.embed"):
+        x = _embed_inputs(cfg, params, tokens, vision_embeds)
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
     x, _, aux = _run_stack(cfg, params, x, positions, None, decode=False)
-    return _logits(cfg, params, x).float(), aux
+    with span("lm.head_loss"):
+        return _logits(cfg, params, x).float(), aux
 
 
 @torch.no_grad()
@@ -871,6 +943,7 @@ def apply_train_sharded(cfg: ModelConfig, policy, params, tokens,
     """``apply_train`` on a mesh: tokens (and vision embeddings) per rank,
     batch rows on the batch axes. Returns (per-rank logits (B/|batch|, S,
     V/|model|) float32, per-rank aux, replicated)."""
+    _no_mesh(cfg)
     views, specs = _sharded_parts(cfg, params)
     mesh = policy.mesh
     xs = _embed_inputs_sharded(cfg, policy, specs, views, tokens, vision_embeds)
@@ -899,6 +972,7 @@ def prefill_sharded(cfg: ModelConfig, policy, params, tokens, cache_len,
     the cache: ``init_cache``'s tree with ``PerRank`` leaves, each rank's
     K/V (L, B/|batch|, Hkv, cache_len/|model|, Dh) and positions its slice
     of the sequence)."""
+    _no_mesh(cfg)
     views, specs = _sharded_parts(cfg, params)
     mesh = policy.mesh
     m = axis_size(mesh, MODEL)
@@ -926,6 +1000,7 @@ def decode_step_sharded(cfg: ModelConfig, policy, params, token, caches, pos):
     weights stay on their ranks and the residual lies split on d over
     ``data``; without it each block's weights are gathered over ``data``.
     Returns (per-rank logits (B/|batch|, V), caches)."""
+    _no_mesh(cfg)
     views, specs = _sharded_parts(cfg, params)
     mesh = policy.mesh
     if policy.decode_mode:

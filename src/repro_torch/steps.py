@@ -59,6 +59,7 @@ from repro_torch.models.transformer import LM
 from repro_torch.models.whisper import Whisper
 from repro_torch.optim import adamw, compression
 from repro_torch.optim import schedule as sched
+from repro_torch.spans import span
 from repro_torch.sharding import (
     DATA,
     MODEL,
@@ -151,6 +152,25 @@ def _xent_sharded(logits, labels, policy: Policy):
     return PerRank(n + zz for n, zz in zip(nll, z)), nll
 
 
+def train_loss(cfg: ModelConfig, params, mb: dict, *, aux_coef: float = 0.01,
+               model: Model | None = None):
+    """One microbatch's training loss on one device, as the train step takes
+    it: the forward pass on a bf16 view of the float32 masters ``params``
+    (autograd through the casts), the cross-entropy with its z-loss, plus
+    ``aux_coef·aux``. ``mb``: ``tokens``, ``labels`` (and a VLM's
+    ``vision_embeds``). Returns ``(loss, nll, logits)``, the logits (B, S,
+    V) float32 of the text positions."""
+    model = build(cfg) if model is None else model
+    mb = dict(mb)
+    labels = mb.pop("labels")
+    logits, aux = model.apply_train(_cast_view(params, COMPUTE_DTYPE), **mb)
+    if cfg.family == "vlm":
+        logits = logits[:, cfg.n_vision_tokens:]
+    with span("lm.head_loss"):
+        loss, nll = _xent(logits, labels)
+    return loss + aux_coef * aux, nll, logits
+
+
 def _cast_view(module: nn.Module, dtype) -> nn.Module:
     """A shallow copy of ``module``'s tree whose float32 parameters are
     ``p.to(dtype)`` (``sharding.module_view``): differentiable casts of the
@@ -223,27 +243,26 @@ def make_train_step(
     baxes = batch_axes_for(shape.global_batch // microbatches, mesh)
     policy = Policy.none()
     if mesh is not None:
+        transformer._no_mesh(cfg)
         policy = dataclasses.replace(Policy.for_mesh(mesh), batch_axes=baxes,
                                      seq_shard_residual=cfg.sp_residual)
     full_axes = batch_axes_for(shape.global_batch, mesh)
 
-    def loss_fn(params, mb):
+    def sharded_loss(params, mb):
         labels = mb.pop("labels")
-        if policy.active:
-            logits, aux = model.apply_train(params, policy=policy, **mb)
-            if cfg.family == "vlm":
-                logits = [l[:, cfg.n_vision_tokens:] for l in logits]
-            loss, nll = _xent_sharded(logits, labels, policy)
-            # rank 0's copy: every rank's work reaches it through the
-            # reductions, and counting one copy keeps the loss the global one
-            return loss[0] + aux_coef * aux[0], nll[0]
-        logits, aux = model.apply_train(params, **mb)
+        logits, aux = model.apply_train(params, policy=policy, **mb)
         if cfg.family == "vlm":
-            logits = logits[:, cfg.n_vision_tokens:]
-        loss, nll = _xent(logits, labels)
-        return loss + aux_coef * aux, nll
+            logits = [l[:, cfg.n_vision_tokens:] for l in logits]
+        loss, nll = _xent_sharded(logits, labels, policy)
+        # rank 0's copy: every rank's work reaches it through the
+        # reductions, and counting one copy keeps the loss the global one
+        return loss[0] + aux_coef * aux[0], nll[0]
 
     def train_step(state, batch):
+        with span("lm.train_step"):
+            return _train_step(state, batch)
+
+    def _train_step(state, batch):
         params, opt, ef = state["params"], state["opt"], state["ef"]
         named = dict(params.named_parameters())
         mbs = {k: v.reshape((microbatches, v.shape[0] // microbatches)
@@ -253,21 +272,24 @@ def make_train_step(
         losses, nlls = [], []
         with torch.enable_grad():
             for i in range(microbatches):
-                loss, nll = loss_fn(_cast_view(params, COMPUTE_DTYPE),
-                                    {k: v[i] for k, v in mbs.items()})
-                loss.backward()        # accumulates float32 into .grad
+                with span("lm.microbatch"):
+                    loss, nll, _ = train_loss(
+                        cfg, params, {k: v[i] for k, v in mbs.items()},
+                        aux_coef=aux_coef, model=model)
+                    loss.backward()    # accumulates float32 into .grad
                 losses.append(loss.detach())
                 nlls.append(nll.detach())
-        grads = {n: (torch.zeros_like(p) if p.grad is None else p.grad)
-                 for n, p in named.items()}
-        for p in named.values():
-            p.grad = None
-        torch._foreach_div_(list(grads.values()), microbatches)
-        grads, ef = compression.compress_grads(grads, ef, mode=compress)
-        lr = sched.cosine_with_warmup(
-            opt.step, peak_lr=peak_lr, warmup_steps=warmup_steps,
-            total_steps=total_steps)
-        opt, metrics = adamw.update(grads, opt, named, lr=lr)
+        with span("lm.optimizer"):
+            grads = {n: (torch.zeros_like(p) if p.grad is None else p.grad)
+                     for n, p in named.items()}
+            for p in named.values():
+                p.grad = None
+            torch._foreach_div_(list(grads.values()), microbatches)
+            grads, ef = compression.compress_grads(grads, ef, mode=compress)
+            lr = sched.cosine_with_warmup(
+                opt.step, peak_lr=peak_lr, warmup_steps=warmup_steps,
+                total_steps=total_steps)
+            opt, metrics = adamw.update(grads, opt, named, lr=lr)
         metrics.update(loss=torch.stack(losses).mean(),
                        nll=torch.stack(nlls).mean())
         return {"params": params, "opt": opt, "ef": ef}, metrics
@@ -296,7 +318,7 @@ def make_train_step(
         with torch.enable_grad():
             for i in range(microbatches):
                 views = transformer.rank_views(params, COMPUTE_DTYPE)
-                loss, nll = loss_fn(views, microbatch(batch, i))
+                loss, nll = sharded_loss(views, microbatch(batch, i))
                 loss.backward()        # accumulates float32 into .grad
                 losses.append(loss.detach())
                 nlls.append(nll.detach())
@@ -433,6 +455,8 @@ def make_prefill_step(cfg: ModelConfig, shape: ShapeSpec, mesh=None) -> StepBuil
     """``fn(params, batch) -> (last logits, cache)`` at ``shape``'s cache
     length (rolling for windowed archs); sharded with a ``mesh``."""
     model = build(cfg)
+    if mesh is not None:
+        transformer._no_mesh(cfg)
     clen = effective_cache_len(cfg, shape)
     policy, baxes = _serve_policy(cfg, shape, mesh)
 
@@ -463,6 +487,8 @@ def make_decode_step(cfg: ModelConfig, shape: ShapeSpec, mesh=None) -> StepBuild
     """``fn(params, caches, token, pos) -> (logits, caches)``, the cache
     updated in place; sharded with a ``mesh``."""
     model = build(cfg)
+    if mesh is not None:
+        transformer._no_mesh(cfg)
     policy, baxes = _serve_policy(cfg, shape, mesh, decode_mode=True)
 
     def decode_fn(params, caches, token, pos):

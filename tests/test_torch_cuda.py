@@ -24,7 +24,10 @@ family, and ``gpipe_apply`` on the card = the sequential stack. The
 dry-run tools: ``dryrun.run_tm_checks`` / ``run_tm_async_checks`` with
 k ranks on ``cuda:0`` (each kernel-backed engine launches its kernel),
 and ``launch.trace`` on fake CUDA tensors = a real run on the card
-(FLOPs, collectives, argument bytes).
+(FLOPs, collectives, argument bytes). One latent-attention (MLA) layer of
+deepseek-v2-lite at its published widths and 4,096 positions = the plain
+float32 reference (``tmbench/reference/deepseek_v2.py``), in float32 and
+in bf16.
 Imports no JAX, so it runs where JAX is not installed.
 """
 import numpy as np
@@ -1299,3 +1302,29 @@ def test_trace_equals_card_run(cuda_device, kind, mesh_shape):
         assert acct["collectives"]["counter"] == counter
         assert (trace.counter_stats(counter, mesh).by_kind
                 == acct["collectives"]["by_kind"])
+
+
+@pytest.mark.cuda
+def test_mla_layer_at_published_widths_matches_the_reference(cuda_device):
+    from repro_torch.configs import get_config
+    from repro_torch.models import attention
+    from tmbench import harness
+    from tmbench.reference import deepseek_v2 as mla_ref
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config("deepseek-v2-lite")
+    conf = harness.load_json(harness.ROOT / "tmbench/configs/deepseek_v2_lite_ep8.json")
+    gen = torch.Generator(device=cuda_device).manual_seed(31)
+    p = attention.init_mla(gen, cfg)
+    x = torch.randn(2, 4096, cfg.d_model, generator=gen, device=cuda_device)
+    pos = torch.arange(4096, device=cuda_device)[None]
+    w = {"wq": p.wq.weight, "wkv_a": p.wkv_a.weight, "kv_norm": p.kv_norm.scale,
+         "wkv_b": p.wkv_b.weight, "wo": p.wo.weight}
+    with torch.no_grad():
+        want = mla_ref.mla(w, x, conf)
+        got, (c, k_r) = attention.mla_attend(p, cfg, x, pos)
+        assert float((got - want).abs().max() / want.abs().max()) < 1e-4
+        got16, _ = attention.mla_attend(p.to(torch.bfloat16), cfg,
+                                        x.to(torch.bfloat16), pos)
+        assert float((got16.float() - want).abs().max() / want.abs().max()) < 2e-2
+    assert c.shape == (2, 4096, 512) and k_r.shape == (2, 4096, 64)
