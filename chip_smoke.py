@@ -258,7 +258,14 @@ failure, and at once when no CUDA device is present):
    ``lower_cell`` + ``analyze_cell`` of ``decode_32k`` on the 16 x 16
    production mesh, depth cut to ``TRACE_PRODUCTION_LAYERS``, printed,
    not gated. The LM parts launch no TM kernel.
-6. Print ``{"lm": {...}}`` (the numbers of phases 10–15, each beside its bound),
+16. **The MLA attention core** (after phase 15; ``csrc/mla_attention.cu``):
+   at the training cell's microbatch (B=2, S=4,096, H=16, q/k 192, v 128)
+   the kernel's output and gradients against float32 ``_sdpa``, each error
+   at most 1.25x bf16 ``_sdpa``'s; device ms of the forward and the
+   backward beside their bounds, ``_sdpa``'s and a PyTorch yardstick's;
+   ``ptxas``'s registers and spills; one train step of the cell's model
+   launching the forward twice and the backward once a layer a microbatch.
+6. Print ``{"lm": {...}}`` (the numbers of phases 10–16, each beside its bound),
    ``{"kernels": [...]}`` (all five kernels; ``launches`` from
    phases 3 and 5, ``sharded_launches`` from phase 7, ``phase8_launches``
    from phase 8, ``phase9_launches`` from phase 9, and ``tm_imdb`` with the
@@ -441,6 +448,10 @@ TRACE_PEAK_FLOOR = 256 * 2 ** 20
 # on the host of an H100 80GB HBM3 machine
 TRACE_PRODUCTION = ("qwen3-1.7b", "decode_32k")
 TRACE_PRODUCTION_LAYERS = 1
+# phase 16: the MLA attention core at dsv2lite_train_s4k's microbatch (B, S,
+# H), and one step of that cell's model: (rows, microbatches)
+MLA_CORE_SHAPE = (2, 4096, 16)
+MLA_CORE_STEP = (8, 4)
 # Peak rates of one H100 SXM. Memory: 3.35 TB/s (NVIDIA data sheet). The
 # votes are 32-bit compare and logic instructions, not FLOPs: the CUDA C++
 # Programming Guide's arithmetic-throughput table gives compute capability
@@ -449,7 +460,7 @@ TRACE_PRODUCTION_LAYERS = 1
 # logic rate is 67e12 / 4 (132 SMs x 64 x 1.98 GHz).
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_LOGIC_OPS_PER_S = 67e12 / 4
-PEAK_BF16_FLOPS_PER_S = 989e12      # dense bf16 tensor-core rate (data sheet)
+PEAK_BF16_FLOPS_PER_S = 989.4e12    # dense bf16 tensor-core rate (data sheet)
 
 
 def require(cond, msg: str) -> None:
@@ -4150,6 +4161,145 @@ def phase15(dev, card) -> dict:
     return {"phase15": out}
 
 
+def mla_core_errors(q, k, v, dout, pos, scale) -> dict:
+    """The kernel's and bf16 ``_sdpa``'s max |Δ| against float32 ``_sdpa``
+    (output, dq, dk, dv), each over the largest value of that truth; the
+    kernel must stay within 1.25x of bf16 ``_sdpa`` (or under 2**-10 of the
+    largest truth)."""
+    from repro_torch.kernels import mla_attention
+    from repro_torch.models import attention
+
+    mask = attention._mask(pos, pos, "causal", None)
+
+    def run(fn, dtype):
+        ts = [t.detach().to(dtype).requires_grad_() for t in (q, k, v)]
+        out = fn(*ts)
+        out.backward(dout.to(out.dtype))
+        return [out.detach().float()] + [t.grad.float() for t in ts]
+
+    def sdpa(q_, k_, v_):
+        return attention._sdpa(q_, k_, v_, mask, scale)
+    truth = run(sdpa, torch.float32)
+    ref16 = run(sdpa, torch.bfloat16)
+    got = run(lambda q_, k_, v_: mla_attention.mla_attention(q_, k_, v_, pos, scale),
+              torch.bfloat16)
+    floor = 2 ** -10 * max(float(t.abs().max()) for t in truth)
+    out = {}
+    for name, t, r, g in zip(("out", "dq", "dk", "dv"), truth, ref16, got):
+        e_ref, e_got = float((r - t).abs().max()), float((g - t).abs().max())
+        require(e_got <= max(1.25 * e_ref, floor),
+                f"mla core {name}: kernel error {e_got:.3e} > 1.25 x bf16 "
+                f"_sdpa's {e_ref:.3e}")
+        scale_t = float(t.abs().max())
+        out[name] = {"kernel": e_got / scale_t, "sdpa_bf16": e_ref / scale_t}
+    del truth, ref16, got
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase16(dev, card) -> dict:
+    """Phase 16: the MLA attention core kernel (``csrc/mla_attention.cu``)
+    at the training cell's microbatch (``MLA_CORE_SHAPE``, v a column slice
+    of ``wkv_b``'s output as ``mla_attend`` hands it over): errors against
+    float32 ``_sdpa`` beside bf16 ``_sdpa``'s; device ms of the forward and
+    the backward (CUDA graphs) beside their bound (causal FLOPs at
+    ``PEAK_BF16_FLOPS_PER_S``), bf16 ``_sdpa``'s ms and one PyTorch call that
+    computes the same function (``library_ms``: the port never calls it);
+    ``ptxas``'s registers and spills; then one train step of the cell's
+    model (27 layers, 4 microbatches of 2 x 4,096, remat) whose launch
+    counts must be 2 forward and 1 backward a layer a microbatch."""
+    import torch.nn.functional as F
+
+    from repro_torch import steps
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.kernels import _build, mla_attention
+    from repro_torch.models import attention, transformer
+
+    torch.cuda.empty_cache()
+    b, s, h = MLA_CORE_SHAPE
+    cfg = get_config("deepseek-v2-lite")
+    scale = attention.mla_scale(cfg)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=gen, device=dev).to(torch.bfloat16)
+    q, k, dout = rnd(b, s, h, 192), rnd(b, s, h, 192), rnd(b, s, h, 128)
+    v = rnd(b, s, h, 256)[..., 128:]
+    pos = torch.arange(s, device=dev, dtype=torch.int32)[None].expand(b, s).contiguous()
+    errors = mla_core_errors(q, k, v, dout, pos, scale)
+
+    out, lse, stats = mla_attention.attention_fwd(q, k, v, pos, scale)
+    fwd_ms = device_ms(lambda: mla_attention.attention_fwd(q, k, v, pos, scale), 20)
+    bwd_ms = device_ms(lambda: mla_attention.attention_bwd(
+        q, k, v, pos, stats, out, lse, dout, scale), 10)
+    flops = {d: 2.0 * b * h * d * s * (s + 1) / 2 for d in (320, 832)}
+    mask = attention._mask(pos, pos, "causal", None)
+    sdpa_fwd_ms = device_ms(lambda: attention._sdpa(q, k, v, mask, scale), 3)
+
+    def train_ms(fn, reps):
+        ts = [t.detach().requires_grad_() for t in (q, k, v)]
+        return call_ms(lambda: fn(*ts).backward(dout), reps)
+    sdpa_fb_ms = train_ms(lambda q_, k_, v_: attention._sdpa(q_, k_, v_, mask, scale), 3)
+    kern_fb_ms = train_ms(lambda q_, k_, v_: mla_attention.mla_attention(
+        q_, k_, v_, pos, scale), 10)
+    library = {}
+    try:   # a yardstick only: the port never calls it
+        def lib(q_, k_, v_):
+            return F.scaled_dot_product_attention(
+                q_.transpose(1, 2), k_.transpose(1, 2), v_.transpose(1, 2),
+                is_causal=True, scale=scale).transpose(1, 2)
+        library = {"fwd_ms": device_ms(lambda: lib(q, k, v), 10),
+                   "fwd_bwd_ms": train_ms(lib, 10)}
+    except RuntimeError as exc:   # no PyTorch call takes these head dims
+        library = {"fwd_ms": None, "fwd_bwd_ms": None, "error": repr(exc)[:200]}
+    del out, lse, stats, mask
+    torch.cuda.empty_cache()
+    row = {"shape": [b, s, h, 192, 128], "errors": errors,
+           "fwd_ms": fwd_ms, "bwd_ms": bwd_ms,
+           "fwd_bound_ms": flops[320] / PEAK_BF16_FLOPS_PER_S * 1e3,
+           "bwd_bound_ms": flops[832] / PEAK_BF16_FLOPS_PER_S * 1e3,
+           "fwd_tflops": flops[320] / fwd_ms / 1e9, "bwd_tflops": flops[832] / bwd_ms / 1e9,
+           "fwd_bwd_call_ms": kern_fb_ms, "sdpa_fwd_ms": sdpa_fwd_ms,
+           "sdpa_fwd_bwd_ms": sdpa_fb_ms, "library_ms": library,
+           "ptxas": ptxas_lines(_build.ptxas_report("mla_attention"))}
+    print(f"mla core {row['shape']}: forward {fwd_ms:.4f} ms (bound "
+          f"{row['fwd_bound_ms']:.4f}, {row['fwd_tflops']:.1f} TFLOP/s), backward "
+          f"{bwd_ms:.4f} ms (bound {row['bwd_bound_ms']:.4f}, {row['bwd_tflops']:.1f} "
+          f"TFLOP/s); forward + backward per call {kern_fb_ms:.3f} ms; bf16 _sdpa "
+          f"forward {sdpa_fwd_ms:.3f} ms, forward + backward {sdpa_fb_ms:.3f} ms; "
+          f"library {library}; errors {errors} [{card}]")
+    for line in row["ptxas"]:
+        print(f"ptxas [mla_attention.cu] {line}")
+
+    # one step of the training cell's model: the kernels in every layer
+    step_cfg = dataclasses.replace(cfg, experts_held=8, vocab=12800, remat=True)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 16)
+    state = steps.init_train_state(transformer.init_params(gen, step_cfg))
+    rows, micro = MLA_CORE_STEP
+    step = steps.make_step(step_cfg, ShapeSpec("t", "train", s, rows),
+                           microbatches=micro).fn
+    ids = torch.randint(0, step_cfg.vocab, (rows, s + 1), generator=gen, device=dev)
+    batch = {"tokens": ids[:, :-1].to(torch.int32), "labels": ids[:, 1:].to(torch.int32)}
+    f0, b0 = mla_attention.attention_fwd.launches, mla_attention.attention_bwd.launches
+    (state, metrics), step_ms = synced_ms(lambda: step(state, batch))
+    launched = {"fwd": mla_attention.attention_fwd.launches - f0,
+                "bwd": mla_attention.attention_bwd.launches - b0}
+    layers = step_cfg.n_layers
+    require(launched == {"fwd": 2 * layers * micro, "bwd": layers * micro},
+            f"mla core launches in one step {launched}: want {2 * layers * micro} "
+            f"forward and {layers * micro} backward")
+    loss = float(metrics["loss"])
+    require(math.isfinite(loss), f"mla step loss {loss}")
+    row["step"] = {"launches": launched, "ms": step_ms, "loss": loss,
+                   "peak_bytes": int(torch.cuda.max_memory_allocated())}
+    print(f"mla step (27 layers, {micro} microbatches of {rows // micro} x {s}): "
+          f"launches {launched}, {step_ms:.1f} ms (the first, cold), loss {loss:.4f}")
+    del state, step, batch
+    torch.cuda.empty_cache()
+    return {"phase16": row}
+
+
 def phase10(dev, card) -> dict:
     """Phase 10: LM serving. Returns the ``lm`` record."""
     torch.cuda.empty_cache()
@@ -4341,6 +4491,11 @@ def main() -> int:
     t0 = time.perf_counter()
     lm.update(phase15(dev, card))
     print(f"phase 15: {time.perf_counter() - t0:.1f} s wall")
+
+    # -- 16. the MLA attention core kernel -------------------------------------
+    t0 = time.perf_counter()
+    lm.update(phase16(dev, card))
+    print(f"phase 16: {time.perf_counter() - t0:.1f} s wall")
 
     # -- 6. report ----------------------------------------------------------
     top = BATCHES[-1]

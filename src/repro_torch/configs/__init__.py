@@ -89,10 +89,11 @@ def reduce_config(cfg: ModelConfig) -> ModelConfig:
         upd["sliding_window"] = 8
     if isinstance(cfg, MLAConfig):
         # every kind of layer: a dense block, MoE blocks holding half of
-        # the router's experts, a value head dim unlike the query/key one
-        upd.update(n_layers=3, n_dense_layers=1, n_kv_heads=4, head_dim=8,
-                   kv_lora_rank=32, qk_nope_head_dim=16, qk_rope_head_dim=8,
-                   v_head_dim=8, n_experts=8, top_k=2, n_shared_experts=2,
+        # the router's experts; the published head dims (q/k 128 + 64, v
+        # 128), the one pair the attention core's CUDA kernel compiles
+        upd.update(n_layers=3, n_dense_layers=1, n_kv_heads=4,
+                   head_dim=cfg.v_head_dim, kv_lora_rank=32,
+                   n_experts=8, top_k=2, n_shared_experts=2,
                    d_ff_shared=None, experts_held=4)
     return dataclasses.replace(cfg, **upd)
 

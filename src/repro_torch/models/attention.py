@@ -18,7 +18,10 @@ Multi-head latent attention (``MLAttention``, DeepSeek-V2's MLA, for an
 ``k_R`` shared by every head; ``wkv_b`` expands ``c`` into each head's
 ``k_C`` and ``v``. Keys are ``[k_C; k_R]``, so the query/key head dim
 (``qk_nope + qk_rope``) differs from the value head dim, which the dense
-and blockwise cores take. Its decode cache is the latent only:
+and blockwise cores take; on the card, in bf16, the core is the
+hand-written causal kernel of ``kernels/mla_attention.py``, forward and
+backward, which keeps the S × S scores out of device memory. Its decode
+cache is the latent only:
 ``{"c": (B, S, kv_lora_rank), "kr": (B, S, qk_rope), "pos": (B, S)}``;
 decode absorbs ``wkv_b`` into the query and the output, so no per-head K
 or V is ever stored. MLA runs on one device only.
@@ -36,10 +39,13 @@ and only activations move (``decode_attend_stationary``,
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.kernels import mla_attention
 from repro_torch.launch.mesh import axis_index, axis_size
 from repro_torch.models.common import (
     RMSNorm,
@@ -369,12 +375,22 @@ def mla_scale(cfg) -> float:
     return cfg.qk_head_dim ** -0.5 * m * m
 
 
+@functools.cache
+def _yarn_table(dim, theta, factor, beta_fast, beta_slow, original_max, device):
+    """``yarn_freqs`` once a process per config and device: a constant that
+    each layer's forward and recompute would otherwise rebuild with a dozen
+    small launches."""
+    with torch.inference_mode(False), torch.no_grad():
+        return yarn_freqs(dim, theta, factor, beta_fast, beta_slow, original_max,
+                          device)
+
+
 def mla_rope(cfg, t, positions):
     """YaRN rope of ``t`` (B, S, heads, qk_rope): the config's blended
     frequencies, cos/sin times ``m(mscale) / m(mscale_all_dim)``."""
-    freqs = yarn_freqs(cfg.qk_rope_head_dim, cfg.rope_theta, cfg.rope_factor,
-                       cfg.beta_fast, cfg.beta_slow,
-                       cfg.original_max_positions, t.device)
+    freqs = _yarn_table(cfg.qk_rope_head_dim, cfg.rope_theta, cfg.rope_factor,
+                        cfg.beta_fast, cfg.beta_slow,
+                        cfg.original_max_positions, t.device)
     mult = (yarn_mscale(cfg.rope_factor, cfg.mscale)
             / yarn_mscale(cfg.rope_factor, cfg.mscale_all_dim))
     return rotate(t, positions, freqs, mult)
@@ -399,7 +415,10 @@ def mla_latent(p: MLAttention, cfg, x, positions):
 
 def mla_attend(p: MLAttention, cfg, x, positions):
     """Full-sequence causal MLA (training / prefill). x: (B, S, D) →
-    (y (B, S, D), (c, k_R)), the latent for the cache."""
+    (y (B, S, D), (c, k_R)), the latent for the cache. The core is the
+    hand-written kernel (``kernels/mla_attention.py``) for CUDA bf16
+    operands, which raises on shapes it does not take; ``_sdpa`` (or
+    ``_blockwise_sdpa`` past ``dense_attn_max``) for any other."""
     b, s, _ = x.shape
     h, dn, dv = cfg.n_heads, cfg.qk_nope_head_dim, cfg.v_head_dim
     with span("lm.mla"):
@@ -410,7 +429,9 @@ def mla_attend(p: MLAttention, cfg, x, positions):
         k = torch.cat([k_c, k_r[:, :, None].expand(b, s, h, -1)], -1)
         pos2 = _broadcast_positions(positions, x.shape[:2])
         with span("lm.mla.core"):
-            if s <= cfg.dense_attn_max:
+            if q.is_cuda and q.dtype == torch.bfloat16:
+                out = mla_attention.mla_attention(q, k, v, pos2, mla_scale(cfg))
+            elif s <= cfg.dense_attn_max:
                 out = _sdpa(q, k, v, _mask(pos2, pos2, "causal", None),
                             mla_scale(cfg))
             else:

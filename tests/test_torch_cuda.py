@@ -17,7 +17,7 @@ scores on the card equal the same session's on the CPU (the compact engine
 too); and one training step on the card equals the same step on the CPU
 under the same draws, state and caches alike; and the TM-native wrappers
 of ``kernels/ops.py`` equal the unpacked oracles of ``kernels/ref.py``.
-The LM path (no kernel of its own): float32 card = CPU for every family,
+The LM path: float32 card = CPU for every family,
 whisper included; one train step's gradients card = CPU; remat on = off;
 the sharded LM path on ``["cuda:0"] * 4`` = the CPU mesh for every
 family, and ``gpipe_apply`` on the card = the sequential stack. The
@@ -27,7 +27,11 @@ and ``launch.trace`` on fake CUDA tensors = a real run on the card
 (FLOPs, collectives, argument bytes). One latent-attention (MLA) layer of
 deepseek-v2-lite at its published widths and 4,096 positions = the plain
 float32 reference (``tmbench/reference/deepseek_v2.py``), in float32 and
-in bf16.
+in bf16 (the bf16 layer's core is the MLA attention kernel). That kernel
+(``kernels/mla_attention.py``, forward and backward) against float32
+``_sdpa`` at S = 1, 77, 1,000 and the training cell's 4,096, on any
+positions and a strided v, its error within 1.25x of bf16 ``_sdpa``'s;
+what it refuses; its launches in every layer of a train step.
 Imports no JAX, so it runs where JAX is not installed.
 """
 import numpy as np
@@ -1328,3 +1332,144 @@ def test_mla_layer_at_published_widths_matches_the_reference(cuda_device):
                                         x.to(torch.bfloat16), pos)
         assert float((got16.float() - want).abs().max() / want.abs().max()) < 2e-2
     assert c.shape == (2, 4096, 512) and k_r.shape == (2, 4096, 64)
+
+
+# -- the MLA attention core kernel (csrc/mla_attention.cu) ----------------------
+# (B, S, H): S = 1, a ragged 77 and 1,000, and the training cell's 4,096
+MLA_CORE_SHAPES = [(2, 1, 16), (2, 77, 16), (2, 1000, 16), (2, 4096, 16)]
+
+
+def _mla_core_case(dev, b, s, h, seed=0):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=gen, device=dev).to(torch.bfloat16)
+    return rnd(b, s, h, 192), rnd(b, s, h, 192), rnd(b, s, h, 128), rnd(b, s, h, 128)
+
+
+def _mla_core_grads(fn, q, k, v, dout, dtype):
+    """fn's output and the gradients of q, k, v under ``dout``, float32."""
+    ts = [t.detach().to(dtype).requires_grad_() for t in (q, k, v)]
+    out = fn(*ts)
+    out.backward(dout.to(out.dtype))
+    return [out.detach().float()] + [t.grad.float() for t in ts]
+
+
+def _assert_core_within_sdpa(q, k, v, dout, pos, scale):
+    """The kernel's output and gradients against float32 ``_sdpa``: each
+    error (max |Δ|) at most 1.25× bf16 ``_sdpa``'s against the same truth,
+    or under 2**-10 of the largest truth (a bf16 half-ulp; S = 1's dq and
+    dk are exactly 0)."""
+    from repro_torch.kernels import mla_attention
+    from repro_torch.models import attention
+
+    mask = attention._mask(pos, pos, "causal", None)
+
+    def sdpa(q_, k_, v_):
+        return attention._sdpa(q_, k_, v_, mask, scale)
+    truth = _mla_core_grads(sdpa, q, k, v, dout, torch.float32)
+    bf16 = _mla_core_grads(sdpa, q, k, v, dout, torch.bfloat16)
+    f0, b0 = mla_attention.attention_fwd.launches, mla_attention.attention_bwd.launches
+    got = _mla_core_grads(lambda q_, k_, v_: mla_attention.mla_attention(
+        q_, k_, v_, pos, scale), q, k, v, dout, torch.bfloat16)
+    assert mla_attention.attention_fwd.launches == f0 + 1
+    assert mla_attention.attention_bwd.launches == b0 + 1
+    floor = 2 ** -10 * max(float(t.abs().max()) for t in truth)
+    for name, t, ref16, mine in zip(("out", "dq", "dk", "dv"), truth, bf16, got):
+        assert torch.isfinite(mine).all(), name
+        err_ref = float((ref16 - t).abs().max())
+        err = float((mine - t).abs().max())
+        assert err <= max(1.25 * err_ref, floor), (name, err, err_ref, floor)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b, s, h", MLA_CORE_SHAPES)
+def test_mla_core_kernel_against_float32_sdpa(cuda_device, b, s, h):
+    from repro_torch.configs import get_config
+    from repro_torch.models import attention
+
+    q, k, v, dout = _mla_core_case(cuda_device, b, s, h, seed=s)
+    pos = torch.arange(s, device=cuda_device)[None].expand(b, s)
+    _assert_core_within_sdpa(q, k, v, dout, pos,
+                             attention.mla_scale(get_config("deepseek-v2-lite")))
+
+
+@pytest.mark.cuda
+def test_mla_core_kernel_on_any_positions_and_a_strided_v(cuda_device):
+    """Positions that are no ``arange`` (a permutation, -1 slots whose rows
+    attend to every key, repeats) and v a column slice of a wider tensor,
+    as ``mla_attend`` hands it over."""
+    b, s, h = 2, 300, 4
+    q, k, _, dout = _mla_core_case(cuda_device, b, s, h, seed=7)
+    gen = torch.Generator(device=cuda_device).manual_seed(8)
+    v = torch.randn(b, s, h, 256, generator=gen, device=cuda_device).to(
+        torch.bfloat16)[..., 128:]
+    pos = torch.stack([torch.randperm(s, generator=gen, device=cuda_device),
+                       torch.arange(s, device=cuda_device) // 3])
+    pos[0, ::11] = -1
+    pos[1, 100:140] = -1
+    _assert_core_within_sdpa(q, k, v, dout, pos, 0.1147)
+
+
+@pytest.mark.cuda
+def test_mla_core_kernel_refuses_what_it_does_not_take(cuda_device):
+    from repro_torch.kernels import mla_attention
+
+    q, k, v, _ = _mla_core_case(cuda_device, 1, 64, 2)
+    pos = torch.arange(64, device=cuda_device)[None]
+    with pytest.raises(ValueError, match="bfloat16"):
+        mla_attention.mla_attention(q.float(), k.float(), v.float(), pos, 0.1)
+    with pytest.raises(ValueError, match="head dims"):
+        mla_attention.mla_attention(q[..., :128], k[..., :128], v, pos, 0.1)
+    wide = torch.zeros(1, 64, 2, 384, dtype=torch.bfloat16, device=cuda_device)
+    with pytest.raises(ValueError, match="unit last stride"):
+        mla_attention.mla_attention(wide[..., ::2], k, v, pos, 0.1)
+
+
+@pytest.mark.cuda
+def test_a_train_step_launches_the_core_in_every_layer(cuda_device):
+    """Three MLA layers at the published widths, two microbatches, remat:
+    the forward kernel runs twice a layer a microbatch (forward and
+    recompute), the backward once, and the loss is finite."""
+    import dataclasses
+
+    from repro_torch import steps
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.kernels import mla_attention
+    from repro_torch.models import transformer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(get_config("deepseek-v2-lite"), n_layers=3,
+                              experts_held=8, vocab=1024, remat=True)
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    state = steps.init_train_state(transformer.init_params(gen, cfg))
+    step = steps.make_step(cfg, ShapeSpec("t", "train", 512, 4), microbatches=2).fn
+    ids = torch.randint(0, cfg.vocab, (4, 513), generator=gen, device=cuda_device)
+    f0, b0 = mla_attention.attention_fwd.launches, mla_attention.attention_bwd.launches
+    _, metrics = step(state, {"tokens": ids[:, :-1].to(torch.int32),
+                              "labels": ids[:, 1:].to(torch.int32)})
+    assert torch.isfinite(torch.as_tensor(metrics["loss"])).all()
+    assert mla_attention.attention_fwd.launches - f0 == 2 * 2 * cfg.n_layers
+    assert mla_attention.attention_bwd.launches - b0 == 2 * cfg.n_layers
+
+
+@pytest.mark.cuda
+def test_the_launch_clis_run_reduced_deepseek_on_card(cuda_device, tmp_path):
+    """``--arch deepseek-v2-lite --reduced`` trains a step and serves on the
+    card in the CLIs' bf16: the cut keeps the published head dims, so every
+    prefill and training forward and backward launches the core kernels."""
+    from repro_torch.kernels import mla_attention
+    from repro_torch.launch import serve, train
+
+    f0, b0 = mla_attention.attention_fwd.launches, mla_attention.attention_bwd.launches
+    res = train.main(["--arch", "deepseek-v2-lite", "--reduced", "--steps", "1",
+                      "--batch", "2", "--seq", "64", "--ckpt-dir", str(tmp_path)])
+    assert res["device"].startswith("cuda") and res["end_step"] == 1
+    assert mla_attention.attention_fwd.launches > f0
+    assert mla_attention.attention_bwd.launches > b0
+    f1 = mla_attention.attention_fwd.launches
+    out = serve.main(["--arch", "deepseek-v2-lite", "--reduced", "--batch", "2",
+                      "--prompt-len", "16", "--gen", "3"])
+    assert out["device"].startswith("cuda") and out["generations"].shape == (2, 3)
+    assert mla_attention.attention_fwd.launches > f1

@@ -194,13 +194,20 @@ def test_build_raises_without_nvcc(monkeypatch, tmp_path):
 
 
 def test_every_kernel_source_is_a_registered_primitive_body():
-    assert _build.sources() == ["clause_eval", "indexed_votes", "ta_update"]
+    assert _build.sources() == ["clause_eval", "indexed_votes", "mla_attention",
+                                "ta_update"]
     kernels = {backend.get_primitive(name).kernel.__module__.rsplit(".")[-1]
                + "." + backend.get_primitive(name).kernel.__name__
                for name in backend.registered_primitives()}
     assert {"clause_eval.clause_outputs_packed", "clause_eval.clause_votes_packed",
             "clause_eval.round_vote", "indexed.indexed_votes",
             "ta_update.ta_update"} <= kernels
+    # the LM's attention core is no TM primitive: its kernels are the CUDA
+    # body of an autograd Function, each launcher counting its launches
+    from repro_torch.kernels import mla_attention
+    assert issubclass(mla_attention.MLACore, torch.autograd.Function)
+    assert all(isinstance(f.launches, int) for f in (mla_attention.attention_fwd,
+                                                     mla_attention.attention_bwd))
 
 
 def test_learning_kernel_wrappers_refuse_cpu_tensors():

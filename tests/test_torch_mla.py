@@ -17,9 +17,16 @@ copy the benchmark uses too) on seeded random weights.
 * the MoE counters: kept + dropped + absent = tokens × top_k, once a layer
   whatever the recompute;
 * ``ARCHS`` and every existing config untouched; MLA under a mesh raises;
-  the parameter count; the launch CLIs take the architecture.
+  the parameter count; the launch CLIs take the architecture;
+* the attention core kernels' algorithm (``kernels/mla_attention.py``:
+  tiled online softmax, saved logsumexp, dS = P (dP - D)), in plain
+  PyTorch here, against autograd through ``_sdpa`` in float32, over a
+  ragged S, -1 slots and positions that are no ``arange``; CPU operands
+  keep ``_sdpa``; the core's backward is attributed to ``lm.mla.core`` by
+  ``tmbench/lm_spans.py``'s rule.
 """
 import dataclasses
+import math
 
 import pytest
 import torch
@@ -284,3 +291,269 @@ def test_a_train_step_records_its_spans_and_again_in_the_recompute():
     assert count["lm.moe"] == count["lm.moe.route"] == 2 * 2 * moe_layers
     assert count["lm.mlp"] == 2 * 2 * cfg.n_dense_layers
     assert count["lm.head_loss"] == 2 * 2
+
+
+# -- the attention core's algorithm in plain PyTorch (kernels/mla_attention.py) -
+def _core_inputs(s, dqk, dv, pos, heads=2, seed=0):
+    gen = torch.Generator().manual_seed(seed)
+    q, k = (torch.randn(2, s, heads, dqk, generator=gen) for _ in range(2))
+    v = torch.randn(2, s, heads, dv, generator=gen)
+    dout = torch.randn(2, s, heads, dv, generator=gen)
+    return q, k, v, dout, pos
+
+
+def _positions(kind, s):
+    pos = torch.arange(s).repeat(2, 1)
+    if kind == "minus_one_slots":        # empty slots: rows that see every key
+        pos[0, 5::9] = -1
+        pos[1, 30:45] = -1
+    elif kind == "not_arange":           # a permutation, repeats, -1 slots
+        pos[0] = torch.randperm(s, generator=torch.Generator().manual_seed(s))
+        pos[1] = torch.arange(s) // 3
+        pos[0, ::13] = -1
+    return pos
+
+
+def _sdpa_and_grads(q, k, v, dout, pos, scale):
+    ts = [t.clone().requires_grad_() for t in (q, k, v)]
+    out = attention._sdpa(*ts, attention._mask(pos, pos, "causal", None), scale)
+    out.backward(dout)
+    return [out.detach()] + [t.grad for t in ts]
+
+
+# The CUDA kernels' algorithm, tile for tile: a tiled online softmax in
+# float32 (running max and denominator, in base 2), the saved logsumexp, and
+# a backward that recomputes P from it with dS = P (dP - D), D = rowsum(dO O).
+NEG_INF = attention.NEG_INF
+LOG2E = math.log2(math.e)
+
+
+def _stats(pos):
+    return int(pos.min()), int(pos.max())
+
+
+def _needed(q_stats, k_stats):
+    """Some (query, key) pair of the two tiles matters (the kernels' skip)."""
+    return q_stats[0] < 0 or k_stats[0] <= q_stats[1]
+
+
+def _allowed(q_pos, k_pos):
+    return (k_pos[None, :] >= 0) & (k_pos[None, :] <= q_pos[:, None])
+
+
+def _dot(a, b):
+    """``a @ b`` of operands rounded to their dtype, accumulated in float32."""
+    return torch.matmul(a.float(), b.float())
+
+
+def attention_plain(q, k, v, pos, scale, block_q=128, block_k=64):
+    """q, k (B, S, H, Dqk), v (B, S, H, Dv), pos (B, S) -> (out in q's
+    dtype, lse (B, H, S) float32: the row max plus log2 of the denominator
+    in ``scale log2 e`` units, NEG_INF for a row with no allowed key)."""
+    b_, s_, h_, _ = q.shape
+    c = scale * LOG2E
+    out = torch.empty((b_, s_, h_, v.shape[-1]), dtype=q.dtype)
+    lse = torch.empty((b_, h_, s_), dtype=torch.float32)
+    for b in range(b_):
+        for q0 in range(0, s_, block_q):
+            qp = pos[b, q0:q0 + block_q]
+            qs = _stats(qp)
+            qt = q[b, q0:q0 + block_q].transpose(0, 1)          # (H, bq, D)
+            m = torch.full((h_, qp.numel()), NEG_INF, dtype=torch.float32)
+            l = torch.zeros_like(m)
+            acc = torch.zeros((h_, qp.numel(), v.shape[-1]), dtype=torch.float32)
+            for k0 in range(0, s_, block_k):
+                kp = pos[b, k0:k0 + block_k]
+                if not _needed(qs, _stats(kp)):
+                    continue
+                kt = k[b, k0:k0 + block_k].transpose(0, 1)
+                vt = v[b, k0:k0 + block_k].transpose(0, 1)
+                t = torch.where(_allowed(qp, kp), _dot(qt, kt.transpose(1, 2)) * c,
+                                NEG_INF)
+                mx = torch.maximum(m, t.amax(-1))
+                alpha = torch.exp2(m - mx)
+                p = torch.exp2(t - mx[..., None])
+                l = l * alpha + p.sum(-1)
+                acc = acc * alpha[..., None] + _dot(p.to(q.dtype), vt)
+                m = mx
+            out[b, q0:q0 + block_q] = (acc / l[..., None]).transpose(0, 1).to(q.dtype)
+            lse[b, :, q0:q0 + block_q] = torch.where(m == NEG_INF, NEG_INF,
+                                                     m + torch.log2(l))
+    return out, lse
+
+
+def attention_plain_backward(q, k, v, pos, scale, out, lse, dout, block_q=64,
+                             block_k=64):
+    """(dq, dk, dv) in q's dtype: P recomputed as ``exp2(t - lse)`` (1/S in
+    a row with no allowed key), ``dS = P (dP - D) scale`` zero where masked,
+    P and dS rounded to q's dtype for the products."""
+    b_, s_, h_, _ = q.shape
+    c = scale * LOG2E
+    dt = q.dtype
+    delta = (dout.float() * out.float()).sum(-1).transpose(1, 2)   # (B, H, S)
+    dq = torch.zeros(q.shape, dtype=torch.float32)
+    dk = torch.empty(k.shape, dtype=dt)
+    dv = torch.empty(v.shape, dtype=dt)
+    for b in range(b_):
+        for k0 in range(0, s_, block_k):
+            kp = pos[b, k0:k0 + block_k]
+            ks = _stats(kp)
+            kt = k[b, k0:k0 + block_k].transpose(0, 1)          # (H, bk, D)
+            vt = v[b, k0:k0 + block_k].transpose(0, 1)
+            dk_acc = torch.zeros(kt.shape, dtype=torch.float32)
+            dv_acc = torch.zeros(vt.shape, dtype=torch.float32)
+            for q0 in range(0, s_, block_q):
+                qp = pos[b, q0:q0 + block_q]
+                if not _needed(_stats(qp), ks):
+                    continue
+                qt = q[b, q0:q0 + block_q].transpose(0, 1)
+                dot = dout[b, q0:q0 + block_q].transpose(0, 1)
+                ok = _allowed(qp, kp)
+                row = lse[b, :, q0:q0 + block_q, None]
+                t = _dot(qt, kt.transpose(1, 2)) * c
+                p = torch.where(ok, torch.exp2(t - row),
+                                torch.where(row == NEG_INF, 1.0 / s_, 0.0))
+                dp = _dot(dot, vt.transpose(1, 2))
+                ds = torch.where(ok, p * (dp - delta[b, :, q0:q0 + block_q, None]) * scale,
+                                 0.0)
+                p, ds = p.to(dt), ds.to(dt)
+                dv_acc += _dot(p.transpose(1, 2), dot)
+                dk_acc += _dot(ds.transpose(1, 2), qt)
+                dq[b, q0:q0 + block_q] += _dot(ds, kt).transpose(0, 1)
+            dk[b, k0:k0 + block_k] = dk_acc.transpose(0, 1).to(dt)
+            dv[b, k0:k0 + block_k] = dv_acc.transpose(0, 1).to(dt)
+    return dq.to(dt), dk, dv
+
+
+def _plain_kernels(monkeypatch):
+    """The autograd Function with the plain algorithm in the kernels' place,
+    so that it runs on the CPU."""
+    from repro_torch.kernels import mla_attention as core
+
+    def fwd(q, k, v, pos, scale):
+        return (*attention_plain(q, k, v, pos, scale), torch.empty(0))
+
+    def bwd(q, k, v, pos, stats, out, lse, dout, scale):
+        return attention_plain_backward(q, k, v, pos, scale, out, lse, dout)
+    monkeypatch.setattr(core, "attention_fwd", fwd)
+    monkeypatch.setattr(core, "attention_bwd", bwd)
+    return core
+
+
+def _close(got, want, names=("out", "dq", "dk", "dv")):
+    scale = max(float(w.abs().max()) for w in want)
+    for name, a, b in zip(names, got, want):
+        assert float((a - b).abs().max()) <= 1e-5 * scale, name
+
+
+@pytest.mark.parametrize("s, dqk, dv, kind", [
+    (1, 192, 128, "arange"), (77, 192, 128, "arange"), (300, 192, 128, "arange"),
+    (77, 64, 64, "minus_one_slots"), (300, 192, 128, "not_arange"),
+    (77, 32, 32, "arange")])
+def test_the_core_plain_body_matches_autograd_through_sdpa(monkeypatch, s, dqk, dv,
+                                                           kind):
+    """The kernels' algorithm (tiled online softmax, the saved logsumexp and
+    dS = P (dP - D)), at small tiles over a ragged S, in float32, against
+    autograd through ``_sdpa``; and the autograd Function around it (the
+    kernels' tiles) on the CPU."""
+    q, k, v, dout, pos = _core_inputs(s, dqk, dv, _positions(kind, s), seed=s)
+    want = _sdpa_and_grads(q, k, v, dout, pos, 0.11)
+    out, lse = attention_plain(q, k, v, pos, 0.11, block_q=32, block_k=16)
+    assert lse.shape == (2, 2, s) and lse.dtype == torch.float32
+    grads = attention_plain_backward(q, k, v, pos, 0.11, out, lse, dout,
+                                     block_q=16, block_k=32)
+    _close([out, *grads], want)
+    core = _plain_kernels(monkeypatch)
+    ts = [t.clone().requires_grad_() for t in (q, k, v)]
+    got = core.mla_attention(*ts, pos, 0.11)
+    got.backward(dout)
+    _close([got.detach()] + [t.grad for t in ts], want)
+
+
+def test_rows_with_no_allowed_key_attend_to_every_key_as_sdpa_does():
+    q, k, v, _, pos = _core_inputs(40, 16, 8, torch.full((2, 40), -1))
+    out, lse = attention_plain(q, k, v, pos, 0.5, block_q=16, block_k=8)
+    assert (lse == NEG_INF).all()
+    torch.testing.assert_close(out, v.mean(1, keepdim=True).expand_as(out))
+
+
+def test_the_kernels_function_refuses_cpu_operands():
+    """The kernels' Function has no CPU body: a CPU call raises, so that
+    only ``mla_attend``'s own dispatch sends CPU operands to ``_sdpa``."""
+    from repro_torch.kernels import mla_attention as core
+
+    q, k, v, _, pos = _core_inputs(8, 192, 128, torch.arange(8).repeat(2, 1))
+    with pytest.raises(ValueError, match="CUDA"):
+        core.mla_attention(q.bfloat16(), k.bfloat16(), v.bfloat16(), pos, 0.1)
+
+
+def test_mla_attend_on_the_cpu_takes_sdpa(monkeypatch):
+    """CPU operands, float32 or bf16, keep ``_sdpa``: the kernels' Function
+    is never applied and nothing launches."""
+    from repro_torch.kernels import mla_attention as core
+
+    calls = []
+    sdpa = attention._sdpa
+
+    def counting(*a, **kw):
+        calls.append(a[0].dtype)
+        return sdpa(*a, **kw)
+
+    def refuse(*a, **kw):
+        raise AssertionError("the kernels' Function on the CPU path")
+    monkeypatch.setattr(attention, "_sdpa", counting)
+    monkeypatch.setattr(core.MLACore, "apply", refuse)
+    launches = core.attention_fwd.launches, core.attention_bwd.launches
+    p = _params().head[0].attn
+    x = torch.randn(2, 24, CFG.d_model, generator=torch.Generator().manual_seed(5))
+    attention.mla_attend(p, CFG, x, torch.arange(24)[None])
+    attention.mla_attend(p.to(torch.bfloat16), CFG, x.to(torch.bfloat16),
+                         torch.arange(24)[None])
+    assert calls == [torch.float32, torch.bfloat16]
+    assert (core.attention_fwd.launches, core.attention_bwd.launches) == launches
+
+
+def test_the_core_backward_is_attributed_to_lm_mla_core(monkeypatch, tmp_path):
+    """The Function's backward operator carries the ``Sequence number`` of
+    its forward operator, so ``tmbench/lm_spans.py``'s rule gives a kernel
+    launched in the backward to ``lm.mla.core``, as one launched in the
+    forward: without it the backward's device time would drop out of
+    ``lm.mla``."""
+    import json
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from tmbench import lm_spans
+
+    core = _plain_kernels(monkeypatch)
+
+    q, k, v, dout, pos = _core_inputs(24, 16, 8, torch.arange(24)[None].expand(2, 24))
+    ts = [t.clone().requires_grad_() for t in (q, k, v)]
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        with spans.span("lm.train_step"):
+            with spans.span("lm.mla"):
+                x = ts[0] * 1.0
+                with spans.span("lm.mla.core"):
+                    out = core.mla_attention(x, ts[1], ts[2], pos, 0.25)
+                y = (out * dout).sum()
+            y.backward()
+    prof.export_chrome_trace(str(tmp_path / "trace.json"))
+    events = json.loads((tmp_path / "trace.json").read_text())["traceEvents"]
+    ops = [e for e in events if e.get("ph") == "X" and e.get("cat") == "cpu_op"]
+    fwd = [e for e in ops if e["name"] == "MLACore"]
+    bwd = [e for e in ops if e["name"].startswith(lm_spans.BACKWARD)
+           and "MLACore" in e["name"]]
+    assert len(fwd) == 1 and len(bwd) == 1
+    assert bwd[0]["args"]["Sequence number"] == fwd[0]["args"]["Sequence number"]
+
+    def launch(op, corr):   # a launch inside the operator, on its thread
+        return {"ph": "X", "cat": "cuda_runtime", "name": "cudaLaunchKernel",
+                "ts": op["ts"] + op["dur"] / 2, "dur": 0, "pid": op["pid"],
+                "tid": op["tid"], "args": {"correlation": corr}}
+    events += [launch(fwd[0], 90001), launch(bwd[0], 90002)]
+    events += [{"ph": "X", "cat": "kernel", "name": f"k{c}", "ts": 0, "dur": d,
+                "pid": 0, "tid": 99, "args": {"correlation": c}}
+               for c, d in ((90001, 3.0), (90002, 5.0))]
+    got = lm_spans.device_by_span(events)
+    assert got["device_s"]["lm.mla.core"] == pytest.approx(8e-6)
+    assert got["launches"]["lm.mla.core"] == 2
