@@ -2228,7 +2228,7 @@ def lm_work(cfg, params, batch: int, seq: int, cache_tokens: int) -> dict:
     padded to T_g rows); ``routed_*`` bounds the routed experts only: top-k
     products per token, and at most min(E, tokens·k) distinct experts
     read per layer."""
-    from repro_torch.models import transformer
+    from repro_torch.models import attention, transformer
 
     elt = next(params.parameters()).element_size()
     w_bytes = sum(p.numel() * p.element_size() for p in params.parameters())
@@ -2236,9 +2236,9 @@ def lm_work(cfg, params, batch: int, seq: int, cache_tokens: int) -> dict:
     n_params = sum(p.numel() for p in params.parameters())
     body = n_params - table * (1 if cfg.tie_embeddings else 2)
     read = w_bytes - (0 if cfg.tie_embeddings else table * elt)
-    kinds, n_groups, tail = transformer._plan(cfg)
+    _, kinds, n_groups, tail = transformer._plan(cfg)
     n_attn = sum(k.startswith("attn") for k in kinds * n_groups + tail)
-    window = transformer._window_for(cfg, "attn_mlp")
+    window = attention.gqa_kw(cfg)["window"]
     w = min(window or seq, seq)
     pairs = w * (w + 1) / 2 + (seq - w) * w        # causal, windowed
     kv_tokens = min(cache_tokens, window) if window else cache_tokens
@@ -2445,7 +2445,7 @@ def lm_layerwise(cfg, m, params, prompts, steps: int, cache_len: int, l32,
     table.copy_(kept)
     del kept
     sens = float((moved.double() - l32.double()).abs().max() / l32.double().abs().max())
-    kinds, _, tail = transformer._plan(cfg)
+    _, kinds, _, tail = transformer._plan(cfg)
     blocks = [(g[f"b{i}_{k}"], k) for g in params.layers
               for i, k in enumerate(kinds)] + list(zip(params.tail, tail))
     x = transformer.embed(params.embed, prompts, torch.float32)
@@ -3809,8 +3809,7 @@ def shard_pipeline(counts, dev, card) -> dict:
 
     def stage_fn(group, x):
         for blk in group:
-            x, _, _ = transformer._attn_block_seq(blk, cfg, x, positions, None,
-                                                  window=None)
+            x, _, _ = transformer._attn_block_seq(blk, cfg, x, positions, None)
         return x
 
     toks = torch.from_numpy(np.random.default_rng(SEED).integers(

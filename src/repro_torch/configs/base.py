@@ -104,6 +104,16 @@ class ModelConfig:
         """RWKV6 wkv heads: ``d_model // rwkv_head_dim``."""
         return self.d_model // self.rwkv_head_dim
 
+    # What the LM blocks read of every config, ``MLAConfig`` overriding it;
+    # not dataclass fields (unannotated), so ``asdict`` stays as it is.
+    n_dense_layers = 0   # leading dense blocks before the MoE blocks
+    shared_gate = True   # the shared experts' output behind a sigmoid gate
+
+    @property
+    def n_held(self) -> int:
+        """Experts a MoE layer holds: all of them."""
+        return self.n_experts
+
     def param_count(self) -> int:
         """Analytic parameter count (embedding included once if tied)."""
         d, v = self.d_model, self.vocab
@@ -196,6 +206,7 @@ class MLAConfig(ModelConfig):
     original_max_positions: int = 4096
     n_dense_layers: int = 0
     experts_held: Optional[int] = None
+    shared_gate = False   # DeepSeek adds the shared experts' output ungated
 
     @property
     def qk_head_dim(self) -> int:

@@ -26,6 +26,10 @@ cache is the latent only:
 decode absorbs ``wkv_b`` into the query and the output, so no per-head K
 or V is ever stored. MLA runs on one device only.
 
+``kind_of(cfg)`` alone decides which of the two a config's blocks run:
+``GQA`` or ``MLA``, each with the module, the full-sequence and decode
+passes and the cache layout that the block layer asks for.
+
 On a mesh (``*_sharded``, per-rank lists): head-parallel ``attend`` for
 prefill and training (``n_heads / model`` query heads per rank, the K/V
 heads they read; ``wo`` row-parallel, its partial sums reduced by the
@@ -45,6 +49,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.configs.base import MLAConfig
 from repro_torch.kernels import mla_attention
 from repro_torch.launch.mesh import axis_index, axis_size
 from repro_torch.models.common import (
@@ -441,33 +446,6 @@ def mla_attend(p: MLAttention, cfg, x, positions):
     return y, (c, k_r)
 
 
-def init_mla_cache(batch, cache_len, kv_lora_rank, rope_dim,
-                   dtype=torch.bfloat16, device=None):
-    """An empty latent cache: ``c`` (B, S, kv_lora_rank), ``kr`` (B, S,
-    rope_dim), ``pos`` (B, S) -1."""
-    return {
-        "c": torch.zeros((batch, cache_len, kv_lora_rank), dtype=dtype,
-                         device=device),
-        "kr": torch.zeros((batch, cache_len, rope_dim), dtype=dtype,
-                          device=device),
-        "pos": torch.full((batch, cache_len), -1, dtype=torch.int32,
-                          device=device),
-    }
-
-
-def mla_cache_from_prefill(c, k_r, positions, cache_len):
-    """The prefill's latent (B, S, ·) in the first S of ``cache_len`` slots
-    (no window: MLA attends to every earlier position)."""
-    s = c.shape[1]
-    if s > cache_len:
-        raise ValueError(f"a prefill of {s} positions into a latent cache of "
-                         f"{cache_len}")
-    pos2 = _broadcast_positions(positions, c.shape[:2]).to(torch.int32)
-    pad = cache_len - s
-    return {"c": F.pad(c, (0, 0, 0, pad)), "kr": F.pad(k_r, (0, 0, 0, pad)),
-            "pos": F.pad(pos2, (0, pad), value=-1)}
-
-
 def mla_decode_attend(p: MLAttention, cfg, x, cache, pos):
     """One-token MLA against the latent cache: x (B, 1, D); pos (B,) or
     (B, 1). Writes the token's ``c``, ``k_R`` and position into slot ``pos
@@ -502,6 +480,118 @@ def mla_decode_attend(p: MLAttention, cfg, x, cache, pos):
         out = torch.einsum("bhr,hvr->bhv", lat.to(x.dtype), w_b[:, dn:])
         y = F.linear(out.reshape(b, 1, h * dv), p.wo.weight.to(x.dtype))
     return y, cache
+
+
+# ---------------------------------------------------------------------------
+# The attention kind of a config's blocks
+# ---------------------------------------------------------------------------
+
+
+def gqa_kw(cfg) -> dict:
+    """The head, rope and window keywords of ``attend``, ``decode_attend``
+    and their sharded forms for ``cfg``'s self-attention: no rope in the
+    encoder-decoder family, which takes its positions as embeddings; the
+    window a hybrid's ``local_window``, the others' ``sliding_window``
+    (None: full attention)."""
+    return dict(n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
+                head_dim=cfg.head_dim_, rope_theta=cfg.rope_theta,
+                window=(cfg.local_window if cfg.family == "hybrid"
+                        else cfg.sliding_window),
+                use_rope=cfg.family != "encdec")
+
+
+class GQA:
+    """Grouped-query attention and its K/V cache: every config's but an
+    ``MLAConfig``'s, whisper's decoder too. What a kind gives the block
+    layer: ``empty(cfg, device)`` / ``init(gen, cfg)`` the module,
+    uninitialised or drawn from ``gen``; ``seq(p, cfg, x, positions,
+    cache)`` the causal full-sequence pass, ``(y, cache)``, the block's
+    cache ``cache`` refilled from the pass (prefill) or None (training);
+    ``decode(p, cfg, x, cache, pos)`` one step against the cache, in
+    place; ``cache_shapes(cfg, batch, cache_len, dtype)`` the cache's
+    ``{name: (shape, dtype)}``; ``no_mesh`` why it has no sharded path
+    (None: it has one)."""
+
+    no_mesh = None
+
+    @staticmethod
+    def empty(cfg, device):
+        return Attention(cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+                         cfg.head_dim_, qkv_bias=cfg.qkv_bias,
+                         qk_norm=cfg.qk_norm, device=device)
+
+    @staticmethod
+    def init(gen, cfg):
+        return init_attention(gen, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+                              cfg.head_dim_, qkv_bias=cfg.qkv_bias,
+                              qk_norm=cfg.qk_norm)
+
+    @staticmethod
+    def seq(p, cfg, x, positions, cache):
+        y, (k, v) = attend(p, x, positions, dense_max_seq=cfg.dense_attn_max,
+                           kv_block=cfg.kv_block, **gqa_kw(cfg))
+        if cache is not None:
+            cache = cache_from_prefill(k, v, positions, cache["k"].shape[2])
+        return y, cache
+
+    @staticmethod
+    def decode(p, cfg, x, cache, pos):
+        return decode_attend(p, x, cache, pos, **gqa_kw(cfg))
+
+    @staticmethod
+    def cache_shapes(cfg, batch, cache_len, dtype):
+        window = gqa_kw(cfg)["window"]
+        clen = min(cache_len, window) if window else cache_len
+        kv = (batch, cfg.n_kv_heads, clen, cfg.head_dim_)
+        return {"k": (kv, dtype), "v": (kv, dtype),
+                "pos": ((batch, clen), torch.int32)}
+
+
+class MLA:
+    """Multi-head latent attention and its latent cache, an
+    ``MLAConfig``'s: ``GQA``'s operations, on one device only."""
+
+    no_mesh = ("multi-head latent attention (MLA) runs on one device; it "
+               "has no sharded path")
+    empty = MLAttention
+    init = staticmethod(init_mla)
+    decode = staticmethod(mla_decode_attend)
+
+    @staticmethod
+    def seq(p, cfg, x, positions, cache):
+        """A prefill's latent goes into the first S slots of ``cache``'s
+        length (no window: MLA attends to every earlier position)."""
+        y, (c, k_r) = mla_attend(p, cfg, x, positions)
+        if cache is None:
+            return y, None
+        s, cache_len = c.shape[1], cache["c"].shape[1]
+        if s > cache_len:
+            raise ValueError(f"a prefill of {s} positions into a latent "
+                             f"cache of {cache_len}")
+        pos2 = _broadcast_positions(positions, c.shape[:2]).to(torch.int32)
+        pad = cache_len - s
+        return y, {"c": F.pad(c, (0, 0, 0, pad)),
+                   "kr": F.pad(k_r, (0, 0, 0, pad)),
+                   "pos": F.pad(pos2, (0, pad), value=-1)}
+
+    @staticmethod
+    def cache_shapes(cfg, batch, cache_len, dtype):
+        return {"c": ((batch, cache_len, cfg.kv_lora_rank), dtype),
+                "kr": ((batch, cache_len, cfg.qk_rope_head_dim), dtype),
+                "pos": ((batch, cache_len), torch.int32)}
+
+
+def kind_of(cfg):
+    """The attention of ``cfg``'s blocks: ``MLA`` for an ``MLAConfig``,
+    else ``GQA``."""
+    return MLA if isinstance(cfg, MLAConfig) else GQA
+
+
+def check_mesh(cfg) -> None:
+    """Raise ``NotImplementedError`` when ``cfg``'s attention has no
+    sharded path."""
+    if kind_of(cfg).no_mesh:
+        raise NotImplementedError(f"{cfg.name}: {kind_of(cfg).no_mesh}")
 
 
 # ---------------------------------------------------------------------------

@@ -24,7 +24,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig, ShapeSpec
 from repro_torch.core.types import resolve_device
-from repro_torch.models import transformer, whisper
+from repro_torch.models import attention, transformer, whisper
 
 COMPUTE_DTYPE = torch.bfloat16
 
@@ -167,12 +167,8 @@ def input_specs(cfg: ModelConfig, shape: ShapeSpec, *,
 
 def effective_cache_len(cfg: ModelConfig, shape: ShapeSpec) -> int:
     """Rolling-buffer truncation for windowed archs."""
-    s = shape.seq_len
-    if cfg.family == "hybrid" and cfg.local_window:
-        return min(s, cfg.local_window)
-    if cfg.sliding_window:
-        return min(s, cfg.sliding_window)
-    return s
+    window = attention.gqa_kw(cfg)["window"]
+    return min(shape.seq_len, window) if window else shape.seq_len
 
 
 def cache_specs(cfg: ModelConfig, shape: ShapeSpec,

@@ -18,12 +18,11 @@ Block kinds: ``attn_mlp`` and ``attn_moe`` (attention with an MLP or a
 MoE mixer), ``rwkv`` (RWKV-6), ``rec_mlp`` (a Griffin recurrent block
 and an MLP).
 
-An ``MLAConfig`` (DeepSeek-V2) builds its attention blocks with
-``MLAttention`` and starts with ``n_dense_layers`` ``attn_mlp`` blocks in
-``head`` (unrolled, like ``tail``; empty for every other config), then
-``attn_moe`` groups. Its cache holds the latent per layer (``{"c": (L, B,
-S, kv_lora_rank), "kr": (L, B, S, qk_rope), "pos"}``, the head's under
-``head``). It runs on one device: its sharded functions raise.
+An attention block's attention, cache layout and sharded path are its
+config's attention kind's (``attention.kind_of``: GQA, or DeepSeek-V2's
+MLA with its latent cache). A MoE config's ``n_dense_layers`` leading
+``attn_mlp`` blocks lie in ``head``, unrolled like ``tail`` (empty for
+every config but DeepSeek-V2's).
 
 On a mesh (``*_sharded``: an active ``Policy`` and a ``ShardedModule``
 or its per-rank views; activations, caches and tokens as ``PerRank``
@@ -54,7 +53,7 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.configs.base import MLAConfig, ModelConfig
+from repro_torch.configs.base import ModelConfig
 from repro_torch.core.types import resolve_device
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import griffin as griffin_mod
@@ -143,43 +142,21 @@ class RecBlock(nn.Module):
         self.mlp = mlp_
 
 
-def _moe_args(cfg: ModelConfig):
-    return (cfg.d_model, cfg.d_ff_expert or cfg.d_ff, cfg.n_experts)
-
-
-def _is_mla(cfg: ModelConfig) -> bool:
-    return isinstance(cfg, MLAConfig)
-
-
 def _moe_kw(cfg: ModelConfig) -> dict:
-    """``MoE`` keywords: shared experts and, for an ``MLAConfig``, the held
-    share and ungated shared experts."""
-    kw = dict(n_shared=cfg.n_shared_experts, d_ff_shared=cfg.d_ff_shared)
-    if _is_mla(cfg):
-        kw.update(n_held=cfg.n_held, shared_gate=False)
-    return kw
-
-
-def _no_mesh(cfg: ModelConfig) -> None:
-    """Raise for a config that has no sharded path (MLA)."""
-    if _is_mla(cfg):
-        raise NotImplementedError(
-            f"{cfg.name}: multi-head latent attention (MLA) runs on one "
-            "device; it has no sharded path")
+    """``MoE`` / ``init_moe`` arguments: widths, experts held and shared,
+    the shared experts' gate."""
+    return dict(d_model=cfg.d_model, d_ff_expert=cfg.d_ff_expert or cfg.d_ff,
+                n_experts=cfg.n_experts, n_held=cfg.n_held,
+                n_shared=cfg.n_shared_experts, d_ff_shared=cfg.d_ff_shared,
+                shared_gate=cfg.shared_gate)
 
 
 def _empty_block(cfg: ModelConfig, kind: str, device) -> nn.Module:
     """A block of ``kind`` with uninitialised weights."""
     if kind in ("attn_mlp", "attn_moe"):
-        if _is_mla(cfg):
-            attn = attn_mod.MLAttention(cfg, device=device)
-        else:
-            attn = attn_mod.Attention(
-                cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_,
-                qkv_bias=cfg.qkv_bias, qk_norm=cfg.qk_norm, device=device)
+        attn = attn_mod.kind_of(cfg).empty(cfg, device)
         if kind == "attn_moe":
-            return AttnBlock(cfg, attn, MoE(*_moe_args(cfg), device=device,
-                                            **_moe_kw(cfg)))
+            return AttnBlock(cfg, attn, MoE(device=device, **_moe_kw(cfg)))
         return AttnBlock(cfg, attn, MLP(cfg.d_model, cfg.d_ff,
                                         gated=(cfg.act == "silu"),
                                         device=device))
@@ -193,27 +170,13 @@ def _empty_block(cfg: ModelConfig, kind: str, device) -> nn.Module:
     raise ValueError(kind)
 
 
-def _init_attn_block(gen: torch.Generator, cfg: ModelConfig, *,
-                     mixer: str) -> AttnBlock:
-    """mixer: 'mlp' or 'moe'."""
-    if _is_mla(cfg):
-        attn = attn_mod.init_mla(gen, cfg)
-    else:
-        attn = attn_mod.init_attention(
-            gen, cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_,
-            qkv_bias=cfg.qkv_bias, qk_norm=cfg.qk_norm)
-    if mixer == "moe":
-        return AttnBlock(cfg, attn, init_moe(gen, *_moe_args(cfg),
-                                             **_moe_kw(cfg)))
-    return AttnBlock(cfg, attn, init_mlp(gen, cfg.d_model, cfg.d_ff,
-                                         gated=(cfg.act == "silu")))
-
-
 def _init_block(gen, cfg, kind):
-    if kind == "attn_mlp":
-        return _init_attn_block(gen, cfg, mixer="mlp")
-    if kind == "attn_moe":
-        return _init_attn_block(gen, cfg, mixer="moe")
+    if kind in ("attn_mlp", "attn_moe"):
+        attn = attn_mod.kind_of(cfg).init(gen, cfg)
+        if kind == "attn_moe":
+            return AttnBlock(cfg, attn, init_moe(gen, **_moe_kw(cfg)))
+        return AttnBlock(cfg, attn, init_mlp(gen, cfg.d_model, cfg.d_ff,
+                                             gated=(cfg.act == "silu")))
     if kind == "rwkv":
         return rwkv_mod.init_rwkv_block(gen, cfg.d_model, cfg.d_ff,
                                         cfg.rwkv_heads, cfg.rwkv_head_dim)
@@ -224,35 +187,17 @@ def _init_block(gen, cfg, kind):
     raise ValueError(kind)
 
 
-def _attn_block_seq(p: AttnBlock, cfg, x, positions, cache, *, window,
-                    decode=False):
+def _attn_block_seq(p: AttnBlock, cfg, x, positions, cache, *, decode=False):
     """Returns (x, cache, aux). ``cache`` is None in training; in prefill
-    the returned cache is a new one built from this pass's K/V."""
+    the returned cache is a new one built from this pass (the config's
+    attention kind's layout)."""
     _, norm = _norm_fns(cfg)
     h = norm(p.norm1, x)
-    if _is_mla(cfg):
-        if decode:
-            o, cache = attn_mod.mla_decode_attend(p.attn, cfg, h, cache,
-                                                  positions)
-        else:
-            o, (c, k_r) = attn_mod.mla_attend(p.attn, cfg, h, positions)
-            if cache is not None:
-                cache = attn_mod.mla_cache_from_prefill(
-                    c, k_r, positions, cache["c"].shape[1])
-    elif decode:
-        o, cache = attn_mod.decode_attend(
-            p.attn, h, cache, positions, n_heads=cfg.n_heads,
-            n_kv_heads=cfg.n_kv_heads, head_dim=cfg.head_dim_,
-            rope_theta=cfg.rope_theta, window=window)
+    attn = attn_mod.kind_of(cfg)
+    if decode:
+        o, cache = attn.decode(p.attn, cfg, h, cache, positions)
     else:
-        o, (k, v) = attn_mod.attend(
-            p.attn, h, positions, n_heads=cfg.n_heads,
-            n_kv_heads=cfg.n_kv_heads, head_dim=cfg.head_dim_,
-            rope_theta=cfg.rope_theta, kind="causal", window=window,
-            dense_max_seq=cfg.dense_attn_max, kv_block=cfg.kv_block)
-        if cache is not None:
-            cache = attn_mod.cache_from_prefill(k, v, positions,
-                                                cache["k"].shape[2])
+        o, cache = attn.seq(p.attn, cfg, h, positions, cache)
     x = x + o
     h = norm(p.norm2, x)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -289,40 +234,29 @@ def _rec_block_seq(p: RecBlock, cfg, x, state, *, decode=False):
 
 
 def _plan(cfg: ModelConfig):
-    """(group_kinds, n_groups, tail_kinds): the block kinds of one group, how
-    many times the group repeats, and unrolled trailing blocks (a hybrid
-    depth the pattern does not divide)."""
+    """(head_kinds, group_kinds, n_groups, tail_kinds): unrolled leading
+    blocks (a MoE config's ``n_dense_layers`` dense ones), the block kinds
+    of one group, how many times the group repeats, and unrolled trailing
+    blocks (a hybrid depth the pattern does not divide)."""
     if cfg.family in ("dense", "vlm"):
-        return ("attn_mlp",), cfg.n_layers, ()
+        return (), ("attn_mlp",), cfg.n_layers, ()
     if cfg.family == "moe":
-        return ("attn_moe",), cfg.n_layers - len(_head_kinds(cfg)), ()
+        return (("attn_mlp",) * cfg.n_dense_layers, ("attn_moe",),
+                cfg.n_layers - cfg.n_dense_layers, ())
     if cfg.family == "ssm":
-        return ("rwkv",), cfg.n_layers, ()
+        return (), ("rwkv",), cfg.n_layers, ()
     if cfg.family == "hybrid":
         pat = cfg.pattern or ("rec", "rec", "attn")
         kinds = tuple("attn_mlp" if k == "attn" else "rec_mlp" for k in pat)
         n = cfg.n_layers // len(pat)
-        return kinds, n, kinds[:cfg.n_layers - n * len(pat)]
+        return (), kinds, n, kinds[:cfg.n_layers - n * len(pat)]
     raise ValueError(f"{cfg.family!r}: not a decoder-only family (the "
                      "encoder-decoder family is models/whisper.py)")
 
 
-def _head_kinds(cfg: ModelConfig) -> tuple:
-    """Unrolled leading blocks: an ``MLAConfig``'s dense layers."""
-    return ("attn_mlp",) * cfg.n_dense_layers if _is_mla(cfg) else ()
-
-
-def _window_for(cfg: ModelConfig, kind: str):
-    """The attention window: hybrids use ``local_window``, the others
-    ``sliding_window`` (None for full attention)."""
-    if cfg.family == "hybrid":
-        return cfg.local_window
-    return cfg.sliding_window
-
-
 class LM(nn.Module):
-    """``embed``, ``head`` (leading blocks, empty but for an ``MLAConfig``'s
-    dense layers), ``layers`` (groups of blocks), ``tail`` (trailing blocks,
+    """``embed``, ``head`` (leading blocks, the config's ``n_dense_layers``;
+    mostly empty), ``layers`` (groups of blocks), ``tail`` (trailing blocks,
     empty unless the plan has some), ``final_norm`` and, unless the
     embeddings are tied, ``lm_head`` (``nn.Linear``, weight (V, d)). Built
     with uninitialised weights (``convert.lm_params_from_reference`` copies
@@ -331,11 +265,11 @@ class LM(nn.Module):
 
     def __init__(self, cfg: ModelConfig, device=None, make_block=None):
         super().__init__()
-        kinds, n_groups, tail = _plan(cfg)
+        head, kinds, n_groups, tail = _plan(cfg)
         make_block = make_block or (lambda kind: _empty_block(cfg, kind, device))
         norm_cls, _ = _norm_fns(cfg)
         self.embed = Embed(cfg.vocab, cfg.d_model, device)
-        self.head = nn.ModuleList(make_block(kind) for kind in _head_kinds(cfg))
+        self.head = nn.ModuleList(make_block(kind) for kind in head)
         self.layers = nn.ModuleList(
             nn.ModuleDict({f"b{i}_{kind}": make_block(kind)
                            for i, kind in enumerate(kinds)})
@@ -368,16 +302,8 @@ def _block_cache_shapes(cfg: ModelConfig, kind: str, batch: int,
     """One block's cache as ``{name: (shape, dtype)}``. ``dtype`` is that
     of the K/V cache and of RWKV's token shifts; RWKV's ``wkv`` and
     Griffin's state are float32."""
-    if kind in ("attn_mlp", "attn_moe") and _is_mla(cfg):
-        return {"c": ((batch, cache_len, cfg.kv_lora_rank), dtype),
-                "kr": ((batch, cache_len, cfg.qk_rope_head_dim), dtype),
-                "pos": ((batch, cache_len), torch.int32)}
     if kind in ("attn_mlp", "attn_moe"):
-        window = _window_for(cfg, kind)
-        clen = min(cache_len, window) if window else cache_len
-        kv = (batch, cfg.n_kv_heads, clen, cfg.head_dim_)
-        return {"k": (kv, dtype), "v": (kv, dtype),
-                "pos": ((batch, clen), torch.int32)}
+        return attn_mod.kind_of(cfg).cache_shapes(cfg, batch, cache_len, dtype)
     if kind == "rwkv":
         return rwkv_mod.rwkv_state_shapes(batch, cfg.d_model, cfg.rwkv_heads,
                                           cfg.rwkv_head_dim, dtype)
@@ -390,10 +316,9 @@ def cache_shapes(cfg: ModelConfig, batch: int, cache_len: int,
                  dtype=torch.bfloat16) -> dict:
     """The cache's ``(shape, dtype)`` per tensor, allocating nothing: the
     groups' blocks stacked ``(n_groups, …)`` under ``layers``, the tail's
-    (and an MLA config's head's) unstacked under ``tail`` (``head``). With
+    (and the head's) unstacked under ``tail`` (``head``). With
     the default bf16 it is the reference's ``init_cache``."""
-    kinds, n_groups, tail = _plan(cfg)
-    head = _head_kinds(cfg)
+    head, kinds, n_groups, tail = _plan(cfg)
     out = {"layers": {
         f"b{i}_{kind}": {name: ((n_groups,) + shape, dt) for name, (shape, dt)
                          in _block_cache_shapes(cfg, kind, batch, cache_len,
@@ -438,8 +363,7 @@ def _apply_block(p, cfg, kind, x, positions, cache, decode):
     """One block; returns (x, new_cache, aux). A recurrent block in
     training (``cache`` None) starts from a zero state."""
     if kind in ("attn_mlp", "attn_moe"):
-        return _attn_block_seq(p, cfg, x, positions, cache,
-                               window=_window_for(cfg, kind), decode=decode)
+        return _attn_block_seq(p, cfg, x, positions, cache, decode=decode)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if kind == "rwkv":
         if cache is None:
@@ -495,9 +419,9 @@ def _run_stack(cfg, params: LM, x, positions, caches, decode):
     slice of the cache in place. In training (no caches) each head block and
     each group goes through ``maybe_checkpoint``; the tail is not
     recomputed."""
-    kinds, _, tail = _plan(cfg)
+    head, kinds, _, tail = _plan(cfg)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for i, kind in enumerate(_head_kinds(cfg)):
+    for i, kind in enumerate(head):
         if caches is None:
             x, a = maybe_checkpoint(_train_group, cfg,
                                     {f"b0_{kind}": params.head[i]}, cfg,
@@ -615,8 +539,8 @@ def _seq_chunk(xs, mesh):
                    for r, x in enumerate(xs))
 
 
-def _attn_sharded(ps, cfg, policy, xs, positions, caches, *, window, decode,
-                  sp, kind="causal", use_rope=True, kv_block=None):
+def _attn_sharded(ps, cfg, policy, xs, positions, caches, *, decode, sp,
+                  kind="causal", kv_block=None):
     """The attention half of a block on every rank: ``norm1``, head-parallel
     attention (``ps[r]`` rank r's block, gathered over ``data``), the
     reduction of ``wo``, the residual. ``sp``: the residual is split on
@@ -627,9 +551,7 @@ def _attn_sharded(ps, cfg, policy, xs, positions, caches, *, window, decode,
     _, norm = _norm_fns(cfg)
     m = axis_size(mesh, MODEL)
     hs = [norm(p.norm1, x) for p, x in zip(ps, xs)]
-    kw = dict(mesh=mesh, n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
-              head_dim=cfg.head_dim_, rope_theta=cfg.rope_theta, window=window,
-              use_rope=use_rope)
+    kw = dict(mesh=mesh, **attn_mod.gqa_kw(cfg))
     if decode:
         ys, caches = attn_mod.decode_attend_sharded(
             [p.attn for p in ps], hs, caches, positions, **kw)
@@ -725,15 +647,13 @@ def _norm_stationary(cfg, norms, xs, mesh):
     return norm_split(norms, xs, mesh=mesh, axis=DATA, eps=cfg.norm_eps)
 
 
-def _attn_stationary(blocks, cfg, policy, xs, pos, caches, *, window,
-                     use_rope=True):
+def _attn_stationary(blocks, cfg, policy, xs, pos, caches):
     """``norm1``, ``decode_attend_stationary``, the ``wo`` psum over
     ``model`` and the residual."""
     hs = _norm_stationary(cfg, [b.norm1 for b in blocks], xs, policy.mesh)
     ys, _ = attn_mod.decode_attend_stationary(
         [b.attn for b in blocks], hs, caches, pos, policy=policy,
-        n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads, head_dim=cfg.head_dim_,
-        rope_theta=cfg.rope_theta, window=window, use_rope=use_rope)
+        **attn_mod.gqa_kw(cfg))
     return [x + y.to(x.dtype) for x, y in zip(xs, psum(ys, policy.mesh, MODEL))]
 
 
@@ -772,8 +692,7 @@ def _block_stationary(cfg, policy, specs, blocks, prefix, kind, xs, pos,
             _store(cache, n)
         xs = [x + y.to(x.dtype) for x, y in zip(xs, psum(ys, mesh, MODEL))]
         return _mlp_stationary(blocks, cfg, policy, xs)
-    xs = _attn_stationary(blocks, cfg, policy, xs, pos, caches,
-                          window=_window_for(cfg, kind))
+    xs = _attn_stationary(blocks, cfg, policy, xs, pos, caches)
     if kind == "attn_mlp":
         return _mlp_stationary(blocks, cfg, policy, xs)
     # the MoE engine takes its rows whole, in the batch layout
@@ -838,8 +757,7 @@ def _block_sharded(cfg, policy, specs, blocks, prefix, kind, xs, positions,
                            extra=attn_mod.kv_extra_gather(
                                cfg.n_kv_heads, axis_size(mesh, MODEL), "attn."))
         xs, _ = _attn_sharded(ps, cfg, policy, xs, positions, caches,
-                              window=_window_for(cfg, kind), decode=decode,
-                              sp=sp)
+                              decode=decode, sp=sp)
         return _mixer_sharded(ps, cfg, policy, xs, sp=sp,
                               dropless=decode or caches is not None)
     xs, new = _rec_block_sharded(blocks, prefix, specs, cfg, policy, kind, xs,
@@ -857,7 +775,7 @@ def _run_stack_sharded(cfg, policy, specs, views, xs, positions, caches,
     rank). In training each group goes through ``maybe_checkpoint`` (the
     gathers are recomputed in the backward, not kept); the tail is not
     recomputed, as in ``_run_stack``."""
-    kinds, _, tail = _plan(cfg)
+    _, kinds, _, tail = _plan(cfg)
     n = len(views)
 
     def add(aux, a):
@@ -932,7 +850,8 @@ def _lm_specs(cfg: ModelConfig) -> dict:
 
 def _sharded_parts(cfg, params):
     """(per-rank views, parameter specs) of a ``ShardedModule`` or of its
-    views."""
+    views; raises for a config whose attention has no sharded path."""
+    attn_mod.check_mesh(cfg)
     if isinstance(params, ShardedModule):
         return rank_views(params), params.specs
     return list(params), _lm_specs(cfg)
@@ -943,7 +862,6 @@ def apply_train_sharded(cfg: ModelConfig, policy, params, tokens,
     """``apply_train`` on a mesh: tokens (and vision embeddings) per rank,
     batch rows on the batch axes. Returns (per-rank logits (B/|batch|, S,
     V/|model|) float32, per-rank aux, replicated)."""
-    _no_mesh(cfg)
     views, specs = _sharded_parts(cfg, params)
     mesh = policy.mesh
     xs = _embed_inputs_sharded(cfg, policy, specs, views, tokens, vision_embeds)
@@ -972,7 +890,6 @@ def prefill_sharded(cfg: ModelConfig, policy, params, tokens, cache_len,
     the cache: ``init_cache``'s tree with ``PerRank`` leaves, each rank's
     K/V (L, B/|batch|, Hkv, cache_len/|model|, Dh) and positions its slice
     of the sequence)."""
-    _no_mesh(cfg)
     views, specs = _sharded_parts(cfg, params)
     mesh = policy.mesh
     m = axis_size(mesh, MODEL)
@@ -1000,7 +917,6 @@ def decode_step_sharded(cfg: ModelConfig, policy, params, token, caches, pos):
     weights stay on their ranks and the residual lies split on d over
     ``data``; without it each block's weights are gathered over ``data``.
     Returns (per-rank logits (B/|batch|, V), caches)."""
-    _no_mesh(cfg)
     views, specs = _sharded_parts(cfg, params)
     mesh = policy.mesh
     if policy.decode_mode:

@@ -191,10 +191,9 @@ def init_params(gen: torch.Generator, cfg: ModelConfig,
 
 def _enc_body(p: EncBlock, cfg: ModelConfig, x, positions):
     h = layernorm(p.norm1, x)
-    o, _ = attn_mod.attend(
-        p.attn, h, positions, n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
-        head_dim=cfg.head_dim_, rope_theta=cfg.rope_theta, kind="full",
-        use_rope=False, dense_max_seq=cfg.dense_attn_max)
+    o, _ = attn_mod.attend(p.attn, h, positions, kind="full",
+                           dense_max_seq=cfg.dense_attn_max,
+                           **attn_mod.gqa_kw(cfg))
     x = x + o
     return x + mlp(p.mlp, layernorm(p.norm2, x), act="gelu")
 
@@ -223,19 +222,9 @@ def _dec_block(p: DecBlock, cfg: ModelConfig, x, positions, enc_kv, cache,
     in decode the token is written into ``cache`` in place."""
     h = layernorm(p.norm1, x)
     if decode:
-        o, cache = attn_mod.decode_attend(
-            p.attn, h, cache, positions, n_heads=cfg.n_heads,
-            n_kv_heads=cfg.n_kv_heads, head_dim=cfg.head_dim_,
-            rope_theta=cfg.rope_theta, window=None, use_rope=False)
+        o, cache = attn_mod.GQA.decode(p.attn, cfg, h, cache, positions)
     else:
-        o, (k, v) = attn_mod.attend(
-            p.attn, h, positions, n_heads=cfg.n_heads,
-            n_kv_heads=cfg.n_kv_heads, head_dim=cfg.head_dim_,
-            rope_theta=cfg.rope_theta, kind="causal", use_rope=False,
-            dense_max_seq=cfg.dense_attn_max, kv_block=cfg.kv_block)
-        if cache is not None:
-            cache = attn_mod.cache_from_prefill(k, v, positions,
-                                                cache["k"].shape[2])
+        o, cache = attn_mod.GQA.seq(p.attn, cfg, h, positions, cache)
     x = x + o
     h = layernorm(p.norm_x, x)
     x = x + attn_mod.cross_attend(
@@ -309,10 +298,10 @@ def cache_shapes(cfg: ModelConfig, batch: int, cache_len: int, enc_seq: int,
     self-attention K/V in ``dtype`` (bf16 in the reference's
     ``init_dec_cache``) and the cross K/V in ``COMPUTE_DTYPE``."""
     n = cfg.n_layers
-    kv = (n, batch, cfg.n_kv_heads, cache_len, cfg.head_dim_)
     cross = (n, batch, enc_seq, cfg.n_heads, cfg.head_dim_)
-    return {"layers": {"k": (kv, dtype), "v": (kv, dtype),
-                       "pos": ((n, batch, cache_len), torch.int32)},
+    return {"layers": {name: ((n,) + shape, dt) for name, (shape, dt) in
+                       attn_mod.GQA.cache_shapes(cfg, batch, cache_len,
+                                                 dtype).items()},
             "cross": {"k": (cross, COMPUTE_DTYPE), "v": (cross, COMPUTE_DTYPE)}}
 
 
@@ -390,9 +379,9 @@ def _gather_layer(cfg, specs, mesh, views, stack: str, i: int):
 
 def _enc_layer_sharded(cfg, policy, specs, views, i, xs, positions, sp):
     ps = _gather_layer(cfg, specs, policy.mesh, views, "enc_layers", i)
-    xs, _ = transformer._attn_sharded(
-        ps, cfg, policy, xs, positions, None, window=None, decode=False,
-        sp=sp, kind="full", use_rope=False, kv_block=ENC_KV_BLOCK)
+    xs, _ = transformer._attn_sharded(ps, cfg, policy, xs, positions, None,
+                                      decode=False, sp=sp, kind="full",
+                                      kv_block=ENC_KV_BLOCK)
     return transformer._mixer_sharded(ps, cfg, policy, xs, sp=sp)[0]
 
 
@@ -437,8 +426,7 @@ def _dec_layer_sharded(cfg, policy, specs, views, i, xs, positions, enc,
                                      head_dim=cfg.head_dim_)
                  for p, e in zip(ps, enc)]
     xs, _ = transformer._attn_sharded(ps, cfg, policy, xs, positions, cache,
-                                      window=None, decode=decode, sp=sp,
-                                      use_rope=False)
+                                      decode=decode, sp=sp)
     hs = [layernorm(p.norm_x, x) for p, x in zip(ps, xs)]
     if sp:
         hs = all_gather(hs, mesh, MODEL, 1)
@@ -587,8 +575,7 @@ def _decode_stationary(cfg, policy, views, token, caches, pos):
         blocks = [v.layers[i] for v in views]
         cache = [{name: t[r][i] for name, t in caches["layers"].items()}
                  for r in range(len(views))]
-        xs = transformer._attn_stationary(blocks, cfg, policy, xs, pos, cache,
-                                          window=None, use_rope=False)
+        xs = transformer._attn_stationary(blocks, cfg, policy, xs, pos, cache)
         hs = transformer._norm_stationary(cfg, [b.norm_x for b in blocks], xs,
                                           mesh)
         ys = attn_mod.cross_attend_stationary(

@@ -54,7 +54,7 @@ from repro_torch.models.model import (
     input_shapes,
 )
 from repro_torch.launch.mesh import axis_index, axis_size
-from repro_torch.models import transformer
+from repro_torch.models import attention, transformer
 from repro_torch.models.transformer import LM
 from repro_torch.models.whisper import Whisper
 from repro_torch.optim import adamw, compression
@@ -243,7 +243,7 @@ def make_train_step(
     baxes = batch_axes_for(shape.global_batch // microbatches, mesh)
     policy = Policy.none()
     if mesh is not None:
-        transformer._no_mesh(cfg)
+        attention.check_mesh(cfg)
         policy = dataclasses.replace(Policy.for_mesh(mesh), batch_axes=baxes,
                                      seq_shard_residual=cfg.sp_residual)
     full_axes = batch_axes_for(shape.global_batch, mesh)
@@ -447,6 +447,7 @@ def _serve_policy(cfg: ModelConfig, shape: ShapeSpec, mesh, **kw):
     baxes = batch_axes_for(shape.global_batch, mesh)
     if mesh is None:
         return Policy.none(), baxes
+    attention.check_mesh(cfg)
     return dataclasses.replace(Policy.for_mesh(mesh), batch_axes=baxes,
                                **kw), baxes
 
@@ -455,8 +456,6 @@ def make_prefill_step(cfg: ModelConfig, shape: ShapeSpec, mesh=None) -> StepBuil
     """``fn(params, batch) -> (last logits, cache)`` at ``shape``'s cache
     length (rolling for windowed archs); sharded with a ``mesh``."""
     model = build(cfg)
-    if mesh is not None:
-        transformer._no_mesh(cfg)
     clen = effective_cache_len(cfg, shape)
     policy, baxes = _serve_policy(cfg, shape, mesh)
 
@@ -487,8 +486,6 @@ def make_decode_step(cfg: ModelConfig, shape: ShapeSpec, mesh=None) -> StepBuild
     """``fn(params, caches, token, pos) -> (logits, caches)``, the cache
     updated in place; sharded with a ``mesh``."""
     model = build(cfg)
-    if mesh is not None:
-        transformer._no_mesh(cfg)
     policy, baxes = _serve_policy(cfg, shape, mesh, decode_mode=True)
 
     def decode_fn(params, caches, token, pos):

@@ -17,7 +17,9 @@ copy the benchmark uses too) on seeded random weights.
 * the MoE counters: kept + dropped + absent = tokens × top_k, once a layer
   whatever the recompute;
 * ``ARCHS`` and every existing config untouched; MLA under a mesh raises;
-  the parameter count; the launch CLIs take the architecture;
+  only ``models/attention.py`` names the MLA config type or its
+  functions, not the block layer or the steps; the parameter count; the
+  launch CLIs take the architecture;
 * the attention core kernels' algorithm (``kernels/mla_attention.py``:
   tiled online softmax, saved logsumexp, dS = P (dP - D)), in plain
   PyTorch here, against autograd through ``_sdpa`` in float32, over a
@@ -25,8 +27,10 @@ copy the benchmark uses too) on seeded random weights.
   keep ``_sdpa``; the core's backward is attributed to ``lm.mla.core`` by
   ``tmbench/lm_spans.py``'s rule.
 """
+import ast
 import dataclasses
 import math
+import pathlib
 
 import pytest
 import torch
@@ -249,6 +253,40 @@ def test_archs_and_every_existing_config_are_unchanged():
 def test_mla_under_a_mesh_names_mla(kind):
     with pytest.raises(NotImplementedError, match="MLA"):
         steps.make_step(CFG, ShapeSpec("t", kind, 16, 4), make_mesh(2, 2, device="cpu"))
+
+
+def _identifiers(path):
+    """Every name a module binds or reads: names, attributes (with the
+    name they hang on), imports, definitions and arguments."""
+    out = set()
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Name):
+            out.add(node.id)
+        elif isinstance(node, ast.Attribute):
+            out.add(node.attr)
+            if isinstance(node.value, ast.Name):
+                out.add(f"{node.value.id}.{node.attr}")
+        elif isinstance(node, ast.alias):
+            out.add(node.asname or node.name)
+            out.add(node.name)
+        elif isinstance(node, (ast.FunctionDef, ast.ClassDef)):
+            out.add(node.name)
+        elif isinstance(node, ast.arg):
+            out.add(node.arg)
+    return out
+
+
+def test_only_the_attention_module_knows_which_attention_a_config_runs():
+    port = pathlib.Path(attention.__file__).parents[1]
+    for rel in ("models/transformer.py", "steps.py"):
+        names = _identifiers(port / rel)
+        assert not {n for n in names if n in ("MLAConfig", "_is_mla")
+                    or n.startswith("mla_")}, rel
+    assert not {n for n in _identifiers(port / "steps.py")
+                if n.startswith("transformer._")}
+    naming = {p.name for p in (port / "models").glob("*.py")
+              if "MLAConfig" in _identifiers(p)}
+    assert naming == {"attention.py"}
 
 
 def test_the_parameter_count_is_the_modules():

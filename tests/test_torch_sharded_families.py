@@ -400,8 +400,8 @@ def expected_decode_collectives(cfg, data: int, m: int) -> dict:
     MLP); per RWKV-6 block the two shift all_gathers, two wkv all_to_alls,
     the ``w_o`` psum, the channel mix's psum_scatter and all_gather;
     whisper adds the cross-attention's psum."""
-    kinds, n_groups, tail = transformer._plan(cfg) if cfg.family != "encdec" \
-        else (("dec",), cfg.n_layers, ())
+    _, kinds, n_groups, tail = transformer._plan(cfg) if cfg.family != "encdec" \
+        else ((), ("dec",), cfg.n_layers, ())
     blocks = list(kinds) * n_groups + list(tail)
     norm = 2 if cfg.norm == "layernorm" else 1
     per = {"rwkv": {"all_gather/data": 8, "all_to_all/data": 2,
